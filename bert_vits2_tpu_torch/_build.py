@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("banded_attn.cu", "mrf.cu")
+SOURCES = ("banded_attn.cu", "mrf.cu", "mas.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,6 +37,12 @@ SIGNATURES = {
         # x, mask, weights, out, b, c, t, tile, nb, ks, ns, dils, offs,
         # device, stream
         "mrf_fwd": [_P] * 4 + [_I] * 5 + [_P] * 4 + [_I, _P],
+    },
+    "mas.cu": {
+        # neg_cent, t_ys, t_xs, path, decisions, b, t_y, t_x, device, stream
+        "mas_fwd": [_P] * 5 + [_I] * 4 + [_P],
+        # out, steps, threads, device, stream
+        "mas_sync_probe": [_P] + [_I] * 3 + [_P],
     },
 }
 

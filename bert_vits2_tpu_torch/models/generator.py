@@ -9,10 +9,11 @@ Static-shape re-masking: with a frame mask, the mask is repeated per stage
 and applied before every conv, after every block and on the wave, so the
 padded frames of a batched call cannot bleed into the valid audio.
 
-Stages whose channel count the MRF kernel K2 takes (0 < C < 128,
-C % 8 == 0) run through `ops.mrf.fused_mrf` on weight-norm-resolved
-weights (resolved once per engine, see `pack_mrf`); the other stages run
-the ResBlock modules.
+The caller chooses the MRF path by what it passes: with `mrf_packed`
+(`pack_mrf()`, weight norm resolved once per engine) the stages that have
+an entry run through the kernel K2 (`ops.mrf.fused_mrf`, inference only);
+the other stages, and every stage when `mrf_packed` is None (always so in
+training), run the ResBlock modules, which are differentiable.
 """
 
 from __future__ import annotations
@@ -130,15 +131,16 @@ class Generator(nn.Module):
             ch, self.kernel_sizes, self.dilation_sizes)
 
     def pack_mrf(self) -> list[MrfWeights | None]:
-        """Weight-norm-resolved MRF weights per stage (None for a stage that
-        runs the ResBlock modules). Resolve once and pass to forward."""
+        """Weight-norm-resolved MRF weights per stage: an entry for a stage
+        whose channel count K2 takes (0 < C < 128, C % 8 == 0), None for one
+        that runs the ResBlock modules. Resolve once and pass to forward."""
         return [prepare_mrf_weights(self._stage_blocks(i))
                 if self._fused_stage(i) else None
                 for i in range(len(self.ups))]
 
     def forward(self, x, g=None, y_mask=None, mrf_packed=None):
-        """x: [b, c, t]; g: [b, gin]; y_mask: [b, t] or None
-        -> wave [b, t * hop]."""
+        """x: [b, c, t]; g: [b, gin]; y_mask: [b, t] or None; mrf_packed:
+        `pack_mrf()` or None -> wave [b, t * hop]."""
         mask = None if y_mask is None else y_mask[:, None, :].to(x.dtype)
         x = self.conv_pre(x)
         if g is not None and self.cond is not None:
@@ -150,9 +152,8 @@ class Generator(nn.Module):
             if mask is not None:
                 mask = mask.repeat_interleave(u, dim=2)
                 x = x * mask
-            if self._fused_stage(i):
-                packed = (mrf_packed[i] if mrf_packed is not None
-                          else prepare_mrf_weights(self._stage_blocks(i)))
+            packed = None if mrf_packed is None else mrf_packed[i]
+            if packed is not None:
                 m = (mask[:, 0] if mask is not None
                      else x.new_ones(x.shape[0], x.shape[2]))
                 x = fused_mrf(x.contiguous(), m.contiguous(), packed)

@@ -1,20 +1,30 @@
-"""Top-level VITS2 synthesizer, inference half (reference: models.py:811-1074).
+"""Top-level VITS2 synthesizer (reference: SynthesizerTrn, models.py:811-1074).
 
-Counterpart of `Synthesizer.predict_durations` and `Synthesizer.infer` in
-`bert_vits2_tpu/models/synthesizer.py`. The submodules carry the reference's
-state_dict names (enc_p, dec, flow, sdp, dp, emb_g); the posterior encoder
-`enc_q` and the training forward come with the training slice.
+Counterpart of `bert_vits2_tpu/models/synthesizer.py`: `forward` is the
+training forward, `predict_durations` and `infer` the inference half. The
+submodules carry the reference's state_dict names (enc_p, enc_q, dec, flow,
+sdp, dp, emb_g).
+
+The training forward runs monotonic alignment search on the device (kernel
+K3, `ops/align.py`) with no gradient, then the duration losses, the prior
+expansion and a random decoder slice. It draws noise five times, in this
+order, through `ops/noise.py`: the posterior sample, the MAS noise, the SDP
+`e_q`, the SDP reverse `z` and the slice starts.
 
 Synthesis is statically shaped like the JAX version: the caller fixes
 `max_frames`, predicted durations are masked into it, and `y_lengths` says
-where each item's audio ends. The public layout is the JAX package's (BERT
-features [b, t, dim], attn [b, t_y, t_x], waves [b, samples]); inside, the
-modules run in the reference layout [b, c, t]. The four knobs take scalars
-or [b] tensors. Noise comes from an explicit `torch.Generator`; tests pass
-the SDP noise `z_in` and the prior noise `eps` explicitly instead.
+where each item's audio ends. The public layout of the inputs is the JAX
+package's (BERT features [b, t, dim], spectrograms [b, t, bins], attn
+[b, t_y, t_x], waves [b, samples]); inside, and in the training forward's
+outputs, tensors are in the reference layout [b, c, t]. The four inference
+knobs take scalars or [b] tensors. Noise comes from an explicit
+`torch.Generator`; tests pass the SDP noise `z_in` and the prior noise `eps`
+of `infer` explicitly instead.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -27,8 +37,15 @@ from bert_vits2_tpu_torch.models.duration import (
 )
 from bert_vits2_tpu_torch.models.flow import TransformerCouplingBlock
 from bert_vits2_tpu_torch.models.generator import Generator
+from bert_vits2_tpu_torch.models.posterior import PosteriorEncoder
 from bert_vits2_tpu_torch.models.text_encoder import TextEncoder
-from bert_vits2_tpu_torch.ops.masking import generate_path, sequence_mask
+from bert_vits2_tpu_torch.ops import noise
+from bert_vits2_tpu_torch.ops.align import maximum_path
+from bert_vits2_tpu_torch.ops.masking import (
+    generate_path,
+    rand_slice_segments,
+    sequence_mask,
+)
 
 
 def _knob(v, rank: int, ref: torch.Tensor) -> torch.Tensor:
@@ -48,13 +65,18 @@ class Synthesizer(nn.Module):
             raise NotImplementedError("only multi-speaker configs (emb_g)")
         if cfg.infer_compute_dtype != "float32":
             raise NotImplementedError("only float32 synthesis")
+        if cfg.train_compute_dtype != "float32":
+            raise NotImplementedError(
+                "only float32 training: the bf16 policy of train_compute_dtype "
+                "is not ported yet (ROADMAP item A.15, bf16 policy)")
         self.cfg = cfg
         c = cfg
         gin = (c.gin_channels
                if c.use_spk_conditioned_encoder and c.gin_channels > 0 else 0)
         self.enc_p = TextEncoder(
             c.n_vocab, c.inter_channels, c.hidden_channels, c.filter_channels,
-            c.n_heads, c.n_layers, c.kernel_size, num_tones=c.num_tones,
+            c.n_heads, c.n_layers, c.kernel_size, c.p_dropout,
+            num_tones=c.num_tones,
             num_languages=c.num_languages, bert_dim=c.bert_dim,
             gin_channels=gin, use_ja_bert=c.use_ja_bert,
             use_en_bert=c.use_en_bert, ja_bert_dim=c.ja_bert_dim)
@@ -65,13 +87,90 @@ class Synthesizer(nn.Module):
             gin_channels=c.gin_channels)
         self.flow = TransformerCouplingBlock(
             c.inter_channels, c.hidden_channels, c.filter_channels, c.n_heads,
-            c.n_layers_trans_flow, 5, n_flows=c.n_flow_layer,
+            c.n_layers_trans_flow, 5, c.p_dropout, n_flows=c.n_flow_layer,
             gin_channels=c.gin_channels)
         self.sdp = StochasticDurationPredictor(
-            c.hidden_channels, 3, 4, gin_channels=c.gin_channels)
-        self.dp = DurationPredictor(c.hidden_channels, 256, 3,
+            c.hidden_channels, 3, 0.5, 4, gin_channels=c.gin_channels)
+        self.dp = DurationPredictor(c.hidden_channels, 256, 3, 0.5,
                                     gin_channels=c.gin_channels)
         self.emb_g = nn.Embedding(c.n_speakers, c.gin_channels)
+        # built last, so that the seeded init of the modules above (all that
+        # inference uses) does not depend on the training-only encoder
+        self.enc_q = PosteriorEncoder(
+            c.spec_channels, c.inter_channels, c.hidden_channels,
+            kernel_size=5, dilation_rate=1, n_layers=16,
+            gin_channels=c.gin_channels)
+
+    def forward(self, x, x_lengths, y, y_lengths, sid, tone, language, bert,
+                ja_bert, en_bert, mas_noise_scale=0.01, generator=None):
+        """Training forward (models.py:937-1024).
+
+        x, tone, language: [b, t_x] int; x_lengths, y_lengths, sid: [b];
+        y: linear spectrogram [b, t_y, spec]; bert, ja_bert, en_bert:
+        [b, t_x, dim]. Returns the JAX package's dictionary of outputs, in
+        the layout [b, c, t] (attn [b, t_y, t_x], masks [b, 1, t], l_length
+        [b], wave_slice [b, segment_samples], ids_slice [b])."""
+        g = self.emb_g(sid)
+        x_h, m_p, logs_p, x_mask = self.enc_p(
+            x, x_lengths, tone, language, bert.transpose(1, 2),
+            ja_bert.transpose(1, 2), en_bert.transpose(1, 2), g=g)
+        z, m_q, logs_q, y_mask = self.enc_q(y.transpose(1, 2), y_lengths, g=g,
+                                            generator=generator)
+        z_p = self.flow(z, y_mask, g=g)
+
+        # monotonic alignment search, no gradients (models.py:960-989)
+        with torch.no_grad():
+            s_p_sq_r = torch.exp(-2.0 * logs_p)  # [b, d, t_x]
+            nc1 = torch.sum(-0.5 * math.log(2 * math.pi) - logs_p, dim=1)
+            nc2 = torch.einsum("bdy,bdx->byx", -0.5 * z_p ** 2, s_p_sq_r)
+            nc3 = torch.einsum("bdy,bdx->byx", z_p, m_p * s_p_sq_r)
+            nc4 = torch.sum(-0.5 * m_p ** 2 * s_p_sq_r, dim=1)
+            neg_cent = nc1[:, None, :] + nc2 + nc3 + nc4[:, None, :]
+            if self.cfg.use_noise_scaled_mas:
+                eps = noise.randn(neg_cent.shape, generator, neg_cent.device)
+                neg_cent = neg_cent + (torch.std(neg_cent, correction=0) * eps
+                                       * mas_noise_scale)
+            attn = maximum_path(neg_cent.contiguous(), y_lengths, x_lengths)
+        w = attn.sum(dim=1)[:, None, :]  # [b, 1, t_x]
+
+        # duration losses (models.py:993-1004)
+        denom = torch.sum(x_mask)
+        l_length_sdp = self.sdp.nll(x_h, x_mask, w, g=g,
+                                    generator=generator) / denom
+        logw_ = torch.log(w + 1e-6) * x_mask
+        logw = self.dp(x_h, x_mask, g=g)
+        z_dur = noise.randn((x_h.shape[0], 2, x_h.shape[2]), generator,
+                            x_h.device, x_h.dtype)
+        logw_sdp = self.sdp.reverse(x_h, x_mask, z_dur, g=g)
+        l_length_dp = torch.sum((logw - logw_) ** 2, dim=(1, 2)) / denom
+        l_length_sdp = l_length_sdp + torch.sum(
+            (logw_sdp - logw_) ** 2, dim=(1, 2)) / denom
+
+        # expand the prior along the alignment (models.py:1007-1008)
+        m_p_y = torch.einsum("byx,bcx->bcy", attn, m_p)
+        logs_p_y = torch.einsum("byx,bcx->bcy", attn, logs_p)
+
+        z_slice, ids_slice = rand_slice_segments(
+            z, y_lengths, self.cfg.segment_size, generator)
+        return {
+            "wave_slice": self.dec(z_slice, g=g),
+            "l_length": l_length_dp + l_length_sdp,
+            "attn": attn,
+            "ids_slice": ids_slice,
+            "x_mask": x_mask,
+            "y_mask": y_mask,
+            "z": z,
+            "z_p": z_p,
+            "m_p": m_p_y,
+            "logs_p": logs_p_y,
+            "m_q": m_q,
+            "logs_q": logs_q,
+            "x_hidden": x_h,
+            "logw": logw,
+            "logw_": logw_,
+            "logw_sdp": logw_sdp,
+            "g": g,
+        }
 
     def _durations(self, x, x_lengths, sid, tone, language, bert, ja_bert,
                    en_bert, length_scale, noise_scale_w, sdp_ratio, generator,

@@ -22,7 +22,8 @@ from bert_vits2_tpu_torch.ops.masking import sequence_mask
 class TextEncoder(nn.Module):
     def __init__(self, n_vocab: int, out_channels: int, hidden_channels: int,
                  filter_channels: int, n_heads: int, n_layers: int,
-                 kernel_size: int, num_tones: int = 12, num_languages: int = 3,
+                 kernel_size: int, p_dropout: float = 0.0,
+                 num_tones: int = 12, num_languages: int = 3,
                  bert_dim: int = 1024, gin_channels: int = 0,
                  use_ja_bert: bool = True, use_en_bert: bool = True,
                  ja_bert_dim: int = 1024):
@@ -41,7 +42,7 @@ class TextEncoder(nn.Module):
                              if use_en_bert else None)
         self.encoder = Encoder(hidden_channels, filter_channels, n_heads,
                                n_layers, kernel_size=kernel_size,
-                               gin_channels=gin_channels)
+                               p_dropout=p_dropout, gin_channels=gin_channels)
         self.proj = conv1d(hidden_channels, out_channels * 2, 1)
 
     def forward(self, x, x_lengths, tone, language, bert, ja_bert, en_bert,

@@ -2,10 +2,14 @@
 
 Counterpart of `bert_vits2_tpu/nn/attention.py`, in the reference layout
 [b, c, t] with masks [b, 1, t] and the reference's parameter names. The
-attention keeps the JAX package's dispatch: a +-w window that fits the
-sequence (2w+1 <= t+1) goes through the banded kernel K1
-(`ops/attention.py`); a shorter sequence takes the window-embedding path in
-plain PyTorch. Speaker conditioning enters before layer `cond_layer_idx`.
+attention keeps the JAX package's dispatch (`MultiHeadAttention.forward`):
+a +-w window that fits the sequence (2w+1 <= t+1) goes through the banded
+kernel K1 (`ops/attention.py`) in the no-grad direction, and through the
+dense formula in plain PyTorch, with dropout on the probabilities, when
+gradients are wanted (grad mode on, or the module in train() mode); a
+shorter sequence takes the window-embedding path in plain PyTorch. Speaker
+conditioning enters before layer `cond_layer_idx`. Dropout sits where the
+JAX modules have it and is active in train() mode only.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from bert_vits2_tpu_torch.nn.conv import conv1d
 from bert_vits2_tpu_torch.nn.norm import LayerNorm
 from bert_vits2_tpu_torch.ops.attention import (
     NEG_FILL,
+    banded_attention_plain,
     banded_rel_self_attention,
 )
 
@@ -54,8 +59,9 @@ class MultiHeadAttention(nn.Module):
     sharing one +-window table."""
 
     def __init__(self, channels: int, out_channels: int, n_heads: int,
-                 window_size: int = 4):
+                 window_size: int = 4, p_dropout: float = 0.0):
         super().__init__()
+        self.p_dropout = p_dropout
         self.n_heads = n_heads
         self.k_channels = channels // n_heads
         self.window_size = window_size
@@ -78,18 +84,24 @@ class MultiHeadAttention(nn.Module):
 
         q = heads(self.conv_q(x)) * (1.0 / math.sqrt(d))
         k, v = heads(self.conv_k(x)), heads(self.conv_v(x))
-        if 2 * w + 1 <= t + 1:
+        p_drop = self.p_dropout if self.training else 0.0
+        if 2 * w + 1 > t + 1:
+            out = self._window_attention(q, k, v, x_mask, p_drop)
+        elif torch.is_grad_enabled() or self.training:
+            # the training direction (the JAX package's deterministic=False)
+            out = banded_attention_plain(
+                q, k, v, x_mask[:, 0], self.emb_rel_k[0], self.emb_rel_v[0], w,
+                dropout_p=p_drop)
+        else:
             out = banded_rel_self_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(),
                 x_mask[:, 0].contiguous(), self.emb_rel_k[0], self.emb_rel_v[0],
                 w,
             )
-        else:
-            out = self._window_attention(q, k, v, x_mask)
         out = out.transpose(2, 3).reshape(b, c, t)
         return self.conv_o(out)
 
-    def _window_attention(self, q, k, v, x_mask):
+    def _window_attention(self, q, k, v, x_mask, p_drop: float = 0.0):
         """Short sequences (t < 2w): the reference's skew formulation."""
         t, w = q.shape[2], self.window_size
         scores = torch.matmul(q, k.transpose(-1, -2))
@@ -99,6 +111,8 @@ class MultiHeadAttention(nn.Module):
         am = x_mask[:, :, :, None] * x_mask[:, :, None, :]
         scores = scores.masked_fill(am == 0, NEG_FILL)
         p = torch.softmax(scores, dim=-1)
+        if p_drop:
+            p = F.dropout(p, p_drop)
         out = torch.matmul(p, v)
         value_rel = _window_embeddings(self.emb_rel_v, t, w)
         return out + torch.einsum("bhtm,gmd->bhtd", _abs_to_rel(p), value_rel)
@@ -108,9 +122,11 @@ class FFN(nn.Module):
     """Conv feed-forward (attentions.py:398-464): relu, 'same' padding."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 filter_channels: int, kernel_size: int):
+                 filter_channels: int, kernel_size: int,
+                 p_dropout: float = 0.0):
         super().__init__()
         self.kernel_size = kernel_size
+        self.drop = nn.Dropout(p_dropout)
         self.conv_1 = conv1d(in_channels, filter_channels, kernel_size)
         self.conv_2 = conv1d(filter_channels, out_channels, kernel_size)
 
@@ -119,7 +135,7 @@ class FFN(nn.Module):
         return x if k == 1 else F.pad(x, ((k - 1) // 2, k // 2))
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.conv_1(self._pad(x * x_mask)))
+        x = self.drop(torch.relu(self.conv_1(self._pad(x * x_mask))))
         return self.conv_2(self._pad(x * x_mask)) * x_mask
 
 
@@ -128,22 +144,24 @@ class Encoder(nn.Module):
 
     def __init__(self, hidden_channels: int, filter_channels: int,
                  n_heads: int, n_layers: int, kernel_size: int = 1,
-                 window_size: int = 4, gin_channels: int = 0,
-                 cond_layer_idx: int = 2):
+                 p_dropout: float = 0.0, window_size: int = 4,
+                 gin_channels: int = 0, cond_layer_idx: int = 2):
         super().__init__()
         self.n_layers = n_layers
+        self.drop = nn.Dropout(p_dropout)
         self.cond_layer_idx = cond_layer_idx
         self.gin_channels = gin_channels
         if gin_channels > 0:
             self.spk_emb_linear = nn.Linear(gin_channels, hidden_channels)
         self.attn_layers = nn.ModuleList(
             MultiHeadAttention(hidden_channels, hidden_channels, n_heads,
-                               window_size=window_size)
+                               window_size=window_size, p_dropout=p_dropout)
             for _ in range(n_layers))
         self.norm_layers_1 = nn.ModuleList(
             LayerNorm(hidden_channels) for _ in range(n_layers))
         self.ffn_layers = nn.ModuleList(
-            FFN(hidden_channels, hidden_channels, filter_channels, kernel_size)
+            FFN(hidden_channels, hidden_channels, filter_channels, kernel_size,
+                p_dropout=p_dropout)
             for _ in range(n_layers))
         self.norm_layers_2 = nn.ModuleList(
             LayerNorm(hidden_channels) for _ in range(n_layers))
@@ -155,8 +173,8 @@ class Encoder(nn.Module):
         for i in range(self.n_layers):
             if i == self.cond_layer_idx and g is not None and self.gin_channels:
                 x = (x + self.spk_emb_linear(g)[:, :, None]) * x_mask
-            y = self.attn_layers[i](x, x_mask)
+            y = self.drop(self.attn_layers[i](x, x_mask))
             x = self.norm_layers_1[i](x + y)
-            y = self.ffn_layers[i](x, x_mask)
+            y = self.drop(self.ffn_layers[i](x, x_mask))
             x = self.norm_layers_2[i](x + y)
         return x * x_mask

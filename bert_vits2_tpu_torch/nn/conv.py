@@ -8,6 +8,8 @@ names and shapes are those of a reference `G_*.pth`:
   gain per OUT channel) and `weight_v` [out, in, k].
 - ConvTranspose1d weight [in, out, k]; `torch.nn.utils.weight_norm` with
   dim=0 puts `weight_g` [in, 1, 1] per IN channel, as the reference does.
+- Conv2d weight [out, in, kh, kw], `weight_g` [out, 1, 1, 1] (the period
+  discriminators' (k, 1) kernels over [b, c, t / p, p] images).
 - Dense layers are `nn.Linear` where the reference has one
   (`spk_emb_linear`) and a k=1 `nn.Conv1d` elsewhere (attention q/k/v/o).
 
@@ -33,9 +35,17 @@ def _weight_norm(module: nn.Module) -> nn.Module:
 
 def conv1d(in_ch: int, out_ch: int, kernel_size: int = 1, dilation: int = 1,
            padding: int = 0, groups: int = 1, bias: bool = True,
-           weight_norm: bool = False) -> nn.Conv1d:
-    conv = nn.Conv1d(in_ch, out_ch, kernel_size, dilation=dilation,
-                     padding=padding, groups=groups, bias=bias)
+           weight_norm: bool = False, stride: int = 1) -> nn.Conv1d:
+    conv = nn.Conv1d(in_ch, out_ch, kernel_size, stride=stride,
+                     dilation=dilation, padding=padding, groups=groups,
+                     bias=bias)
+    return _weight_norm(conv) if weight_norm else conv
+
+
+def conv2d(in_ch: int, out_ch: int, kernel_size: tuple[int, int],
+           stride: tuple[int, int] = (1, 1), padding: tuple[int, int] = (0, 0),
+           weight_norm: bool = False) -> nn.Conv2d:
+    conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride, padding=padding)
     return _weight_norm(conv) if weight_norm else conv
 
 

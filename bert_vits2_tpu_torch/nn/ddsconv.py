@@ -15,9 +15,11 @@ from bert_vits2_tpu_torch.nn.norm import LayerNorm
 
 
 class DDSConv(nn.Module):
-    def __init__(self, channels: int, kernel_size: int, n_layers: int):
+    def __init__(self, channels: int, kernel_size: int, n_layers: int,
+                 p_dropout: float = 0.0):
         super().__init__()
         self.n_layers = n_layers
+        self.drop = nn.Dropout(p_dropout)
         self.convs_sep = nn.ModuleList()
         self.convs_1x1 = nn.ModuleList()
         self.norms_1 = nn.ModuleList()
@@ -40,6 +42,6 @@ class DDSConv(nn.Module):
             y = self.convs_sep[i](x * x_mask)
             y = F.gelu(self.norms_1[i](y))
             y = self.convs_1x1[i](y)
-            y = F.gelu(self.norms_2[i](y))
+            y = self.drop(F.gelu(self.norms_2[i](y)))
             x = x + y
         return x * x_mask

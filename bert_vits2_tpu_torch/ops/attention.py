@@ -14,14 +14,18 @@ on the card and how the design answers that. Beside it:
   the kernel for CUDA tensors, and an error for anything else. Its
   `launches` attribute counts kernel launches.
 
-Inference only: the backward kernels come later, so the wrapper refuses
-tensors that require grad while grad mode is on. Attention dropout is not
-part of inference and is refused too.
+The kernel serves the no-grad direction only: the backward kernels come
+later, so the wrapper refuses tensors that require grad while grad mode is
+on (a kernel result without a graph would train with zero attention
+gradients), and it refuses attention dropout. The training direction calls
+`banded_attention_plain` itself, which is differentiable and takes the
+dropout rate (`nn/attention.py` holds that dispatch).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from bert_vits2_tpu_torch import _build
 
@@ -60,8 +64,11 @@ def abs_to_band(p: torch.Tensor, w: int) -> torch.Tensor:
 
 
 def banded_attention_plain(q, k, v, x_mask, emb_rel_k, emb_rel_v,
-                           window_size: int) -> torch.Tensor:
-    """The plain PyTorch version of K1 (same arguments as the wrapper)."""
+                           window_size: int,
+                           dropout_p: float = 0.0) -> torch.Tensor:
+    """The plain PyTorch version of K1 (same arguments as the wrapper), and
+    the training direction: differentiable, with dropout on the
+    probabilities when `dropout_p` > 0."""
     w = int(window_size)
     scores = torch.matmul(q, k.transpose(-1, -2))
     rel = torch.einsum("bhtd,cd->bhtc", q, emb_rel_k)
@@ -69,6 +76,8 @@ def banded_attention_plain(q, k, v, x_mask, emb_rel_k, emb_rel_v,
     am = x_mask[:, None, :, None] * x_mask[:, None, None, :]
     scores = scores.masked_fill(am == 0, NEG_FILL)
     p = torch.softmax(scores, dim=-1)
+    if dropout_p:
+        p = F.dropout(p, dropout_p)
     out = torch.matmul(p, v)
     return out + torch.einsum("bhtc,cd->bhtd", abs_to_band(p, w), emb_rel_v)
 
@@ -76,8 +85,9 @@ def banded_attention_plain(q, k, v, x_mask, emb_rel_k, emb_rel_v,
 def _check_no_grad(*tensors) -> None:
     if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
         raise RuntimeError(
-            "banded_rel_self_attention is inference-only: run it under "
-            "torch.inference_mode() or torch.no_grad()"
+            "banded_rel_self_attention has no backward: run it under "
+            "torch.inference_mode() or torch.no_grad(), or call "
+            "banded_attention_plain"
         )
 
 
@@ -88,7 +98,8 @@ def banded_rel_self_attention(q, k, v, x_mask, emb_rel_k, emb_rel_v,
     emb_rel_k/v: [2w+1, d] (one table shared by the heads).
     Returns [b, h, t, d]; rows where x_mask is 0 are unspecified."""
     if dropout_p:
-        raise ValueError("attention dropout is not supported at inference")
+        raise ValueError("the kernel has no dropout: the training direction "
+                         "calls banded_attention_plain")
     _check_no_grad(q, k, v, emb_rel_k, emb_rel_v)
     w = int(window_size)
     b, h, t, d = q.shape

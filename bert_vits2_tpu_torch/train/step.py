@@ -1,0 +1,272 @@
+"""One GAN training step (reference: train_ms.py:394-607).
+
+Counterpart of `bert_vits2_tpu/train/step.py`. The order of the updates is
+the reference's: the waveform discriminators, the duration discriminator,
+then the generator against the UPDATED discriminators. The JAX step runs
+the generator forward twice with the same random numbers (once without
+gradients for the discriminator updates, once under `grad`); here one
+forward with its graph serves both, and the discriminator losses see its
+outputs detached, which is the same mathematics.
+
+PyTorch's idiom replaces the functional state: the parameters live in the
+modules of `Models` and are updated in place, the optimizers are
+`torch.optim.AdamW` objects held by `TrainState`, and `step` returns the
+state it was given with its counter advanced. Metrics are 0-d tensors on
+the device, so the step itself never waits for the card.
+
+Only float32 training is ported: `bf16_run` and a bfloat16
+`train_compute_dtype` raise. The SLM (WavLM) losses, and batches that carry
+only the active language's BERT features (`utt_lang`), come with later
+slices.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Callable, NamedTuple
+
+import torch
+from torch import nn
+
+from bert_vits2_tpu_torch.ops.masking import slice_segments
+from bert_vits2_tpu_torch.ops.stft import mel_spectrogram, spec_to_mel
+from bert_vits2_tpu_torch.train.losses import (
+    discriminator_loss,
+    feature_loss,
+    generator_loss,
+    kl_loss,
+)
+
+WEIGHT_DECAY = 0.01  # the reference's AdamW default, as in the JAX step
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """DSP/data parameters (configs/config.json `data` section)."""
+
+    sampling_rate: int = 44100
+    filter_length: int = 2048
+    hop_length: int = 512
+    win_length: int = 2048
+    n_mel_channels: int = 128
+    mel_fmin: float = 0.0
+    mel_fmax: float | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization parameters (configs/config.json `train` section)."""
+
+    learning_rate: float = 2e-4
+    betas: tuple[float, float] = (0.8, 0.99)
+    eps: float = 1e-9
+    lr_decay: float = 0.99995
+    c_mel: float = 45.0
+    c_kl: float = 1.0
+    bf16_run: bool = False
+    grad_clip_g: float = 500.0
+    grad_clip_d: float = 200.0
+    seed: int = 42
+    # config.json train.freeze_{ZH,EN,JP}_bert: the reference stops updates
+    # to the per-language BERT projections (train_ms.py:204-217)
+    freeze_zh_bert: bool = False
+    freeze_en_bert: bool = False
+    freeze_jp_bert: bool = False
+    freeze_emo: bool = False
+
+    @property
+    def frozen_subtrees(self) -> tuple[tuple[str, ...], ...]:
+        """Generator submodule paths whose updates are zeroed."""
+        out = []
+        if self.freeze_zh_bert:
+            out.append(("enc_p", "bert_proj"))
+        if self.freeze_en_bert:
+            out.append(("enc_p", "en_bert_proj"))
+        if self.freeze_jp_bert:
+            out.append(("enc_p", "ja_bert_proj"))
+        if self.freeze_emo:
+            out.append(("enc_p", "emo_proj"))
+            out.append(("enc_p", "emo_quantizer"))
+            out.append(("enc_p", "in_feature_net"))
+            out.append(("enc_p", "out_feature_net"))
+        return tuple(out)
+
+
+class Models(NamedTuple):
+    synthesizer: nn.Module  # Synthesizer
+    mpd: nn.Module  # MultiPeriodDiscriminator
+    dur_disc: nn.Module | None  # DurationDiscriminator
+    wavlm_disc: nn.Module | None  # WavLMDiscriminator (not ported: None)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The step counter and the optimizers; the parameters are the modules'."""
+
+    step: int
+    opt_g: torch.optim.Optimizer
+    opt_d: torch.optim.Optimizer
+    opt_dd: torch.optim.Optimizer | None
+
+
+def _check_fp32(cfg: TrainConfig) -> None:
+    if cfg.bf16_run:
+        raise NotImplementedError(
+            "bf16_run is not ported yet: the bf16 training policy (autocast "
+            "of the hot stages, global-norm clipping) is ROADMAP item A.15, "
+            "bf16 policy; this step trains in float32 only")
+
+
+def make_optimizer(cfg: TrainConfig, module: nn.Module,
+                   frozen: tuple[tuple[str, ...], ...] = ()) -> torch.optim.AdamW:
+    """AdamW over the module's parameters, the learning rate set per step.
+
+    Parameters under a `frozen` submodule path form a second group whose
+    learning rate stays 0: their update is zero (the weight decay too, which
+    scales with the rate) while their moments are kept, so the optimizer
+    state has the same entries whether or not anything is frozen."""
+    _check_fp32(cfg)
+    prefixes = tuple(".".join(p) + "." for p in frozen)
+    free, held = [], []
+    for name, p in module.named_parameters():
+        (held if name.startswith(prefixes) and prefixes else free).append(p)
+    groups = [{"params": free, "frozen": False}]
+    if held:
+        groups.append({"params": held, "frozen": True, "lr": 0.0})
+    return torch.optim.AdamW(groups, lr=cfg.learning_rate, betas=cfg.betas,
+                             eps=cfg.eps, weight_decay=WEIGHT_DECAY)
+
+
+def init_train_state(models: Models, cfg: TrainConfig) -> TrainState:
+    if models.wavlm_disc is not None:
+        raise NotImplementedError("the SLM (WavLM) branch is not ported yet")
+    return TrainState(
+        step=0,
+        opt_g=make_optimizer(cfg, models.synthesizer, cfg.frozen_subtrees),
+        opt_d=make_optimizer(cfg, models.mpd),
+        opt_dd=(make_optimizer(cfg, models.dur_disc)
+                if models.dur_disc is not None else None),
+    )
+
+
+def _set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
+    for group in opt.param_groups:
+        if not group["frozen"]:
+            group["lr"] = lr
+
+
+def _update(opt: torch.optim.Optimizer, loss: torch.Tensor,
+            lr: float) -> torch.Tensor:
+    """One optimizer update from `loss` -> the gradients' global norm."""
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    grads = [p.grad for g in opt.param_groups for p in g["params"]
+             if p.grad is not None]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    _set_lr(opt, lr)
+    opt.step()
+    return norm
+
+
+@contextlib.contextmanager
+def _no_param_grads(*modules):
+    """Inside, the modules' parameters collect no gradients (their inputs
+    still do): the generator's pass through the discriminators."""
+    params = [p for m in modules if m is not None for p in m.parameters()]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
+
+
+def make_train_step(models: Models, train_cfg: TrainConfig,
+                    data_cfg: DataConfig, segment_size_frames: int,
+                    mas_noise_initial: float = 0.01,
+                    mas_noise_delta: float = 2e-6) -> Callable:
+    """Build the train step: (state, batch, generator, lr) -> (state, metrics).
+
+    batch keys (tensors on the models' device): x, x_lengths, spec
+    [b, t, spec_ch], spec_lengths, wave [b, t_samples], sid, tone, language,
+    bert, ja_bert, en_bert [b, t_x, dim]. `generator` is the
+    `torch.Generator` of the step's noise; `lr` the learning rate of this
+    step. The modules are put in train() mode."""
+    _check_fp32(train_cfg)
+    synth, mpd, dur_disc, wavlm_disc = models
+    if wavlm_disc is not None:
+        raise NotImplementedError("the SLM (WavLM) branch is not ported yet")
+    dc = data_cfg
+    hop, seg = dc.hop_length, segment_size_frames
+    mel_args = (dc.filter_length, dc.n_mel_channels, dc.sampling_rate)
+
+    def dur_disc_pairs(out, detach):
+        pick = (lambda k: out[k].detach()) if detach else (lambda k: out[k])
+        hx, xm, lw_, g = (pick(k) for k in ("x_hidden", "x_mask", "logw_", "g"))
+        r1, g1 = dur_disc(hx, xm, lw_, pick("logw"), g=g)
+        r2, g2 = dur_disc(hx, xm, lw_, pick("logw_sdp"), g=g)
+        return [r1, r2], [g1, g2]
+
+    def step(state: TrainState, batch: dict, generator: torch.Generator | None,
+             lr: float):
+        for m in (synth, mpd, dur_disc):
+            if m is not None:
+                m.train()
+        metrics = {}
+        mas_noise_scale = max(mas_noise_initial - mas_noise_delta * state.step, 0.0)
+
+        # ---- 1. generator forward, once, with its graph ----
+        out = synth(batch["x"], batch["x_lengths"], batch["spec"],
+                    batch["spec_lengths"], batch["sid"], batch["tone"],
+                    batch["language"], batch["bert"], batch["ja_bert"],
+                    batch["en_bert"], mas_noise_scale=mas_noise_scale,
+                    generator=generator)
+        ids_slice, y_hat = out["ids_slice"], out["wave_slice"]
+        mel = spec_to_mel(batch["spec"].transpose(1, 2), *mel_args,
+                          dc.mel_fmin, dc.mel_fmax)
+        y_mel = slice_segments(mel, ids_slice, seg)
+        y = slice_segments(batch["wave"], ids_slice * hop, seg * hop)
+
+        # ---- 2a. waveform discriminators (train_ms.py:508-556) ----
+        y_d_r, y_d_g, _, _ = mpd(y, y_hat.detach())
+        loss_disc, _, _ = discriminator_loss(y_d_r, y_d_g)
+        metrics["loss/d/total"] = loss_disc.detach()
+        metrics["grad_norm_d"] = _update(state.opt_d, loss_disc, lr)
+
+        # ---- 2b. duration discriminator (train_ms.py:514-548) ----
+        if dur_disc is not None:
+            loss_dur_disc, _, _ = discriminator_loss(*dur_disc_pairs(out, True))
+            metrics["loss/dur_disc/total"] = loss_dur_disc.detach()
+            metrics["grad_norm_dur"] = _update(state.opt_dd, loss_dur_disc, lr)
+
+        # ---- 3. generator, against the updated discriminators ----
+        with _no_param_grads(mpd, dur_disc):
+            y_hat_mel = mel_spectrogram(y_hat.float(), *mel_args, hop,
+                                        dc.win_length, dc.mel_fmin, dc.mel_fmax)
+            _, y_d_g, fmap_r, fmap_g = mpd(y, y_hat)
+            loss_gen, _ = generator_loss(y_d_g)
+            loss_fm = feature_loss(fmap_r, fmap_g)
+            loss_mel = torch.mean(torch.abs(y_mel - y_hat_mel)) * train_cfg.c_mel
+            loss_dur = torch.sum(out["l_length"].float())
+            loss_kl = kl_loss(out["z_p"], out["logs_q"], out["m_p"],
+                              out["logs_p"], out["y_mask"]) * train_cfg.c_kl
+            loss_all = loss_gen + loss_fm + loss_mel + loss_dur + loss_kl
+            aux = {"loss/g/gen": loss_gen, "loss/g/fm": loss_fm,
+                   "loss/g/mel": loss_mel, "loss/g/dur": loss_dur,
+                   "loss/g/kl": loss_kl}
+            if dur_disc is not None:
+                loss_dur_gen, _ = generator_loss(dur_disc_pairs(out, False)[1])
+                loss_all = loss_all + loss_dur_gen
+                aux["loss/g/dur_gen"] = loss_dur_gen
+            grad_norm_g = _update(state.opt_g, loss_all, lr)
+        metrics.update({k: v.detach() for k, v in aux.items()})
+        metrics["loss/g/total"] = loss_all.detach()
+        metrics["grad_norm_g"] = grad_norm_g
+        metrics["learning_rate"] = torch.as_tensor(lr)
+
+        state.step += 1
+        return state, metrics
+
+    return step

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's synthesis path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's synthesis and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
@@ -7,17 +8,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
    no CUDA device is a failure.
-2. build: nvcc builds every kernel in bert_vits2_tpu_torch/csrc (sm_90a).
+2. build: nvcc builds every kernel in bert_vits2_tpu_torch/csrc (sm_90a),
+   one process per source, all started together.
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes, TF32 off; max-abs-err, kernel time, plain time
-   and the least time the card could take (fp32 rate or memory rate).
-4. main path: TTSEngine.run_prepared on 8 seeded requests at the default
-   V2.3 ModelConfig with random weights from a seed; every kernel must have
-   launched, and the waves must be finite, in [-1, 1] and non-empty.
+   the main paths' shapes, TF32 off; max-abs-err (the MAS kernel: exact
+   equality), kernel time, plain time and the least time the card could
+   take (fp32 rate or memory rate).
+4. serving path: TTSEngine.run_prepared on 8 seeded requests at the default
+   V2.3 ModelConfig with random weights from a seed; the attention and MRF
+   kernels must have launched, and the waves must be finite, in [-1, 1] and
+   non-empty.
 5. the same request, zero noise, on the card and on the CPU (plain
    versions): equal frame counts and waves within a stated bound.
-6. timing: audio seconds per second and per-call latency of run_prepared at
-   batch 8, peak device memory, and a profiler breakdown by kernel.
+6. serving timing: audio seconds per second and per-call latency of
+   run_prepared at batch 8, peak device memory, a profiler breakdown.
+7. training path: build_models / init_params / init_train_state /
+   make_train_step at the default V2.3 ModelConfig, fp32, batch 16 of 128
+   tokens and 512 frames with ragged lengths; two warm-up and five timed
+   steps; finite metrics, one MAS kernel launch per step, every parameter
+   set moved, a valid monotonic alignment; ms per step, peak memory,
+   device-busy share and a profiler breakdown of one step.
+8. the training forward at a cut depth, dropout off, the same noise, on the
+   card and on the CPU: equal alignments, losses and waves within bounds.
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -40,8 +52,11 @@ K1_BOUND = 1e-4  # fp32, outputs O(1), sums of up to t terms in another order
 K2_BOUND = 2e-4  # fp32, 18 chained convs of up to 11*C-term sums
 WAVE_BOUND = 1e-3  # card vs CPU, fp32: 22 attention layers, spline, vocoder
 MAIN_BATCH = 8
-TIMED_CALLS = 10
+TIMED_CALLS = 5
 FRAMES = 768  # frame cap the kernel checks use (128-token bucket x 6)
+TRAIN_BATCH, TRAIN_TX, TRAIN_TY = 16, 128, 512
+WARMUP_STEPS, TIMED_STEPS = 2, 5
+LENGTH_REL_BOUND = 1e-3  # card vs CPU, fp32: the duration loss, relative
 
 
 def log(*a):
@@ -155,22 +170,88 @@ def check_mrf(dev):
     return rows
 
 
+def ragged_lengths(rng, b, t_y, t_x):
+    """Per-item (t_y, t_x) with t_x <= t_y, the first item at full length."""
+    t_ys = rng.integers(t_y // 2, t_y + 1, b)
+    t_xs = np.minimum(rng.integers(max(t_x // 2, 1), t_x + 1, b), t_ys)
+    t_ys[0], t_xs[0] = t_y, min(t_x, t_y)
+    return t_ys, t_xs
+
+
+def check_mas(dev):
+    from bert_vits2_tpu_torch import _build
+    from bert_vits2_tpu_torch.ops.align import maximum_path, maximum_path_plain
+    rng = np.random.default_rng(3)
+    row = None
+    # the training step's shape; t_x above one block of 1024 threads; b = 1;
+    # t_x == t_y (the path is the diagonal)
+    for b, t_y, t_x in ((TRAIN_BATCH, TRAIN_TY, TRAIN_TX), (2, 1500, 1100),
+                        (1, 300, 50), (3, 96, 96)):
+        g = torch.Generator(device=dev).manual_seed(t_y)
+        neg = torch.randn(b, t_y, t_x, device=dev, generator=g) * 30.0 - 300.0
+        t_ys, t_xs = ragged_lengths(rng, b, t_y, t_x)
+        lens = [torch.as_tensor(a, device=dev) for a in (t_ys, t_xs)]
+        got = maximum_path(neg, *lens)
+        want = maximum_path_plain(neg, *lens)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum().item())
+        log(f"K3 [b={b},t_y={t_y},t_x={t_x}] ragged: cells that differ from the "
+            f"plain version {differ} (must be 0); path cells {int(got.sum().item())} "
+            f"= frames {int(t_ys.sum())}")
+        if differ or int(got.sum().item()) != int(t_ys.sum()):
+            raise AssertionError(f"K3 [b={b},t_y={t_y},t_x={t_x}] is not exact")
+        if row is not None:
+            continue
+        ms = cuda_ms(lambda: maximum_path(neg, *lens), iters=20)
+        plain = cuda_ms(lambda: maximum_path_plain(neg, *lens), iters=2, warmup=1)
+        # bytes: the scores of the valid cells read once, the path and the
+        # packed decision bits written once
+        cells = int((t_ys * t_xs).sum())
+        words = int((t_ys * ((t_xs + 31) // 32)).sum())
+        nbytes = 4 * (cells + b * t_y * t_x + words)
+        bms, by = bound(2 * cells, nbytes)
+        # one link of the dependent chain: a shared-memory step and a barrier
+        out = torch.empty(TRAIN_TX, device=dev)
+        steps = 200_000
+        probe = lambda: _build.check(_build.library("mas.cu").mas_sync_probe(  # noqa: E731
+            out.data_ptr(), steps, TRAIN_TX, 0,
+            torch.cuda.current_stream().cuda_stream), "mas_sync_probe")
+        link_us = cuda_ms(probe, iters=3, warmup=1) * 1e3 / steps
+        chain_ms = int(t_ys.max()) * link_us / 1e3
+        log(f"K3 [b={b},t_y={t_y},t_x={t_x}]: kernel {ms:.4f} ms, plain {plain:.2f} "
+            f"ms, bound {bms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB at 3.35 TB/s); "
+            f"what a kernel of this shape can approach is the chain of "
+            f"{int(t_ys.max())} dependent frames x {link_us * 1e3:.1f} ns per "
+            f"barrier step = {chain_ms:.4f} ms, then as many dependent steps "
+            f"of the walk")
+        row = dict(shape=[b, t_y, t_x], launches_per_call=1, err=0.0, ms=ms,
+                   plain_ms=plain, bound_ms=bms, bound_by=by, chain_ms=chain_ms,
+                   barrier_step_ns=link_us * 1e3)
+    return [row]
+
+
+def nonzero_init(model, seed=1):
+    """The reference initializes the flow's `post` and the SDP spline `proj`
+    convs to zero (identity couplings): give them small random weights so
+    that the flows do work."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".post." in name or (name.startswith("sdp.") and ".proj." in name
+                                    and "flows." in name):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.02)
+
+
 def make_model(device, state_dict=None):
     from bert_vits2_tpu_torch.config import ModelConfig
     from bert_vits2_tpu_torch.models import build_synthesizer
     model = build_synthesizer(ModelConfig(), device=device, seed=0,
                               state_dict=state_dict)
     if state_dict is None:
-        # The reference initializes the flow's `post` and the SDP spline
-        # `proj` convs to zero (identity couplings): give them small random
-        # weights so the flow does work, and bias the duration predictor to
-        # ~4.5 frames per token so the frame counts look like speech.
-        g = torch.Generator(device="cpu").manual_seed(1)
+        # bias the duration predictor to ~4.5 frames per token so the frame
+        # counts look like speech
+        nonzero_init(model)
         with torch.no_grad():
-            for name, p in model.named_parameters():
-                if ".post." in name or (name.startswith("sdp.") and ".proj." in name
-                                        and "flows." in name):
-                    p.copy_(torch.randn(p.shape, generator=g) * 0.02)
             model.dp.proj.bias.fill_(1.5)
     return model
 
@@ -190,6 +271,180 @@ def make_requests(cfg, n, seed):
     return reqs
 
 
+def make_train_batch(cfg, hop, b, t_x, t_y, seed, dev):
+    """A synthetic training batch from a numpy seed, ragged lengths."""
+    rng = np.random.default_rng(seed)
+    spec_lengths, x_lengths = ragged_lengths(rng, b, t_y, t_x)
+    f32 = lambda a: a.astype(np.float32)  # noqa: E731
+    host = dict(
+        x=rng.integers(1, cfg.n_vocab, (b, t_x)), x_lengths=x_lengths,
+        spec=f32(rng.normal(size=(b, t_y, cfg.spec_channels)) * 0.1),
+        spec_lengths=spec_lengths,
+        wave=f32(rng.uniform(-0.5, 0.5, (b, t_y * hop))),
+        sid=rng.integers(0, cfg.n_speakers, (b,)),
+        tone=rng.integers(0, cfg.num_tones, (b, t_x)),
+        language=rng.integers(0, cfg.num_languages, (b, t_x)),
+        bert=f32(rng.normal(size=(b, t_x, cfg.bert_dim))),
+        ja_bert=f32(rng.normal(size=(b, t_x, cfg.bert_dim))),
+        en_bert=f32(rng.normal(size=(b, t_x, cfg.bert_dim))),
+    )
+    return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+
+
+def profile_lines(prof, wall, what, top=12):
+    from torch.autograd import DeviceType
+    # kernels and copies only: the optimizers' "Optimizer.step#..." ranges
+    # also arrive as device events and span kernels already counted
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and not e.key.startswith("Optimizer.")]
+    dev_us = sum(e.self_device_time_total for e in evs)
+    log(f"[profile] {what}: wall {wall * 1e3:.1f} ms, device busy "
+        f"{dev_us / 1e3:.1f} ms ({100 * dev_us / 1e3 / (wall * 1e3):.1f}% of wall)")
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"[profile] {e.self_device_time_total / 1e3:9.2f} ms  {e.count:5d}x  "
+            f"{e.key[:90]}")
+    return evs, dev_us
+
+
+def run_training(dev, smi, counters):
+    """Phase 7: a few GAN steps at the default V2.3 config, full width."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bert_vits2_tpu_torch.config import ModelConfig
+    from bert_vits2_tpu_torch.train import (
+        DataConfig, TrainConfig, init_train_state, make_train_step)
+    from bert_vits2_tpu_torch.train.trainer import build_models, init_params
+
+    cfg, data_cfg, train_cfg = ModelConfig(), DataConfig(), TrainConfig()
+    t0 = time.perf_counter()
+    models = init_params(build_models(cfg, device="cuda"), cfg, seed=1234)
+    state = init_train_state(models, train_cfg)
+    step = make_train_step(models, train_cfg, data_cfg, cfg.segment_size)
+    n_params = [sum(p.numel() for p in m.parameters()) for m in models[:3]]
+    batch = make_train_batch(cfg, data_cfg.hop_length, TRAIN_BATCH, TRAIN_TX,
+                             TRAIN_TY, seed=0, dev=dev)
+    log(f"[train] default V2.3 config, fp32, TF32 off: parameters G/D/durD "
+        f"{n_params}; batch {TRAIN_BATCH}, tokens {batch['x_lengths'].tolist()}, "
+        f"frames {batch['spec_lengths'].tolist()}; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    before = [[p.detach().clone() for p in m.parameters()] for m in models[:3]]
+    seen = {}
+    hook = models.synthesizer.register_forward_hook(
+        lambda mod, args, out: seen.update(attn=out["attn"]))
+    gen = torch.Generator(device=dev).manual_seed(train_cfg.seed)
+    lr = train_cfg.learning_rate
+
+    def one_step():
+        nonlocal state
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen, lr)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, metrics
+
+    for _ in range(WARMUP_STEPS):
+        one_step()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    times, metrics = [], None
+    for _ in range(TIMED_STEPS):
+        sec, metrics = one_step()
+        times.append(sec)
+        bad = {k: float(v) for k, v in metrics.items() if not math.isfinite(float(v))}
+        if bad:
+            raise AssertionError(f"non-finite metrics at step {state.step}: {bad}")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for key in ("loss/d/total", "loss/dur_disc/total", "loss/g/total", "grad_norm_g"):
+        if key not in metrics:
+            raise AssertionError(f"metric {key} is missing")
+    log("[train] step " + str(state.step) + ": " + ", ".join(
+        f"{k} {float(v):.4g}" for k, v in sorted(metrics.items())))
+    if launches["mas_fwd"] != TIMED_STEPS:
+        raise AssertionError(f"kernel launches over {TIMED_STEPS} steps: {launches}")
+    for name, module, old in zip(("G", "D", "duration D"), models[:3], before):
+        moved = sum(not torch.equal(p.detach(), o)
+                    for p, o in zip(module.parameters(), old))
+        log(f"[train] {name}: {moved} of {len(old)} parameter tensors changed")
+        if moved < 0.9 * len(old):
+            raise AssertionError(f"{name} parameters did not move")
+    del before
+
+    attn = seen["attn"]
+    y_len, x_len = batch["spec_lengths"], batch["x_lengths"]
+    y_valid = torch.arange(TRAIN_TY, device=dev)[None, :] < y_len[:, None]
+    token = attn.argmax(2)
+    steps_ok = all(
+        bool(((d := torch.diff(token[i, :int(n)])) >= 0).all() and (d <= 1).all())
+        and int(token[i, 0]) == 0 and int(token[i, int(n) - 1]) == int(x_len[i]) - 1
+        for i, n in enumerate(y_len.tolist()))
+    if not (torch.equal(attn.sum(2), y_valid.float()) and steps_ok):
+        raise AssertionError("attn is not a monotonic one-token-per-frame path")
+    log(f"[train] attn {list(attn.shape)}: one token per valid frame, each "
+        f"item from token 0 to its last token in steps of 0 or 1")
+
+    med = float(np.median(times))
+    log(f"[train-timing] {smi}: {TIMED_STEPS} steps after {WARMUP_STEPS} warm-up: "
+        f"median {med * 1e3:.1f} ms, max {max(times) * 1e3:.1f} ms per step; "
+        f"{1 / med:.3f} steps/s; peak memory {peak:.2f} GiB; kernel launches "
+        f"{launches}")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall, _ = one_step()
+    evs, dev_us = profile_lines(prof, wall, "one training step", top=16)
+    mas = [e for e in evs if "mas_kernel" in e.key]
+    n_mas = sum(e.count for e in mas)
+    mas_us = sum(e.self_device_time_total for e in mas)
+    log(f"[profile] mas_kernel: {n_mas} launch in the step, {mas_us / 1e3:.4f} ms, "
+        f"{100 * mas_us / max(dev_us, 1e-9):.3f}% of device time")
+    if n_mas != 1:
+        raise AssertionError(f"the profiler saw {n_mas} MAS kernel launches in a step")
+    hook.remove()
+    del models, state, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_training_forward_on_cpu(dev):
+    """Phase 8: the training forward at full width and a cut depth, eval()
+    mode, on the card and on the CPU with the same noise (a CPU generator
+    with one seed feeds both)."""
+    from bert_vits2_tpu_torch.config import ModelConfig
+    from bert_vits2_tpu_torch.models import build_synthesizer
+    from bert_vits2_tpu_torch.train import DataConfig
+
+    cfg = ModelConfig(n_layers=3, n_flow_layer=2, n_layers_trans_flow=3)
+    cpu_model = build_synthesizer(cfg, device="cpu", seed=2)
+    nonzero_init(cpu_model)
+    gpu_model = build_synthesizer(cfg, device="cuda", state_dict=cpu_model.state_dict())
+    batch = make_train_batch(cfg, DataConfig().hop_length, 2, 24, 96, seed=1,
+                             dev="cpu")
+    keys = ("x", "x_lengths", "spec", "spec_lengths", "sid", "tone", "language",
+            "bert", "ja_bert", "en_bert")
+    outs = []
+    for model, where in ((cpu_model, "cpu"), (gpu_model, dev)):
+        with torch.no_grad():
+            out = model(*(batch[k].to(where) for k in keys), mas_noise_scale=0.01,
+                        generator=torch.Generator().manual_seed(5))
+        outs.append({k: v.cpu() for k, v in out.items()})
+    cpu, gpu = outs
+    same = torch.equal(cpu["attn"], gpu["attn"]) and torch.equal(
+        cpu["ids_slice"], gpu["ids_slice"])
+    len_err = ((cpu["l_length"] - gpu["l_length"]).abs()
+               / cpu["l_length"].abs()).max().item()
+    wave_err = (cpu["wave_slice"] - gpu["wave_slice"]).abs().max().item()
+    log(f"[cpu] training forward, 3 encoder layers and 2 flow couplings of 3, "
+        f"eval(), same noise: attn and slice starts equal {same}; l_length "
+        f"{gpu['l_length'].tolist()} max relative error {len_err:.3e} (bound "
+        f"{LENGTH_REL_BOUND:g}); wave_slice max_abs_err {wave_err:.3e} (bound "
+        f"{WAVE_BOUND:g})")
+    if not (same and len_err <= LENGTH_REL_BOUND and wave_err <= WAVE_BOUND):
+        if not same:
+            first = (cpu["attn"] != gpu["attn"]).nonzero()[:1].tolist()
+            log(f"[cpu] attn differs first at [b, y, x] = {first}")
+        raise AssertionError("card and CPU disagree on the training forward")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -197,9 +452,12 @@ def main() -> int:
         return 1
     from bert_vits2_tpu_torch import _build
     from bert_vits2_tpu_torch.infer import TTSEngine
+    from bert_vits2_tpu_torch.ops.align import maximum_path
     from bert_vits2_tpu_torch.ops.attention import banded_rel_self_attention
     from bert_vits2_tpu_torch.ops.mrf import fused_mrf
 
+    counters = {"banded_attn_fwd": banded_rel_self_attention,
+                "mrf_fwd": fused_mrf, "mas_fwd": maximum_path}
     dev = torch.device("cuda")
     smi = smi_line()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -220,6 +478,7 @@ def main() -> int:
     log("[kernels] TF32 off for matmul and cuDNN: plain versions in full fp32")
     k1 = check_attention(dev)
     k2 = check_mrf(dev)
+    k3 = check_mas(dev)
     torch.cuda.empty_cache()
 
     model = make_model("cuda")
@@ -231,17 +490,16 @@ def main() -> int:
         f"{sorted(len(r.inputs[0]) for r in reqs)} tokens")
     engine.run_prepared(reqs)  # warm-up: cuBLAS/cuDNN handles, allocator
     torch.cuda.synchronize()
-    banded_rel_self_attention.launches = 0
-    fused_mrf.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     waves = engine.run_prepared(reqs)
     torch.cuda.synchronize()
-    launches = {"banded_attn_fwd": banded_rel_self_attention.launches,
-                "mrf_fwd": fused_mrf.launches}
+    launches = {k: fn.launches for k, fn in counters.items()}
     n_attn = 2 * cfg.n_layers + cfg.n_flow_layer * cfg.n_layers_trans_flow
     n_mrf = sum(1 for w in engine.mrf_packed if w is not None)
     log(f"[main] launches {launches} (expected {n_attn} and {n_mrf}); "
         f"frames {[len(w) // engine.hop_length for w in waves]}")
-    if launches != {"banded_attn_fwd": n_attn, "mrf_fwd": n_mrf}:
+    if launches != {"banded_attn_fwd": n_attn, "mrf_fwd": n_mrf, "mas_fwd": 0}:
         raise AssertionError(f"kernel launches {launches}")
     for w in waves:
         if not (len(w) >= engine.hop_length and np.isfinite(w).all()
@@ -279,21 +537,19 @@ def main() -> int:
         f"{audio_s / med:.1f} audio-s/s at the median; peak memory "
         f"{peak:.2f} GiB")
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.run_prepared(reqs)
         wall = time.perf_counter() - t0
-    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in evs)
-    log(f"[profile] one run_prepared: wall {wall * 1e3:.1f} ms, device busy "
-        f"{dev_us / 1e3:.1f} ms ({100 * dev_us / 1e3 / (wall * 1e3):.1f}% of wall)")
-    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"[profile] {e.self_device_time_total / 1e3:9.2f} ms  {e.count:5d}x  "
-            f"{e.key[:90]}")
+    profile_lines(prof, wall, "one run_prepared")
+    del engine, model, cpu_model
+    torch.cuda.empty_cache()
 
-    def entry(name, source, replaces, rows):
+    launches["mas_fwd"] = run_training(dev, smi, counters)["mas_fwd"]
+    check_training_forward_on_cpu(dev)
+
+    def entry(name, source, replaces, rows, basis):
         tot = lambda k: sum(r[k] * r["launches_per_call"] for r in rows)  # noqa: E731
         return {
             "name": name, "route": "cuda", "source": source,
@@ -303,16 +559,22 @@ def main() -> int:
             "bound_ms": tot("bound_ms"),
             "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": None,
-            "basis": "per run_prepared call at batch 8: the sum over the "
-                     "shapes below of time x launches per call",
+            "basis": basis + ": the sum over the shapes below of time x "
+                             "launches per call",
             "shapes": rows,
         }
 
+    serving = f"per run_prepared call at batch {MAIN_BATCH}"
+
     record = {"kernels": [
         entry("banded_attn_fwd", "bert_vits2_tpu_torch/csrc/banded_attn.cu",
-              "bert_vits2_tpu/ops/attention_pallas.py:88", k1),
+              "bert_vits2_tpu/ops/attention_pallas.py:88", k1, serving),
         entry("mrf_fwd", "bert_vits2_tpu_torch/csrc/mrf.cu",
-              "bert_vits2_tpu/ops/mrf_pallas.py:128 and :434", k2),
+              "bert_vits2_tpu/ops/mrf_pallas.py:128 and :434", k2, serving),
+        entry("mas_fwd", "bert_vits2_tpu_torch/csrc/mas.cu",
+              "bert_vits2_tpu/ops/align_pallas.py:39", k3,
+              f"per training step at batch {TRAIN_BATCH} (launches: over "
+              f"{TIMED_STEPS} steps)"),
     ]}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

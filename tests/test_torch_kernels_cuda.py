@@ -10,13 +10,15 @@ skip the JAX-importing conftest):
 TF32 is off for matmuls and cuDNN convolutions, so the plain versions run
 in full fp32. Bounds: K1 1e-4 absolute (outputs O(1); fp32 sums of up to t
 terms in another order), K2 2e-4 absolute (18 chained convs of up to
-11*C-term fp32 sums, in another order than cuDNN's).
+11*C-term fp32 sums, in another order than cuDNN's), K3 exact (one fp32 add
+and one max per cell: the 0/1 path equals the plain version's bit for bit).
 """
 
 import pytest
 import torch
 
 from bert_vits2_tpu_torch.models.generator import ResBlock1
+from bert_vits2_tpu_torch.ops.align import maximum_path, maximum_path_plain
 from bert_vits2_tpu_torch.ops.attention import (
     banded_attention_plain,
     banded_rel_self_attention,
@@ -113,6 +115,35 @@ def test_mrf_kernel(card, c, t, lens, ks, ds):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,t_y,t_x,ties", [
+    (16, 512, 128, False),   # the training step's shape, ragged lengths
+    (2, 1500, 1100, False),  # t_x above one block of 1024 threads
+    (1, 40, 7, False),       # b = 1
+    (3, 33, 33, False),      # t_x == t_y: the path is the diagonal
+    (4, 64, 1, False),       # a single token
+    (5, 200, 70, True),      # scores on a coarse grid: many exact ties
+])
+def test_mas_kernel(card, b, t_y, t_x, ties):
+    g = torch.Generator(device=card).manual_seed(t_y)
+    neg = torch.randn(b, t_y, t_x, device=card, generator=g)
+    if ties:
+        neg = torch.round(neg * 2) / 2
+    t_ys = torch.randint(max(t_x, t_y // 2), t_y + 1, (b,), device=card, generator=g)
+    t_xs = torch.minimum(
+        torch.randint(1, t_x + 1, (b,), device=card, generator=g), t_ys)
+    t_ys[0], t_xs[0] = t_y, t_x  # one item at full length
+    before = maximum_path.launches
+    got = maximum_path(neg, t_ys, t_xs)
+    want = maximum_path_plain(neg, t_ys, t_xs)
+    torch.cuda.synchronize()
+    assert maximum_path.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got.sum(2), (torch.arange(t_y, device=card)[None, :]
+                                    < t_ys[:, None]).float())
+    assert torch.equal(got.sum((1, 2)), t_ys.float())
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     q = torch.randn(1, 1, 16, 160, device=card)  # d > 128
     e = torch.randn(9, 160, device=card)
@@ -123,3 +154,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     e = torch.randn(9, 8, device=card, dtype=torch.float64)
     with pytest.raises(ValueError):
         banded_rel_self_attention(q, q, q, m, e, e, 4)
+    lens = torch.tensor([4], device=card)
+    with pytest.raises(ValueError):  # float64 scores
+        maximum_path(torch.zeros(1, 8, 4, device=card, dtype=torch.float64),
+                     lens * 2, lens)
+    with pytest.raises(ValueError):  # lengths on another device
+        maximum_path(torch.zeros(1, 8, 4, device=card), lens.cpu() * 2, lens)

@@ -42,18 +42,9 @@ TINY = dict(
 )
 
 
-def random_synth_params(jax_model, seed):
-    """Random parameters for every leaf of the JAX Synthesizer (no enc_q):
-    fan-in-scaled kernels, gains and LayerNorm scales near 1."""
-    z = lambda *s, dt=jnp.float32: jnp.zeros(s, dt)  # noqa: E731
-    shapes = jax.eval_shape(lambda: jax_model.init(
-        {"params": jax.random.key(0), "noise": jax.random.key(1),
-         "dropout": jax.random.key(2)},
-        z(1, 8, dt=jnp.int32), jnp.asarray([8]), z(1, 16, 33), jnp.asarray([16]),
-        z(1, dt=jnp.int32), z(1, 8, dt=jnp.int32), z(1, 8, dt=jnp.int32),
-        z(1, 8, 1024), z(1, 8, 1024), z(1, 8, 1024), deterministic=True,
-    ))["params"]
-    shapes.pop("enc_q")
+def random_tree(shapes, seed):
+    """Random values for a tree of shapes: fan-in-scaled kernels, gains and
+    LayerNorm scales near 1, everything else small and nonzero."""
     rng = np.random.default_rng(seed)
 
     def fill(path, s):
@@ -71,6 +62,25 @@ def random_synth_params(jax_model, seed):
         return w.astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def random_synth_params(jax_model, seed, bert_dim=1024):
+    """Random parameters for every leaf of the JAX Synthesizer. The
+    posterior encoder `enc_q` draws from a stream of its own, so the other
+    modules' values do not depend on it."""
+    z = lambda *s, dt=jnp.float32: jnp.zeros(s, dt)  # noqa: E731
+    shapes = jax.eval_shape(lambda: jax_model.init(
+        {"params": jax.random.key(0), "noise": jax.random.key(1),
+         "dropout": jax.random.key(2)},
+        z(1, 8, dt=jnp.int32), jnp.asarray([8]), z(1, 16, 33), jnp.asarray([16]),
+        z(1, dt=jnp.int32), z(1, 8, dt=jnp.int32), z(1, 8, dt=jnp.int32),
+        z(1, 8, bert_dim), z(1, 8, bert_dim), z(1, 8, bert_dim),
+        deterministic=True,
+    ))["params"]
+    enc_q = shapes.pop("enc_q")
+    params = random_tree(shapes, seed)
+    params["enc_q"] = random_tree(enc_q, seed + 1000)
+    return params
 
 
 @pytest.fixture(scope="module")
@@ -203,14 +213,17 @@ def test_flow_reverse(pair):
 
     want = _apply(jax_model, params, fn, z, m, sid)
     with torch.inference_mode():
-        got = port.flow(_cf(z), _t(m[:, None]), g=port.emb_g(_t(sid)))
+        got = port.flow(_cf(z), _t(m[:, None]), g=port.emb_g(_t(sid)),
+                        reverse=True)
     assert _err(got, want, m) <= ATOL
 
 
 @pytest.mark.parametrize("masked", [True, False])
 def test_generator(pair, masked):
-    """The vocoder: its C = 8 stage runs K2's plain version, its C = 4 stage
-    the ResBlock modules; with a frame mask the padded tail stays silent."""
+    """The vocoder, with and without `mrf_packed`. With it the C = 8 stage
+    runs K2's plain version and the C = 4 stage the ResBlock modules;
+    without, both run the modules. With a frame mask the padded tail stays
+    silent."""
     jax_model, params, port = pair
     rng = np.random.default_rng(5)
     t = 24
@@ -224,8 +237,67 @@ def test_generator(pair, masked):
 
     want = np.asarray(_apply(jax_model, params, fn, z, m, sid))
     with torch.inference_mode():
-        got = port.dec(_cf(z), g=port.emb_g(_t(sid)),
-                       y_mask=_t(m) if masked else None).numpy()
-    assert np.abs(got - want).max() <= ATOL
-    if masked:
-        assert np.abs(got[1, 17 * 16:]).max() == 0.0
+        packed = port.dec.pack_mrf()
+        assert [w is None for w in packed] == [False, True]
+        for mrf_packed in (packed, None):
+            got = port.dec(_cf(z), g=port.emb_g(_t(sid)),
+                           y_mask=_t(m) if masked else None,
+                           mrf_packed=mrf_packed).numpy()
+            assert np.abs(got - want).max() <= ATOL
+            if masked:
+                assert np.abs(got[1, 17 * 16:]).max() == 0.0
+
+
+def test_generator_without_packed_weights_is_differentiable(pair):
+    """`mrf_packed=None` (always so in training) runs the ResBlock modules:
+    gradients reach the MRF convs of every stage, K2's stage included, and
+    passing packed weights with gradients on is refused, not silently
+    detached."""
+    _, _, port = pair
+    z = torch.randn(1, 8, 12, generator=torch.Generator().manual_seed(0),
+                    requires_grad=True)
+    port.dec(z).sum().backward()
+    assert all(p.grad is not None and p.grad.abs().max() > 0
+               for blk in port.dec.resblocks for p in blk.parameters())
+    port.dec.zero_grad()
+    with pytest.raises(RuntimeError):
+        port.dec(z, mrf_packed=port.dec.pack_mrf())
+
+
+def test_attention_dispatch_follows_grad_mode(pair, monkeypatch):
+    """Gradients wanted -> the dense formula (differentiable, dropout in
+    train() mode only); no-grad -> the K1 wrapper, which keeps refusing
+    tensors that require grad."""
+    from bert_vits2_tpu_torch.nn import attention as attn_mod
+    from bert_vits2_tpu_torch.ops.attention import banded_rel_self_attention
+
+    _, _, port = pair
+    layer = port.enc_p.encoder.attn_layers[0]
+    calls = []
+    real = attn_mod.banded_rel_self_attention
+    monkeypatch.setattr(attn_mod, "banded_rel_self_attention",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    x = torch.randn(2, 8, 16, generator=torch.Generator().manual_seed(0))
+    m = _t(_mask([16, 11], 16)[:, None])
+    with torch.no_grad():
+        want = layer(x, m)
+    assert calls == [1]
+    xg = x.clone().requires_grad_(True)
+    got = layer(xg, m)  # eval(), grad mode on: dense, same numbers
+    assert calls == [1] and got.requires_grad
+    assert (got - want)[:, :, :11].abs().max() <= ATOL
+    got.sum().backward()
+    assert xg.grad.abs().max() > 0 and layer.emb_rel_k.grad.abs().max() > 0
+    layer.zero_grad()
+    try:
+        layer.train()
+        torch.manual_seed(0)
+        a = layer(x, m)
+        b = layer(x, m)  # another dropout mask
+        assert (a - b).abs().max() > 0 and calls == [1]
+    finally:
+        layer.eval()
+    q = torch.randn(1, 2, 16, 4, requires_grad=True)
+    e = torch.randn(9, 4)
+    with pytest.raises(RuntimeError):
+        banded_rel_self_attention(q, q, q, torch.ones(1, 16), e, e, 4)

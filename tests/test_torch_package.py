@@ -15,6 +15,8 @@ import jax
 
 from bert_vits2_tpu.compat.torch_import import (
     convert_state_dict,
+    dur_disc_rename,
+    mpd_rename,
     synthesizer_rename,
 )
 from bert_vits2_tpu.models import ModelConfig as JaxModelConfig
@@ -62,7 +64,10 @@ def test_from_jax_params_round_trip():
     for path, leaf in got:
         assert np.array_equal(np.asarray(leaf), np.asarray(want[path])), path
     # reference key names (ROADMAP rules)
-    for key in ("enc_p.encoder.attn_layers.0.conv_q.weight", "dec.ups.0.weight_v",
+    for key in ("enc_q.pre.weight", "enc_q.enc.in_layers.15.weight_v",
+                "enc_q.enc.res_skip_layers.0.weight_g",
+                "enc_q.enc.cond_layer.weight_v", "enc_q.proj.bias",
+                "enc_p.encoder.attn_layers.0.conv_q.weight", "dec.ups.0.weight_v",
                 "dec.ups.0.weight_g", "flow.flows.4.post.weight",
                 "sdp.flows.0.logs", "sdp.flows.7.proj.weight",
                 "sdp.post_flows.1.pre.weight", "emb_g.weight"):
@@ -71,16 +76,44 @@ def test_from_jax_params_round_trip():
     assert tuple(sd["dec.ups.0.weight_g"].shape) == (16, 1, 1)
 
 
+def test_discriminator_params_round_trip():
+    """The discriminators' parameters convert into the port's modules
+    (strictly: reference names `discriminators.N`, `LSTM`, `output_layer.0`)
+    and back through the JAX package's own importers to the same trees."""
+    from test_torch_train_modules import MPD, build_discriminators
+
+    (_, p_d, mpd), (_, p_dd, dd) = build_discriminators(seed=5)
+    assert "discriminators.0.convs.1.weight_v" in mpd.state_dict()
+    assert tuple(mpd.state_dict()["discriminators.2.convs.0.weight_g"].shape) == (
+        8, 1, 1, 1)
+    assert {"LSTM.weight_ih_l0_reverse", "output_layer.0.weight"} <= set(dd.state_dict())
+    for module, tree, kw in (
+            (mpd, p_d, dict(rename=mpd_rename(MPD["periods"]))),
+            (dd, p_dd, dict(rename=dur_disc_rename,
+                            lstm_sites=(("LSTM", "lstm_fwd", "lstm_bwd"),)))):
+        back, report = convert_state_dict(
+            {k: v.numpy() for k, v in module.state_dict().items()}, tree,
+            strict=True, **kw)
+        assert not report["unmatched"] and not report["unused_flax"]
+        want = dict(jax.tree_util.tree_leaves_with_path(tree))
+        for path, leaf in jax.tree_util.tree_leaves_with_path(back):
+            assert np.array_equal(np.asarray(leaf), np.asarray(want[path])), path
+
+
 _PROBE = """
 import json, sys
 import bert_vits2_tpu_torch
-import bert_vits2_tpu_torch.compat.params, bert_vits2_tpu_torch.infer
-import bert_vits2_tpu_torch.models, bert_vits2_tpu_torch._build
+import importlib, pkgutil
+for info in pkgutil.walk_packages(bert_vits2_tpu_torch.__path__,
+                                  "bert_vits2_tpu_torch."):
+    importlib.import_module(info.name)
 from bert_vits2_tpu_torch.config import ModelConfig
 from bert_vits2_tpu_torch.infer import TTSEngine
 from bert_vits2_tpu_torch.models import build_synthesizer
+from bert_vits2_tpu_torch.train.trainer import build_models
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "bert_vits2_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                       "bert_vits2_tpu"))
 raised = []
 try:
     build_synthesizer(ModelConfig(n_layers=1))
@@ -91,25 +124,33 @@ try:
     TTSEngine(model)
 except RuntimeError:
     raised.append("TTSEngine")
+try:
+    build_models(ModelConfig(n_layers=1))
+except RuntimeError:
+    raised.append("build_models")
+assert "bert_vits2_tpu_torch.train.step" in sys.modules
+assert "bert_vits2_tpu_torch.ops.align" in sys.modules
 print(json.dumps({"loaded": loaded, "raised": raised}))
 """
 
 
 def test_import_boundary_and_default_device():
-    """In a fresh interpreter with no card visible: importing the port loads
-    neither JAX nor the JAX package, and both entry points default to CUDA
-    and raise instead of falling back to the CPU."""
+    """In a fresh interpreter with no card visible: importing every module of
+    the port (the training modules included) loads neither JAX, flax, optax
+    nor the JAX package, and the entry points default to CUDA and raise
+    instead of falling back to the CPU."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res == {"loaded": [], "raised": ["build_synthesizer", "TTSEngine"]}
+    assert res == {"loaded": [], "raised": ["build_synthesizer", "TTSEngine",
+                                            "build_models"]}
 
 
 @pytest.mark.parametrize("path", ["bert_vits2_tpu_torch", "chip_smoke.py"])
 def test_port_sources_name_no_jax(path):
-    """No source file of the port or of chip_smoke.py imports JAX, flax or
-    the JAX package."""
+    """No source file of the port or of chip_smoke.py imports JAX, flax,
+    optax or the JAX package."""
     root = REPO / path
     files = [root] if root.is_file() else sorted(root.rglob("*.py"))
     for f in files:
@@ -117,4 +158,5 @@ def test_port_sources_name_no_jax(path):
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 top = words[1].split(".")[0].rstrip(",")
-                assert top not in ("jax", "jaxlib", "flax", "bert_vits2_tpu"), (f, line)
+                assert top not in ("jax", "jaxlib", "flax", "optax",
+                                   "bert_vits2_tpu"), (f, line)
