@@ -3,10 +3,11 @@
 Each source in `csrc/` compiles with nvcc into its own shared library with a
 plain C interface (`-gencode arch=compute_90a,code=sm_90a`), loaded with
 ctypes. Libraries land in `build/` at the root of the checkout, named by a
-hash of their source, so an edited source rebuilds and an unchanged one
-loads at once. Nothing here runs at import time: the first kernel launch
-builds what it needs, and `build_all` builds every source in parallel (one
-nvcc process per source, all started together).
+hash of their source and of the shared headers (`csrc/*.cuh`), so an edited
+source rebuilds and an unchanged one loads at once. Nothing here runs at
+import time: the first kernel launch builds what it needs, and `build_all`
+builds every source in parallel (one nvcc process per source, all started
+together).
 """
 
 from __future__ import annotations
@@ -21,17 +22,31 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("banded_attn.cu", "mrf.cu", "mas.cu")
+SOURCES = ("banded_attn.cu", "banded_attn_bwd.cu", "mrf.cu", "mas.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of the entry points, by source
 SIGNATURES = {
     "banded_attn.cu": {
         # q, k, v, mask, ek, ev, out, b, h, t, d, w, device, stream
         "banded_attn_fwd": [_P] * 7 + [_I] * 6 + [_P],
+        # q, k, v, mask, ek, ev, out, m, l, b, h, t, d, w, drop, thr, seed,
+        # scale, device, stream
+        "banded_attn_fwd_train": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
+    },
+    "banded_attn_bwd.cu": {
+        # b, h, t
+        "banded_attn_bwd_q_blocks": [_I] * 3,
+        # q, k, v, mask, ek, ev, g, m, l, D, dq, partials, dek, dev, b, h, t,
+        # d, w, drop, thr, seed, scale, device, stream
+        "banded_attn_bwd_q": [_P] * 14 + [_I] * 8 + [_F, _I, _P],
+        # q, k, v, mask, ek, ev, g, m, l, D, dk, dv, b, h, t, d, w, drop, thr,
+        # seed, scale, device, stream
+        "banded_attn_bwd_k": [_P] * 12 + [_I] * 8 + [_F, _I, _P],
     },
     "mrf.cu": {
         # x, mask, weights, out, b, c, t, tile, nb, ks, ns, dils, offs,
@@ -61,7 +76,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> Path:
-    digest = hashlib.sha1((CSRC / source).read_bytes()).hexdigest()[:12]
+    h = hashlib.sha1((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 

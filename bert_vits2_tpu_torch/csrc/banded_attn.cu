@@ -1,13 +1,21 @@
-// Banded relative-position self-attention, forward (inference).
+// Banded relative-position self-attention, forward.
 //
 // Replaces the TPU kernel `_attn_fwd_kernel` in
 // bert_vits2_tpu/ops/attention_pallas.py for the encoder and flow attention
-// of every synthesis call. Per (batch, head), with q pre-scaled by 1/sqrt(d):
+// of every synthesis call and, in train mode, of the fused training
+// direction. Per (batch, head), with q pre-scaled by 1/sqrt(d):
 //
 //   s[i,j] = q_i . k_j + (|j-i| <= w ? q_i . ek[j-i+w] : 0)
 //   s[i,j] = -1e4 where key j is masked          (the reference's fill)
 //   p      = softmax_j(s)                          (fp32)
-//   out_i  = sum_j p[i,j] v_j + sum_c p[i,i+c-w] ev[c]
+//   p'     = p * keep(i, j) / (1 - p_drop)         (train mode, p_drop > 0)
+//   out_i  = sum_j p'[i,j] v_j + sum_c p'[i,i+c-w] ev[c]
+//
+// Train mode also writes the row max m_i and the sum l_i of exp(s - m_i)
+// (fp32, [b, h, t]), from which banded_attn_bwd.cu rebuilds p. The keep mask
+// is the JAX package's position hash (`_hash_keep`, banded_attn_hash.cuh);
+// the online softmax applies it to the probabilities that multiply v and ev,
+// never to the running sum l, so l is the undropped softmax's.
 //
 // Query rows are not masked: a padded row's output differs from the plain
 // version's, and every consumer re-masks it, so only valid rows are held to
@@ -28,6 +36,9 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "banded_attn_hash.cuh"
 
 namespace {
 
@@ -50,11 +61,15 @@ size_t smem_bytes(int d) {
                                   BQ * (BK + 1) + BQ * NBAND);
 }
 
+// TRAIN: write the row statistics and apply the hash dropout (when drop)
+template <bool TRAIN>
 __global__ void __launch_bounds__(THREADS)
 banded_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, const float* __restrict__ mask,
                        const float* __restrict__ ek, const float* __restrict__ ev,
-                       float* __restrict__ out, int h, int t, int d, int w) {
+                       float* __restrict__ out, float* __restrict__ m_out,
+                       float* __restrict__ l_out, int h, int t, int d, int w,
+                       bool drop, uint32_t thr, uint32_t seed, float keep_scale) {
   extern __shared__ float smem[];
   const int dp = d + 1;                // padded row: conflict-free column reads
   float* Qs = smem;                    // [BQ][dp]
@@ -151,11 +166,14 @@ banded_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int jj = lane + a * TPR;
       const float p = expf(s[a] - m_new);
       psum += p;
-      Ps[r * (BK + 1) + jj] = p;
+      float pv = p;  // what multiplies v and ev
+      if (TRAIN && drop)
+        pv = hash_keep(i, j0 + jj, bh, seed, thr) ? p * keep_scale : 0.f;
+      Ps[r * (BK + 1) + jj] = pv;
       const int c = j0 + jj - i + w;
 #pragma unroll
       for (int cc = 0; cc < NBAND; ++cc)
-        if (cc == c) band[cc] += p;
+        if (cc == c) band[cc] += pv;
     }
 #pragma unroll
     for (int off = TPR / 2; off > 0; off >>= 1)
@@ -195,27 +213,55 @@ banded_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         orow[col] = o * inv;
       }
     }
+    if (TRAIN && lane == 0) {
+      m_out[(size_t)bh * t + i] = m_run;
+      l_out[(size_t)bh * t + i] = l_run;
+    }
   }
 }
 
-}  // namespace
-
-extern "C" int banded_attn_fwd(const float* q, const float* k, const float* v,
-                               const float* mask, const float* ek,
-                               const float* ev, float* out, int b, int h, int t,
-                               int d, int w, int device, void* stream) {
+template <bool TRAIN>
+int launch(const float* q, const float* k, const float* v, const float* mask,
+           const float* ek, const float* ev, float* out, float* m, float* l,
+           int b, int h, int t, int d, int w, bool drop, uint32_t thr,
+           uint32_t seed, float keep_scale, int device, void* stream) {
   if (d < 1 || d > DMAX || w < 0 || w > WMAX || t < 2 * w || t < 1 || b < 1 ||
       h < 1 || b * h > 65535)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t bytes = smem_bytes(d);
-  err = cudaFuncSetAttribute(banded_attn_fwd_kernel,
+  err = cudaFuncSetAttribute(banded_attn_fwd_kernel<TRAIN>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((t + BQ - 1) / BQ, b * h);
-  banded_attn_fwd_kernel<<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
-      q, k, v, mask, ek, ev, out, h, t, d, w);
+  banded_attn_fwd_kernel<TRAIN><<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
+      q, k, v, mask, ek, ev, out, m, l, h, t, d, w, drop, thr, seed, keep_scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Inference: the output only.
+extern "C" int banded_attn_fwd(const float* q, const float* k, const float* v,
+                               const float* mask, const float* ek,
+                               const float* ev, float* out, int b, int h, int t,
+                               int d, int w, int device, void* stream) {
+  return launch<false>(q, k, v, mask, ek, ev, out, nullptr, nullptr, b, h, t, d,
+                       w, false, 0u, 0u, 1.f, device, stream);
+}
+
+// Train mode: also m, l [b, h, t]; with drop, the hash dropout at threshold
+// thr from seed, kept probabilities scaled by scale = 1 / (1 - p_drop).
+extern "C" int banded_attn_fwd_train(const float* q, const float* k,
+                                     const float* v, const float* mask,
+                                     const float* ek, const float* ev,
+                                     float* out, float* m, float* l, int b,
+                                     int h, int t, int d, int w, int drop,
+                                     int thr, int seed, float scale, int device,
+                                     void* stream) {
+  return launch<true>(q, k, v, mask, ek, ev, out, m, l, b, h, t, d, w,
+                      drop != 0, (uint32_t)thr, (uint32_t)seed, scale, device,
+                      stream);
 }

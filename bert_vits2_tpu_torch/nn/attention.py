@@ -4,17 +4,22 @@ Counterpart of `bert_vits2_tpu/nn/attention.py`, in the reference layout
 [b, c, t] with masks [b, 1, t] and the reference's parameter names. The
 attention keeps the JAX package's dispatch (`MultiHeadAttention.forward`):
 a +-w window that fits the sequence (2w+1 <= t+1) goes through the banded
-kernel K1 (`ops/attention.py`) in the no-grad direction, and through the
-dense formula in plain PyTorch, with dropout on the probabilities, when
-gradients are wanted (grad mode on, or the module in train() mode); a
-shorter sequence takes the window-embedding path in plain PyTorch. Speaker
-conditioning enters before layer `cond_layer_idx`. Dropout sits where the
-JAX modules have it and is active in train() mode only.
+kernel K1 (`ops/attention.py`) in the no-grad direction. When gradients are
+wanted (grad mode on, or the module in train() mode) it takes the dense
+formula in plain PyTorch with `F.dropout` on the probabilities, or, with
+`BV2_FUSED_ATTENTION_TRAIN=1` in the environment (read at each call, as
+the JAX package reads it while tracing), the fused op: K1 in train mode
+and the backward kernels B5/B6 on the card, the plain version on the CPU,
+both with the position-hash dropout. A shorter sequence takes the
+window-embedding path in plain PyTorch. Speaker conditioning enters before
+layer `cond_layer_idx`. Dropout sits where the JAX modules have it and is
+active in train() mode only.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +32,12 @@ from bert_vits2_tpu_torch.ops.attention import (
     banded_attention_plain,
     banded_rel_self_attention,
 )
+
+
+def _dropout_seed() -> int:
+    """One int32 seed of the hash dropout, from torch's global generator
+    (the one every other dropout of the port draws from)."""
+    return int(torch.randint(-2**31, 2**31, (), dtype=torch.int64))
 
 
 def _rel_to_abs(x: torch.Tensor) -> torch.Tensor:
@@ -87,17 +98,24 @@ class MultiHeadAttention(nn.Module):
         p_drop = self.p_dropout if self.training else 0.0
         if 2 * w + 1 > t + 1:
             out = self._window_attention(q, k, v, x_mask, p_drop)
-        elif torch.is_grad_enabled() or self.training:
+        elif (os.environ.get("BV2_FUSED_ATTENTION_TRAIN") == "1"
+              or not (torch.is_grad_enabled() or self.training)):
+            # the kernels: the inference launch, or the fused training
+            # direction. The JAX package takes the latter only where its
+            # TPU tiling allows (t % 8 == 0), and its general dense path
+            # with flax's dropout elsewhere; the port takes it at every
+            # t >= 2w, so the only difference is which dropout stream a
+            # layer with t % 8 != 0 uses
+            seed = _dropout_seed() if p_drop else None
+            out = banded_rel_self_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                x_mask[:, 0].contiguous(), self.emb_rel_k[0], self.emb_rel_v[0],
+                w, dropout_p=p_drop, dropout_seed=seed)
+        else:
             # the training direction (the JAX package's deterministic=False)
             out = banded_attention_plain(
                 q, k, v, x_mask[:, 0], self.emb_rel_k[0], self.emb_rel_v[0], w,
                 dropout_p=p_drop)
-        else:
-            out = banded_rel_self_attention(
-                q.contiguous(), k.contiguous(), v.contiguous(),
-                x_mask[:, 0].contiguous(), self.emb_rel_k[0], self.emb_rel_v[0],
-                w,
-            )
         out = out.transpose(2, 3).reshape(b, c, t)
         return self.conv_o(out)
 

@@ -1,28 +1,43 @@
-"""Banded relative-position self-attention: the wrapper of kernel K1.
+"""Banded relative-position self-attention: the wrappers of kernels K1, B5
+and B6.
 
-Counterpart of `bert_vits2_tpu/ops/attention_pallas.py`. The kernel,
-`csrc/banded_attn.cu`, replaces the TPU kernel `_attn_fwd_kernel`
-(attention_pallas.py:88) at inference; its source note says what bounds it
-on the card and how the design answers that. Beside it:
+Counterpart of `bert_vits2_tpu/ops/attention_pallas.py`. Three kernels
+replace its three TPU kernels; each source note says what bounds it on the
+card and how the design answers that:
+
+- `csrc/banded_attn.cu` (K1) replaces `_attn_fwd_kernel`
+  (attention_pallas.py:88). Its inference launch writes the output only;
+  its train mode also writes the softmax row statistics `m`, `l` and
+  applies the hash dropout in the kernel.
+- `csrc/banded_attn_bwd.cu` replaces `_attn_bwd_q_kernel` (B5,
+  attention_pallas.py:147) and `_attn_bwd_k_kernel` (B6,
+  attention_pallas.py:228).
+
+Beside them:
 
 - `banded_attention_plain`, the same function in plain PyTorch: the JAX
-  package's `_dense` branch (nn/attention.py:183-194). The CPU runs it, and
-  the tests and `chip_smoke.py` hold the kernel against it. It masks query
-  rows as well as keys; the kernel masks keys only, so the two agree on
-  valid rows, which is all any caller reads.
-- `banded_rel_self_attention`, the wrapper: plain version for CPU tensors,
-  the kernel for CUDA tensors, and an error for anything else. Its
-  `launches` attribute counts kernel launches.
+  package's `_dense` branch (nn/attention.py:183-194), differentiable, with
+  the hash dropout of `hash_dropout_probs` when given a seed. The CPU runs
+  it, and the tests and `chip_smoke.py` hold the kernels against it (the
+  backward kernels against its autograd, `banded_attention_bwd_plain`). It
+  masks query rows as well as keys; the kernels mask keys only, so the two
+  agree on valid rows, which is all any caller reads.
+- `banded_rel_self_attention`, the public wrapper: the plain version for
+  CPU tensors; for CUDA tensors the inference launch of K1, or, when a
+  gradient is wanted or dropout is on, `BandedAttentionFn` (K1 in train
+  mode forward, B5 and B6 backward); an error for anything else.
 
-The kernel serves the no-grad direction only: the backward kernels come
-later, so the wrapper refuses tensors that require grad while grad mode is
-on (a kernel result without a graph would train with zero attention
-gradients), and it refuses attention dropout. The training direction calls
-`banded_attention_plain` itself, which is differentiable and takes the
-dropout rate (`nn/attention.py` holds that dispatch).
+Each kernel wrapper counts its launches in its `launches` attribute.
+
+Dropout is the JAX package's counter-based position hash (`hash_keep`):
+the keep mask of probability (row i, column j) of batch row b and head
+h is a function of (i, j, b*h + h_idx, seed), so the backward kernels
+regenerate it instead of storing a [t, t] mask.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +47,55 @@ from bert_vits2_tpu_torch import _build
 NEG_FILL = -1e4  # the reference's mask fill: a fully masked row is uniform
 MAX_HEAD_DIM = 128
 MAX_WINDOW = 4
+_M32 = 0xFFFFFFFF
+
+
+def drop_threshold(p_drop: float) -> int:
+    """The hash's keep threshold: a position is kept when its 31-bit hash
+    is >= this (attention_pallas.py:67)."""
+    return min(int(p_drop * 2147483648.0), 2**31 - 1)
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """x * c modulo 2**32, for int64 x in [0, 2**32): the int32 wrapping
+    multiply, split in 16-bit halves so no int64 product overflows."""
+    c &= _M32
+    return (((x & 0xFFFF) * c) + ((((x >> 16) * c) & 0xFFFF) << 16)) & _M32
+
+
+def hash_keep(rows: torch.Tensor, cols: torch.Tensor, salt: torch.Tensor,
+              seed, thr: int) -> torch.Tensor:
+    """The JAX package's `_hash_keep` (attention_pallas.py:71-85), bit for
+    bit: a murmur-style finalizer over (row, col, salt, seed) in int32
+    arithmetic with wrapping multiplies and logical right shifts. Here the
+    int32 values live in int64 tensors as their uint32 bit patterns, where
+    `>>` is logical. rows, cols, salt: non-negative integer tensors that
+    broadcast together; seed: an int32 value (Python int or integer
+    tensor). Returns the keep mask in {0.0, 1.0}, float32."""
+    rows, cols, salt = (torch.as_tensor(a).to(torch.int64) for a in (rows, cols, salt))
+    seed = torch.as_tensor(seed, dtype=torch.int64, device=rows.device) & _M32
+    x = (_mul32(rows, -1640531527) + _mul32(cols, -2048144777)) & _M32
+    x = x ^ ((_mul32(salt, 374761393) + seed) & _M32)
+    x = x ^ (x >> 16)
+    x = _mul32(x, -2048144789)
+    x = x ^ (x >> 13)
+    x = _mul32(x, -1028477387)
+    x = x ^ (x >> 16)
+    return ((x & 0x7FFFFFFF) >= thr).to(torch.float32)
+
+
+def hash_dropout_probs(p_attn: torch.Tensor, p_drop: float,
+                       seed) -> torch.Tensor:
+    """[b, h, t, t] probabilities -> dropped and rescaled with the position
+    hash (attention_pallas.py:458-470): the same keep mask as the kernels."""
+    b, h, t, _ = p_attn.shape
+    dev = p_attn.device
+    pos = torch.arange(t, device=dev)
+    salt = (torch.arange(b, device=dev)[:, None] * h
+            + torch.arange(h, device=dev)[None, :])[:, :, None, None]
+    keep = hash_keep(pos[:, None], pos[None, :], salt, seed,
+                     drop_threshold(p_drop))
+    return p_attn * keep.to(p_attn.dtype) / (1.0 - p_drop)
 
 
 def _band_index(t: int, w: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -63,45 +127,57 @@ def abs_to_band(p: torch.Tensor, w: int) -> torch.Tensor:
     return torch.gather(p, 3, idx) * valid.to(p.dtype)
 
 
-def banded_attention_plain(q, k, v, x_mask, emb_rel_k, emb_rel_v,
-                           window_size: int,
-                           dropout_p: float = 0.0) -> torch.Tensor:
-    """The plain PyTorch version of K1 (same arguments as the wrapper), and
-    the training direction: differentiable, with dropout on the
-    probabilities when `dropout_p` > 0."""
+def banded_scores_plain(q, k, x_mask, emb_rel_k, window_size: int) -> torch.Tensor:
+    """The masked logits [b, h, t, t] of the plain version."""
     w = int(window_size)
     scores = torch.matmul(q, k.transpose(-1, -2))
     rel = torch.einsum("bhtd,cd->bhtc", q, emb_rel_k)
     scores = scores + band_to_abs(rel, w)
     am = x_mask[:, None, :, None] * x_mask[:, None, None, :]
-    scores = scores.masked_fill(am == 0, NEG_FILL)
-    p = torch.softmax(scores, dim=-1)
-    if dropout_p:
+    return scores.masked_fill(am == 0, NEG_FILL)
+
+
+def banded_attention_plain(q, k, v, x_mask, emb_rel_k, emb_rel_v,
+                           window_size: int, dropout_p: float = 0.0,
+                           dropout_seed=None) -> torch.Tensor:
+    """The plain PyTorch version of the kernels (same arguments as the
+    wrapper): differentiable. With `dropout_p` > 0 it drops probabilities
+    with the position hash when given a `dropout_seed` (the JAX `_dense`
+    branch), and with `F.dropout` from torch's generator without one."""
+    w = int(window_size)
+    p = torch.softmax(banded_scores_plain(q, k, x_mask, emb_rel_k, w), dim=-1)
+    if dropout_p and dropout_seed is not None:
+        p = hash_dropout_probs(p, dropout_p, dropout_seed)
+    elif dropout_p:
         p = F.dropout(p, dropout_p)
     out = torch.matmul(p, v)
     return out + torch.einsum("bhtc,cd->bhtd", abs_to_band(p, w), emb_rel_v)
 
 
-def _check_no_grad(*tensors) -> None:
-    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
-        raise RuntimeError(
-            "banded_rel_self_attention has no backward: run it under "
-            "torch.inference_mode() or torch.no_grad(), or call "
-            "banded_attention_plain"
-        )
+def banded_attention_stats_plain(q, k, x_mask, emb_rel_k, window_size: int):
+    """The softmax row statistics of the plain version: the row max m and
+    the sum l of exp(s - m), each [b, h, t] (K1's train-mode outputs)."""
+    s = banded_scores_plain(q, k, x_mask, emb_rel_k, window_size)
+    m = s.amax(dim=-1)
+    return m, torch.exp(s - m[..., None]).sum(dim=-1)
 
 
-def banded_rel_self_attention(q, k, v, x_mask, emb_rel_k, emb_rel_v,
-                              window_size: int,
-                              dropout_p: float = 0.0) -> torch.Tensor:
-    """q, k, v: [b, h, t, d] (q pre-scaled by 1/sqrt(d)); x_mask: [b, t] 0/1;
-    emb_rel_k/v: [2w+1, d] (one table shared by the heads).
-    Returns [b, h, t, d]; rows where x_mask is 0 are unspecified."""
-    if dropout_p:
-        raise ValueError("the kernel has no dropout: the training direction "
-                         "calls banded_attention_plain")
-    _check_no_grad(q, k, v, emb_rel_k, emb_rel_v)
-    w = int(window_size)
+def banded_attention_bwd_plain(q, k, v, x_mask, emb_rel_k, emb_rel_v, g,
+                               window_size: int, dropout_p: float = 0.0,
+                               dropout_seed=None):
+    """The plain version of B5 and B6: the autograd of
+    `banded_attention_plain` for the output gradient g ->
+    (dq, dk, dv, dek, dev)."""
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_() for a in
+                  (q, k, v, emb_rel_k, emb_rel_v)]
+        out = banded_attention_plain(leaves[0], leaves[1], leaves[2], x_mask,
+                                     leaves[3], leaves[4], window_size,
+                                     dropout_p, dropout_seed)
+        return torch.autograd.grad(out, leaves, g)
+
+
+def _check_shapes(q, k, v, x_mask, emb_rel_k, emb_rel_v, w: int) -> None:
     b, h, t, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v shapes differ: {q.shape} {k.shape} {v.shape}")
@@ -109,30 +185,191 @@ def banded_rel_self_attention(q, k, v, x_mask, emb_rel_k, emb_rel_v,
         raise ValueError(f"x_mask {tuple(x_mask.shape)} is not {(b, t)}")
     if emb_rel_k.shape != (2 * w + 1, d) or emb_rel_v.shape != (2 * w + 1, d):
         raise ValueError("emb_rel_k/v must be [2w+1, d]")
-    if q.device.type == "cpu":
-        return banded_attention_plain(q, k, v, x_mask, emb_rel_k, emb_rel_v, w)
+
+
+def _check_bwd_shapes(q, g, m, l, delta) -> None:
+    if g.shape != q.shape:
+        raise ValueError(f"g {tuple(g.shape)} is not {tuple(q.shape)}")
+    if any(x.shape != q.shape[:3] for x in (m, l, delta)):
+        raise ValueError(f"m, l, delta must be {tuple(q.shape[:3])}")
+
+
+def _check_kernel_inputs(tensors, w: int) -> None:
+    """Raise on what the kernels do not take (CUDA tensors only)."""
+    q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    tensors = (q, k, v, x_mask, emb_rel_k, emb_rel_v)
     if any(x.device != q.device for x in tensors):
         raise ValueError("all inputs must lie on one device")
     if any(x.dtype != torch.float32 for x in tensors):
         raise ValueError("the kernel takes float32 inputs")
     if any(not x.is_contiguous() for x in tensors):
         raise ValueError("the kernel takes contiguous inputs")
-    if not (1 <= d <= MAX_HEAD_DIM and 0 <= w <= MAX_WINDOW and t >= 2 * w):
-        raise ValueError(f"unsupported shape t={t} d={d} w={w}")
+    b, h, t, d = q.shape
+    if not (1 <= d <= MAX_HEAD_DIM and 0 <= w <= MAX_WINDOW and t >= 2 * w
+            and b * h <= 65535):
+        raise ValueError(f"unsupported shape b={b} h={h} t={t} d={d} w={w}")
+
+
+def _stream(x: torch.Tensor):
+    return x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _dropout_args(p_drop: float, seed) -> tuple[int, int, int, ctypes.c_float]:
+    """(dropping, threshold, seed, 1 / (1 - p)) as the kernels take them."""
+    if not p_drop:
+        return 0, 0, 0, ctypes.c_float(1.0)
+    if seed is None:
+        raise ValueError("dropout in the kernels needs a dropout_seed")
+    seed = int(seed)
+    if not -2**31 <= seed < 2**31:
+        raise ValueError(f"dropout_seed {seed} is not an int32")
+    return 1, drop_threshold(p_drop), seed, ctypes.c_float(1.0 / (1.0 - p_drop))
+
+
+def banded_attention_fwd_train(q, k, v, x_mask, emb_rel_k, emb_rel_v,
+                               window_size: int, dropout_p: float = 0.0,
+                               dropout_seed=None):
+    """K1 in train mode -> (out [b, h, t, d], m [b, h, t], l [b, h, t]):
+    the output with the hash dropout applied, and the softmax row max and
+    sum that B5 and B6 rebuild the probabilities from."""
+    w = int(window_size)
+    tensors = (q, k, v, x_mask, emb_rel_k, emb_rel_v)
+    _check_shapes(*tensors, w)
+    if q.device.type == "cpu":
+        out = banded_attention_plain(*tensors, w, dropout_p, dropout_seed)
+        return (out, *banded_attention_stats_plain(q, k, x_mask, emb_rel_k, w))
+    _check_kernel_inputs(tensors, w)
+    b, h, t, d = q.shape
+    drop, thr, seed, scale = _dropout_args(dropout_p, dropout_seed)
     out = torch.empty_like(q)
-    lib = _build.library("banded_attn.cu")
-    err = lib.banded_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), x_mask.data_ptr(),
-        emb_rel_k.data_ptr(), emb_rel_v.data_ptr(), out.data_ptr(),
-        b, h, t, d, w, q.device.index or 0,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    m = torch.empty((b, h, t), device=q.device)
+    l = torch.empty_like(m)
+    err = _build.library("banded_attn.cu").banded_attn_fwd_train(
+        *(x.data_ptr() for x in (*tensors, out, m, l)),
+        b, h, t, d, w, drop, thr, seed, scale, *_stream(q))
+    _build.check(err, "banded_attn_fwd_train")
+    banded_attention_fwd_train.launches += 1
+    return out, m, l
+
+
+def banded_attention_bwd_q(q, k, v, x_mask, emb_rel_k, emb_rel_v, g, m, l,
+                           delta, window_size: int, dropout_p: float = 0.0,
+                           dropout_seed=None):
+    """B5 -> (dq [b, h, t, d], dek [2w+1, d], dev [2w+1, d]) for the output
+    gradient g, from K1's row statistics m, l and delta = rowsum(g * out)
+    [b, h, t]."""
+    w = int(window_size)
+    tensors = (q, k, v, x_mask, emb_rel_k, emb_rel_v, g, m, l, delta)
+    _check_shapes(*tensors[:6], w)
+    _check_bwd_shapes(q, g, m, l, delta)
+    if q.device.type == "cpu":
+        dq, _, _, dek, dev = banded_attention_bwd_plain(
+            *tensors[:7], w, dropout_p, dropout_seed)
+        return dq, dek, dev
+    _check_kernel_inputs(tensors, w)
+    b, h, t, d = q.shape
+    drop, thr, seed, scale = _dropout_args(dropout_p, dropout_seed)
+    dq = torch.empty_like(q)
+    dek, dev = torch.empty_like(emb_rel_k), torch.empty_like(emb_rel_v)
+    lib = _build.library("banded_attn_bwd.cu")
+    n_blocks = lib.banded_attn_bwd_q_blocks(b, h, t)
+    partials = torch.empty((n_blocks, 2, 2 * w + 1, d), device=q.device)
+    err = lib.banded_attn_bwd_q(
+        *(x.data_ptr() for x in (*tensors, dq, partials, dek, dev)),
+        b, h, t, d, w, drop, thr, seed, scale, *_stream(q))
+    _build.check(err, "banded_attn_bwd_q")
+    banded_attention_bwd_q.launches += 1
+    return dq, dek, dev
+
+
+def banded_attention_bwd_k(q, k, v, x_mask, emb_rel_k, emb_rel_v, g, m, l,
+                           delta, window_size: int, dropout_p: float = 0.0,
+                           dropout_seed=None):
+    """B6 -> (dk, dv), each [b, h, t, d]; arguments as B5's."""
+    w = int(window_size)
+    tensors = (q, k, v, x_mask, emb_rel_k, emb_rel_v, g, m, l, delta)
+    _check_shapes(*tensors[:6], w)
+    _check_bwd_shapes(q, g, m, l, delta)
+    if q.device.type == "cpu":
+        _, dk, dv, _, _ = banded_attention_bwd_plain(
+            *tensors[:7], w, dropout_p, dropout_seed)
+        return dk, dv
+    _check_kernel_inputs(tensors, w)
+    b, h, t, d = q.shape
+    drop, thr, seed, scale = _dropout_args(dropout_p, dropout_seed)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _build.library("banded_attn_bwd.cu").banded_attn_bwd_k(
+        *(x.data_ptr() for x in (*tensors, dk, dv)),
+        b, h, t, d, w, drop, thr, seed, scale, *_stream(q))
+    _build.check(err, "banded_attn_bwd_k")
+    banded_attention_bwd_k.launches += 1
+    return dk, dv
+
+
+class BandedAttentionFn(torch.autograd.Function):
+    """The attention's training direction on the kernels: K1 in train mode
+    forward, B5 and B6 backward (the JAX package's `_banded_core` custom
+    VJP, attention_pallas.py:355-443). Gradients flow to q, k, v and the
+    two relative tables; none to the mask or the seed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, x_mask, emb_rel_k, emb_rel_v, window_size,
+                dropout_p, dropout_seed):
+        out, m, l = banded_attention_fwd_train(
+            q, k, v, x_mask, emb_rel_k, emb_rel_v, window_size, dropout_p,
+            dropout_seed)
+        ctx.save_for_backward(q, k, v, x_mask, emb_rel_k, emb_rel_v, m, l, out)
+        ctx.args = (window_size, dropout_p, dropout_seed)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, x_mask, ek, ev, m, l, out = ctx.saved_tensors
+        g = g.contiguous()
+        # D_i = g_i . out_i: the softmax backward's rowsum(dp * p), with
+        # the band term and the dropout folded in (attention_pallas.py:396)
+        delta = (g * out).sum(dim=-1)
+        args = (q, k, v, x_mask, ek, ev, g, m, l, delta, *ctx.args)
+        dq, dek, dev = banded_attention_bwd_q(*args)
+        dk, dv = banded_attention_bwd_k(*args)
+        return dq, dk, dv, None, dek, dev, None, None, None
+
+
+def banded_rel_self_attention(q, k, v, x_mask, emb_rel_k, emb_rel_v,
+                              window_size: int, dropout_p: float = 0.0,
+                              dropout_seed=None) -> torch.Tensor:
+    """q, k, v: [b, h, t, d] (q pre-scaled by 1/sqrt(d)); x_mask: [b, t] 0/1;
+    emb_rel_k/v: [2w+1, d] (one table shared by the heads); dropout on the
+    probabilities at rate `dropout_p` from the int32 `dropout_seed`
+    (required when dropout_p > 0). Returns [b, h, t, d]; rows where x_mask
+    is 0 are unspecified. Differentiable with respect to q, k, v and the
+    tables."""
+    w = int(window_size)
+    tensors = (q, k, v, x_mask, emb_rel_k, emb_rel_v)
+    _check_shapes(*tensors, w)
+    if dropout_p and dropout_seed is None:
+        raise ValueError("dropout_p > 0 needs a dropout_seed: the hash "
+                         "dropout of the kernels (and of their plain version)")
+    if q.device.type == "cpu":
+        return banded_attention_plain(*tensors, w, dropout_p, dropout_seed)
+    grad = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v, emb_rel_k, emb_rel_v))
+    if grad or dropout_p:
+        return BandedAttentionFn.apply(*tensors, w, float(dropout_p),
+                                       dropout_seed)
+    _check_kernel_inputs(tensors, w)
+    b, h, t, d = q.shape
+    out = torch.empty_like(q)
+    err = _build.library("banded_attn.cu").banded_attn_fwd(
+        *(x.data_ptr() for x in (*tensors, out)), b, h, t, d, w, *_stream(q))
     _build.check(err, "banded_attn_fwd")
     banded_rel_self_attention.launches += 1
     return out
 
 
 banded_rel_self_attention.launches = 0
+banded_attention_fwd_train.launches = 0
+banded_attention_bwd_q.launches = 0
+banded_attention_bwd_k.launches = 0

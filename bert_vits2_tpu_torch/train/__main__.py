@@ -1,0 +1,58 @@
+"""Command-line training entry (reference: `torchrun train_ms.py`; here
+
+    python -m bert_vits2_tpu_torch.train -c config.json -m model_dir
+
+with the JAX package's flags, `bert_vits2_tpu/train/__main__.py`). One
+device: the card unless `--device cpu`. Set BV2_FUSED_ATTENTION_TRAIN=1 to
+train the attention on the hand-written forward and backward kernels.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def main(argv: list[str] | None = None):
+    """Parse the flags, train, and return the Trainer."""
+    p = argparse.ArgumentParser(description="Train Bert-VITS2 on one GPU")
+    p.add_argument("-c", "--config", required=True, help="config.json path")
+    p.add_argument("-m", "--model", required=True, help="model/log directory")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--max-steps", type=int, default=None)
+    p.add_argument("--keep-ckpts", type=int, default=8)
+    p.add_argument("--n-model", type=int, default=1,
+                   help="model-parallel size (only 1 is ported)")
+    p.add_argument("--no-dur-disc", action="store_true")
+    p.add_argument("--slm-path", default="auto",
+                   help="WavLM weights dir for the SLM adversarial losses "
+                        "(train_ms.py:344-356); default resolves config.json "
+                        "model.slm.model (not ported: a present dir raises)")
+    p.add_argument("--no-slm", action="store_true",
+                   help="train WITHOUT the SLM/WavLM losses (diverges from "
+                        "reference v2.3 training)")
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-host training (not ported)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = p.parse_args(argv)
+
+    if args.multihost:
+        raise NotImplementedError(
+            "multi-host training is not ported (ROADMAP item A.17)")
+
+    from bert_vits2_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(
+        args.config,
+        args.model,
+        use_dur_disc=not args.no_dur_disc,
+        n_model=args.n_model,
+        slm_path=None if args.no_slm else args.slm_path,
+        device=args.device,
+    )
+    trainer.run(epochs=args.epochs, max_steps=args.max_steps,
+                keep_ckpts=args.keep_ckpts)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

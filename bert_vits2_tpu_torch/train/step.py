@@ -15,9 +15,8 @@ state it was given with its counter advanced. Metrics are 0-d tensors on
 the device, so the step itself never waits for the card.
 
 Only float32 training is ported: `bf16_run` and a bfloat16
-`train_compute_dtype` raise. The SLM (WavLM) losses, and batches that carry
-only the active language's BERT features (`utt_lang`), come with later
-slices.
+`train_compute_dtype` raise. The SLM (WavLM) losses come with a later
+slice.
 """
 
 from __future__ import annotations
@@ -29,6 +28,7 @@ from typing import Callable, NamedTuple
 import torch
 from torch import nn
 
+from bert_vits2_tpu_torch.ops import noise
 from bert_vits2_tpu_torch.ops.masking import slice_segments
 from bert_vits2_tpu_torch.ops.stft import mel_spectrogram, spec_to_mel
 from bert_vits2_tpu_torch.train.losses import (
@@ -183,6 +183,26 @@ def _no_param_grads(*modules):
             p.requires_grad_(True)
 
 
+def expand_bert(batch: dict, generator: torch.Generator | None) -> dict:
+    """Fast-collate batches (`data.load_collated_batch`) carry only the
+    active language's BERT features (`bert` [b, t, dim]) and `utt_lang`
+    [b]: draw the inactive languages' N(0,1) placeholders here, on the
+    batch's device, from the step's generator (the JAX step's `expand_bert`,
+    bert_vits2_tpu/train/step.py:246-262). The placeholders are pure noise,
+    as the reference's host-side randn is (data_utils.py:159-168). Other
+    batches pass through unchanged."""
+    if "utt_lang" not in batch:
+        return batch
+    active = batch["bert"]
+    draw = noise.randn((3, *active.shape), generator, active.device, active.dtype)
+    sel = batch["utt_lang"][:, None, None]
+    batch = dict(batch)
+    batch["bert"] = torch.where(sel == 0, active, draw[0])
+    batch["ja_bert"] = torch.where(sel == 1, active, draw[1])
+    batch["en_bert"] = torch.where(sel == 2, active, draw[2])
+    return batch
+
+
 def make_train_step(models: Models, train_cfg: TrainConfig,
                     data_cfg: DataConfig, segment_size_frames: int,
                     mas_noise_initial: float = 0.01,
@@ -191,7 +211,8 @@ def make_train_step(models: Models, train_cfg: TrainConfig,
 
     batch keys (tensors on the models' device): x, x_lengths, spec
     [b, t, spec_ch], spec_lengths, wave [b, t_samples], sid, tone, language,
-    bert, ja_bert, en_bert [b, t_x, dim]. `generator` is the
+    bert, ja_bert, en_bert [b, t_x, dim], or in place of the last two
+    utt_lang [b] (see `expand_bert`). `generator` is the
     `torch.Generator` of the step's noise; `lr` the learning rate of this
     step. The modules are put in train() mode."""
     _check_fp32(train_cfg)
@@ -215,6 +236,7 @@ def make_train_step(models: Models, train_cfg: TrainConfig,
             if m is not None:
                 m.train()
         metrics = {}
+        batch = expand_bert(batch, generator)
         mas_noise_scale = max(mas_noise_initial - mas_noise_delta * state.step, 0.0)
 
         # ---- 1. generator forward, once, with its graph ----

@@ -12,8 +12,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    one process per source, all started together.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes, TF32 off; max-abs-err (the MAS kernel: exact
-   equality), kernel time, plain time and the least time the card could
-   take (fp32 rate or memory rate).
+   equality; K1's train mode, B5 and B6 against the plain version's
+   autograd, with and without the hash dropout), kernel time, plain time
+   and the least time the card could take (fp32 rate or memory rate).
 4. serving path: TTSEngine.run_prepared on 8 seeded requests at the default
    V2.3 ModelConfig with random weights from a seed; the attention and MRF
    kernels must have launched, and the waves must be finite, in [-1, 1] and
@@ -22,14 +23,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
    versions): equal frame counts and waves within a stated bound.
 6. serving timing: audio seconds per second and per-call latency of
    run_prepared at batch 8, peak device memory, a profiler breakdown.
-7. training path: build_models / init_params / init_train_state /
+7. training step: build_models / init_params / init_train_state /
    make_train_step at the default V2.3 ModelConfig, fp32, batch 16 of 128
    tokens and 512 frames with ragged lengths; two warm-up and five timed
-   steps; finite metrics, one MAS kernel launch per step, every parameter
-   set moved, a valid monotonic alignment; ms per step, peak memory,
-   device-busy share and a profiler breakdown of one step.
+   steps with dense attention; finite metrics, one MAS kernel launch per
+   step, every parameter set moved, a valid monotonic alignment; ms per
+   step, peak memory, a profiler breakdown of one step; then the same
+   batch and weights with the fused attention (BV2_FUSED_ATTENTION_TRAIN=1)
+   and the dense one in turns: both medians and peak memories.
 8. the training forward at a cut depth, dropout off, the same noise, on the
    card and on the CPU: equal alignments, losses and waves within bounds.
+9. the training entry point: the Trainer (the CLI's) on a synthetic 44.1
+   kHz corpus and a config.json with the V2.3 model section, fused
+   attention, no SLM: K1-train/B5/B6 and MAS launches per step, finite
+   metrics, moved parameters, a checkpoint; step time, peak memory, a
+   profile of one step; then the CLI resumes on the same directory.
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -39,8 +47,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -57,6 +67,14 @@ FRAMES = 768  # frame cap the kernel checks use (128-token bucket x 6)
 TRAIN_BATCH, TRAIN_TX, TRAIN_TY = 16, 128, 512
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 LENGTH_REL_BOUND = 1e-3  # card vs CPU, fp32: the duration loss, relative
+# K1 train mode, B5, B6 against the plain autograd, each error relative to
+# the max of its reference: fp32 sums of up to t terms (rows) and of up to
+# b*h*t terms (dek, dev: per-block partials added in block order) in
+# another order than cuBLAS's and autograd's
+BWD_REL_BOUND = 1e-4
+N_ENC_ATTN, N_FLOW_ATTN = 6, 16  # attention layers of enc_p and of the flow
+AB_ROUNDS = 3  # fused vs dense: D F F D per round
+TRAINER_UTTS, TRAINER_WARMUP, TRAINER_TIMED = 32, 2, 6
 
 
 def log(*a):
@@ -125,6 +143,110 @@ def check_attention(dev):
             raise AssertionError(f"K1 {name}: max_abs_err {err} > {K1_BOUND}")
         rows.append(dict(shape=[b, h, t, d], launches_per_call=n_main, err=err,
                          ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by))
+    return rows
+
+
+def check_attention_bwd(dev):
+    """K1 in train mode, B5 and B6 against the plain version's autograd on
+    the card: out, the row statistics and the five gradients on valid rows,
+    without and with the hash dropout (one seed)."""
+    from bert_vits2_tpu_torch.ops.attention import (
+        banded_attention_bwd_plain, banded_attention_bwd_q,
+        banded_attention_bwd_k, banded_attention_fwd_train,
+        banded_attention_plain, banded_attention_stats_plain)
+    rows = {"banded_attn_fwd_train": [], "banded_attn_bwd_q": [],
+            "banded_attn_bwd_k": []}
+    b_, h, d, w, seed = TRAIN_BATCH, 2, 96, 4, -1234567
+    # the flow and enc_p of the training batch, launches per step; one
+    # ragged odd length over several key tiles
+    for name, b, t, n_main in (("flow", b_, TRAIN_TY, N_FLOW_ATTN),
+                               ("enc_p", b_, TRAIN_TX, N_ENC_ATTN),
+                               ("ragged", 2, 1001, 0)):
+        g = torch.Generator(device=dev).manual_seed(t)
+        q, k, v = (torch.randn(b, h, t, d, device=dev, generator=g)
+                   for _ in range(3))
+        q = q / math.sqrt(d)
+        ek, ev = (torch.randn(2 * w + 1, d, device=dev, generator=g)
+                  / math.sqrt(d) for _ in range(2))
+        m = lens_mask([t - (t // 16) * i for i in range(b)], t, dev)
+        go = torch.randn(b, h, t, d, device=dev, generator=g) * m[:, None, :, None]
+        valid = m.bool()[:, None, :]
+        for p_drop in (0.0, 0.1):
+            args = (q, k, v, m, ek, ev, w, p_drop, seed)
+            fwd = lambda: banded_attention_fwd_train(*args)  # noqa: E731
+            out, mr, lr = fwd()
+            delta = (go * out).sum(-1)
+            bargs = (q, k, v, m, ek, ev, go, mr, lr, delta, w, p_drop, seed)
+            dq, dek, dvv = banded_attention_bwd_q(*bargs)
+            dk, dv = banded_attention_bwd_k(*bargs)
+            want_out = banded_attention_plain(*args[:7], p_drop, seed)
+            want_m, want_l = banded_attention_stats_plain(q, k, m, ek, w)
+            want = banded_attention_bwd_plain(q, k, v, m, ek, ev, go, w, p_drop,
+                                              seed)
+            torch.cuda.synchronize()
+
+            errs, abs_errs = {}, {}
+            for key, got, ref in zip(
+                    ("m", "l", "dq", "dk", "dv", "dek", "dev"),
+                    (mr, lr, dq, dk, dv, dek, dvv), (want_m, want_l, *want)):
+                if got.dim() > 2:  # valid rows only
+                    got, ref = got[valid.expand(b, h, t)], ref[valid.expand(b, h, t)]
+                abs_errs[key] = (got - ref).abs().max().item()
+                errs[key] = abs_errs[key] / ref.abs().max().item()
+            out_err = (out - want_out).abs()[valid.expand(b, h, t)].max().item()
+            log(f"K1-train/B5/B6 {name} [b={b},h={h},t={t},d={d}] p_drop "
+                f"{p_drop}: out max_abs_err {out_err:.3e} (bound {K1_BOUND:g}); "
+                "relative to the max: " + ", ".join(
+                    f"{k_} {e:.2e}" for k_, e in errs.items())
+                + f" (bound {BWD_REL_BOUND:g})")
+            if not (out_err <= K1_BOUND
+                    and all(e <= BWD_REL_BOUND for e in errs.values())):
+                raise AssertionError(f"K1-train/B5/B6 {name} p_drop {p_drop} "
+                                     f"disagree with the plain autograd")
+            if p_drop == 0.0 or n_main == 0:
+                continue
+            # timing at the training rate p_drop = 0.1
+            ms_f = cuda_ms(fwd)
+            ms_q = cuda_ms(lambda: banded_attention_bwd_q(*bargs))
+            ms_k = cuda_ms(lambda: banded_attention_bwd_k(*bargs))
+            plain_f = cuda_ms(lambda: (banded_attention_plain(*args[:7], p_drop, seed),
+                                       banded_attention_stats_plain(q, k, m, ek, w)))
+            leaves = [a.detach().requires_grad_() for a in (q, k, v, ek, ev)]
+            with torch.enable_grad():
+                o = banded_attention_plain(leaves[0], leaves[1], leaves[2], m,
+                                           leaves[3], leaves[4], w, p_drop, seed)
+                plain_b = cuda_ms(lambda: torch.autograd.grad(
+                    o, leaves, go, retain_graph=True), iters=5)
+            del o, leaves
+            nb = 2 * w + 1
+            io = 4 * (b * t + 2 * nb * d)  # mask and the tables
+            fwd_b = bound(4 * b * h * t * t * d + 4 * b * h * t * nb * d,
+                          io + 4 * (4 * b * h * t * d + 2 * b * h * t))
+            # B5: s, g.v, ds.k; B6: s, g.v, p.g, ds.q (+ the band terms)
+            q_b = bound(6 * b * h * t * t * d + 6 * b * h * t * nb * d,
+                        io + 4 * (5 * b * h * t * d + 3 * b * h * t) + 8 * nb * d)
+            k_b = bound(8 * b * h * t * t * d + 4 * b * h * (t + 2 * w) * nb * d,
+                        io + 4 * (6 * b * h * t * d + 3 * b * h * t))
+            for key, ms, plain, (bms, by) in (
+                    ("banded_attn_fwd_train", ms_f, plain_f, fwd_b),
+                    ("banded_attn_bwd_q", ms_q, plain_b, q_b),
+                    ("banded_attn_bwd_k", ms_k, plain_b, k_b)):
+                log(f"{key} {name} [b={b},h={h},t={t},d={d}] p_drop {p_drop}: "
+                    f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} "
+                    f"ms ({by})")
+                outs = {"banded_attn_fwd_train": ("m", "l"),
+                        "banded_attn_bwd_q": ("dq", "dek", "dev"),
+                        "banded_attn_bwd_k": ("dk", "dv")}[key]
+                err = max(abs_errs[o] for o in outs)
+                if key == "banded_attn_fwd_train":
+                    err = max(err, out_err)
+                rows[key].append(dict(
+                    shape=[b, h, t, d], launches_per_call=n_main, err=err,
+                    ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by))
+            del bargs
+        torch.cuda.empty_cache()
+    log("[kernels] plain time of B5 and of B6: the plain version's autograd "
+        "backward, which computes both kernels' outputs in one pass")
     return rows
 
 
@@ -311,6 +433,7 @@ def run_training(dev, smi, counters):
     from torch.profiler import ProfilerActivity, profile
 
     from bert_vits2_tpu_torch.config import ModelConfig
+    from bert_vits2_tpu_torch.nn.attention import MultiHeadAttention
     from bert_vits2_tpu_torch.train import (
         DataConfig, TrainConfig, init_train_state, make_train_step)
     from bert_vits2_tpu_torch.train.trainer import build_models, init_params
@@ -400,8 +523,227 @@ def run_training(dev, smi, counters):
     if n_mas != 1:
         raise AssertionError(f"the profiler saw {n_mas} MAS kernel launches in a step")
     hook.remove()
+
+    # the attention's training direction, fused (K1 train mode, B5, B6)
+    # against dense, on this batch and these weights, in turns in one call
+    n_attn = sum(isinstance(m, MultiHeadAttention)
+                 for m in models.synthesizer.modules())
+    fused_names = ("banded_attn_fwd_train", "banded_attn_bwd_q", "banded_attn_bwd_k")
+    times, peaks = {"dense": [], "fused": []}, {"dense": 0.0, "fused": 0.0}
+    order = ["fused"] + ["dense", "fused", "fused", "dense"] * AB_ROUNDS
+    try:
+        for i, mode in enumerate(order):  # the first fused step warms up
+            os.environ["BV2_FUSED_ATTENTION_TRAIN"] = "1" if mode == "fused" else "0"
+            before = [counters[k].launches for k in fused_names]
+            torch.cuda.reset_peak_memory_stats()
+            sec, metrics = one_step()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            got = [counters[k].launches - b for k, b in zip(fused_names, before)]
+            want = [n_attn if mode == "fused" else 0] * 3
+            if got != want:
+                raise AssertionError(f"{mode} step launched {got}, not {want}")
+            bad = {k: float(v) for k, v in metrics.items()
+                   if not math.isfinite(float(v))}
+            if bad:
+                raise AssertionError(f"non-finite metrics in a {mode} step: {bad}")
+            if i:
+                times[mode].append(sec)
+                peaks[mode] = max(peaks[mode], peak)
+    finally:
+        os.environ.pop("BV2_FUSED_ATTENTION_TRAIN", None)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"[train-ab] {smi}: the same batch and weights, {len(times['fused'])} "
+        f"steps each in turns (D F F D): fused attention median "
+        f"{med['fused'] * 1e3:.1f} ms (max {max(times['fused']) * 1e3:.1f}), peak "
+        f"{peaks['fused']:.2f} GiB, {n_attn} launches each of K1-train/B5/B6 per "
+        f"step; dense median {med['dense'] * 1e3:.1f} ms (max "
+        f"{max(times['dense']) * 1e3:.1f}), peak {peaks['dense']:.2f} GiB; "
+        f"fused/dense {med['fused'] / med['dense']:.3f}")
     del models, state, step
     torch.cuda.empty_cache()
+    return launches
+
+
+V23_MODEL_JSON = dict(  # the model section of the reference's V2.3 config.json
+    use_spk_conditioned_encoder=True, use_noise_scaled_mas=True,
+    use_mel_posterior_encoder=False, use_duration_discriminator=True,
+    inter_channels=192, hidden_channels=192, filter_channels=768, n_heads=2,
+    n_layers=6, kernel_size=3, p_dropout=0.1, resblock="1",
+    resblock_kernel_sizes=[3, 7, 11],
+    resblock_dilation_sizes=[[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+    upsample_rates=[8, 8, 2, 2, 2], upsample_initial_channel=512,
+    upsample_kernel_sizes=[16, 16, 8, 2, 2], n_layers_q=3,
+    use_spectral_norm=False, gin_channels=512,
+    slm=dict(model="./slm/wavlm-base-plus", sr=16000, hidden=768, nlayers=13,
+             initial_channel=64),
+)
+
+
+def write_corpus(root, n_utts, seed=0):
+    """A synthetic corpus for the Trainer: 44.1 kHz int16 wavs of 401-500
+    frames (one bucket of the sampler), 40-63 phones each (128 text slots
+    after the blanks), cached BERT features, a cleaned filelist in three
+    languages and four speakers, and a config.json with the V2.3 model
+    section. Returns the config path."""
+    from scipy.io import wavfile
+
+    from bert_vits2_tpu_torch.text.symbols import SYMBOLS
+
+    rng = np.random.default_rng(seed)
+    hop, sr = 512, 44100
+    rows = []
+    for i in range(n_utts):
+        path = os.path.join(root, f"utt{i}.wav")
+        n_frames = int(rng.integers(402, 500))
+        audio = 0.3 * np.sin(np.arange(n_frames * hop) * 2 * np.pi
+                             * rng.uniform(100, 400) / sr)
+        audio += 0.05 * rng.normal(size=audio.shape)
+        wavfile.write(path, sr, (audio * 32767).astype(np.int16))
+        n_ph = int(rng.integers(40, 64))
+        phones = rng.choice(SYMBOLS[1:], n_ph)
+        np.save(path.replace(".wav", ".bert.npy"),
+                (0.5 * rng.normal(size=(2 * n_ph + 1, 1024))).astype(np.float32))
+        tones = " ".join(str(int(x)) for x in rng.integers(0, 2, n_ph))
+        rows.append(f"{path}|spk{i % 4}|{('ZH', 'JP', 'EN')[i % 3]}|text|"
+                    f"{' '.join(phones)}|{tones}|{n_ph}")
+    filelist = os.path.join(root, "train.list")
+    with open(filelist, "w", encoding="utf-8") as f:
+        f.write("\n".join(rows))
+    config = dict(
+        version="2.3",
+        train=dict(log_interval=1, eval_interval=100000, seed=1234, epochs=1000,
+                   learning_rate=2e-4, betas=[0.8, 0.99], eps=1e-9,
+                   batch_size=TRAIN_BATCH, bf16_run=False, lr_decay=0.99995,
+                   segment_size=16384, c_mel=45, c_kl=1.0),
+        data=dict(training_files=filelist, validation_files=filelist,
+                  sampling_rate=sr, filter_length=2048, hop_length=hop,
+                  win_length=2048, n_mel_channels=128, mel_fmin=0.0,
+                  mel_fmax=None, add_blank=True, n_speakers=256,
+                  spk2id={f"spk{i}": i for i in range(4)}),
+        model=V23_MODEL_JSON,
+    )
+    cfg_path = os.path.join(root, "config.json")
+    with open(cfg_path, "w", encoding="utf-8") as f:
+        json.dump(config, f)
+    return cfg_path
+
+
+def run_trainer(dev, smi, counters):
+    """The training entry point (the `python -m bert_vits2_tpu_torch.train`
+    CLI's Trainer) on a synthetic corpus at the default V2.3 width, the
+    attention on K1-train/B5/B6 (BV2_FUSED_ATTENTION_TRAIN=1), no SLM: the
+    kernels' launches per step, finite metrics, moved parameters, a
+    checkpoint, a resumed second Trainer; step time, peak memory and a
+    profile of one step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bert_vits2_tpu_torch.config import ModelConfig
+    from bert_vits2_tpu_torch.nn.attention import MultiHeadAttention
+    from bert_vits2_tpu_torch.train.__main__ import main as train_main
+    from bert_vits2_tpu_torch.train.trainer import Trainer
+
+    n_steps = TRAINER_WARMUP + TRAINER_TIMED
+    os.environ["BV2_FUSED_ATTENTION_TRAIN"] = "1"
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            t0 = time.perf_counter()
+            cfg_path = write_corpus(root, TRAINER_UTTS)
+            model_dir = os.path.join(root, "model")
+            trainer = Trainer(cfg_path, model_dir, slm_path=None, device="cuda")
+            if trainer.mcfg != ModelConfig():
+                raise AssertionError("the corpus config is not the default V2.3 width")
+            n_attn = sum(isinstance(m, MultiHeadAttention)
+                         for m in trainer.models.synthesizer.modules())
+            cfg = trainer.mcfg
+            if n_attn != cfg.n_layers + cfg.n_flow_layer * cfg.n_layers_trans_flow:
+                raise AssertionError(f"{n_attn} attention layers in the model")
+            log(f"[trainer] corpus of {TRAINER_UTTS} utterances and the Trainer "
+                f"built in {time.perf_counter() - t0:.1f} s; {len(trainer.sampler)} "
+                f"batches of {TRAIN_BATCH} per epoch; {n_attn} attention layers")
+            before = [[p.detach().clone() for p in m.parameters()]
+                      for m in trainer.models[:3]]
+            step_fn, record = trainer.step_fn, {"times": [], "shapes": set()}
+
+            def timed_step(state, batch, generator, lr):
+                i = len(record["times"])
+                if i == TRAINER_WARMUP:
+                    torch.cuda.reset_peak_memory_stats()
+                record["shapes"].add((tuple(batch["x"].shape),
+                                      tuple(batch["spec"].shape)))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if i == n_steps - 1:
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        out = step_fn(state, batch, generator, lr)
+                        torch.cuda.synchronize()
+                    record["prof"] = (prof, time.perf_counter() - t0)
+                else:
+                    out = step_fn(state, batch, generator, lr)
+                    torch.cuda.synchronize()
+                record["times"].append(time.perf_counter() - t0)
+                record["metrics"] = out[1]
+                return out
+
+            trainer.step_fn = timed_step
+            for fn in counters.values():
+                fn.launches = 0
+            trainer.run(max_steps=n_steps, keep_ckpts=2)
+            launches = {k: fn.launches for k, fn in counters.items()}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            metrics = trainer._assert_finite(record["metrics"])
+            log(f"[trainer] step {trainer.global_step}: " + ", ".join(
+                f"{k} {v:.4g}" for k, v in sorted(metrics.items())))
+            want = {k: 0 for k in counters}
+            want.update({k: n_attn * n_steps for k in (
+                "banded_attn_fwd_train", "banded_attn_bwd_q", "banded_attn_bwd_k")})
+            want["mas_fwd"] = n_steps
+            log(f"[trainer] kernel launches over {n_steps} steps {launches} "
+                f"(expected {want}); batch shapes (x, spec) {sorted(record['shapes'])}")
+            if launches != want:
+                raise AssertionError(f"Trainer kernel launches {launches}")
+            for name, module, old in zip(("G", "D", "duration D"),
+                                         trainer.models[:3], before):
+                moved = sum(not torch.equal(p.detach(), o)
+                            for p, o in zip(module.parameters(), old))
+                log(f"[trainer] {name}: {moved} of {len(old)} parameter tensors changed")
+                if moved < 0.9 * len(old):
+                    raise AssertionError(f"{name} parameters did not move")
+            del before
+            saved = sorted(os.listdir(trainer.ckpt_dir))
+            if saved != [f"DUR_{n_steps}.pth", f"D_{n_steps}.pth", f"G_{n_steps}.pth"]:
+                raise AssertionError(f"checkpoints {saved}")
+            timed = record["times"][TRAINER_WARMUP:-1]
+            med = float(np.median(timed))
+            log(f"[trainer-timing] {smi}: {len(timed)} steps after "
+                f"{TRAINER_WARMUP} warm-up (each closed by a synchronize): median "
+                f"{med * 1e3:.1f} ms, max {max(timed) * 1e3:.1f} ms per step; "
+                f"{1 / med:.3f} steps/s; peak memory {peak:.2f} GiB")
+            prof, wall = record["prof"]
+            profile_lines(prof, wall, "one Trainer step, fused attention", top=16)
+            t0 = time.perf_counter()
+            trainer.evaluate(max_items=1, max_frames=768)
+            log(f"[trainer] evaluate (Synthesizer.infer, SDP and DP) in "
+                f"{time.perf_counter() - t0:.1f} s")
+            del trainer
+            torch.cuda.empty_cache()
+
+            # the CLI on the same directory resumes at the saved step
+            resumed = train_main(["-c", cfg_path, "-m", model_dir, "--no-slm",
+                                  "--max-steps", str(n_steps + 1),
+                                  "--keep-ckpts", "1"])
+            if resumed.global_step != n_steps + 1:
+                raise AssertionError(f"the CLI stopped at {resumed.global_step}")
+            saved = sorted(os.listdir(resumed.ckpt_dir))
+            log(f"[trainer] the CLI resumed at step {n_steps} and ran to "
+                f"{resumed.global_step}; checkpoints kept {saved}")
+            if saved != [f"DUR_{n_steps + 1}.pth", f"D_{n_steps + 1}.pth",
+                         f"G_{n_steps + 1}.pth"]:
+                raise AssertionError(f"checkpoints {saved}")
+            del resumed
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("BV2_FUSED_ATTENTION_TRAIN", None)
     return launches
 
 
@@ -453,11 +795,16 @@ def main() -> int:
     from bert_vits2_tpu_torch import _build
     from bert_vits2_tpu_torch.infer import TTSEngine
     from bert_vits2_tpu_torch.ops.align import maximum_path
-    from bert_vits2_tpu_torch.ops.attention import banded_rel_self_attention
+    from bert_vits2_tpu_torch.ops.attention import (
+        banded_attention_bwd_k, banded_attention_bwd_q,
+        banded_attention_fwd_train, banded_rel_self_attention)
     from bert_vits2_tpu_torch.ops.mrf import fused_mrf
 
     counters = {"banded_attn_fwd": banded_rel_self_attention,
-                "mrf_fwd": fused_mrf, "mas_fwd": maximum_path}
+                "mrf_fwd": fused_mrf, "mas_fwd": maximum_path,
+                "banded_attn_fwd_train": banded_attention_fwd_train,
+                "banded_attn_bwd_q": banded_attention_bwd_q,
+                "banded_attn_bwd_k": banded_attention_bwd_k}
     dev = torch.device("cuda")
     smi = smi_line()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -479,6 +826,7 @@ def main() -> int:
     k1 = check_attention(dev)
     k2 = check_mrf(dev)
     k3 = check_mas(dev)
+    kb = check_attention_bwd(dev)
     torch.cuda.empty_cache()
 
     model = make_model("cuda")
@@ -499,7 +847,9 @@ def main() -> int:
     n_mrf = sum(1 for w in engine.mrf_packed if w is not None)
     log(f"[main] launches {launches} (expected {n_attn} and {n_mrf}); "
         f"frames {[len(w) // engine.hop_length for w in waves]}")
-    if launches != {"banded_attn_fwd": n_attn, "mrf_fwd": n_mrf, "mas_fwd": 0}:
+    want = {k: 0 for k in counters}
+    want.update(banded_attn_fwd=n_attn, mrf_fwd=n_mrf)
+    if launches != want:
         raise AssertionError(f"kernel launches {launches}")
     for w in waves:
         if not (len(w) >= engine.hop_length and np.isfinite(w).all()
@@ -546,8 +896,14 @@ def main() -> int:
     del engine, model, cpu_model
     torch.cuda.empty_cache()
 
-    launches["mas_fwd"] = run_training(dev, smi, counters)["mas_fwd"]
+    run_training(dev, smi, counters)
     check_training_forward_on_cpu(dev)
+    # the training entry point: its kernels' launches replace the serving
+    # path's zeros
+    trained = run_trainer(dev, smi, counters)
+    launches.update({k: v for k, v in trained.items() if k not in ("banded_attn_fwd",
+                                                                    "mrf_fwd")})
+    n_trainer = TRAINER_WARMUP + TRAINER_TIMED
 
     def entry(name, source, replaces, rows, basis):
         tot = lambda k: sum(r[k] * r["launches_per_call"] for r in rows)  # noqa: E731
@@ -565,6 +921,8 @@ def main() -> int:
         }
 
     serving = f"per run_prepared call at batch {MAIN_BATCH}"
+    training = (f"per training step at batch {TRAIN_BATCH}, {TRAIN_TX} tokens and "
+                f"{TRAIN_TY} frames (launches: over the Trainer's {n_trainer} steps)")
 
     record = {"kernels": [
         entry("banded_attn_fwd", "bert_vits2_tpu_torch/csrc/banded_attn.cu",
@@ -572,9 +930,16 @@ def main() -> int:
         entry("mrf_fwd", "bert_vits2_tpu_torch/csrc/mrf.cu",
               "bert_vits2_tpu/ops/mrf_pallas.py:128 and :434", k2, serving),
         entry("mas_fwd", "bert_vits2_tpu_torch/csrc/mas.cu",
-              "bert_vits2_tpu/ops/align_pallas.py:39", k3,
-              f"per training step at batch {TRAIN_BATCH} (launches: over "
-              f"{TIMED_STEPS} steps)"),
+              "bert_vits2_tpu/ops/align_pallas.py:39", k3, training),
+        entry("banded_attn_fwd_train", "bert_vits2_tpu_torch/csrc/banded_attn.cu",
+              "bert_vits2_tpu/ops/attention_pallas.py:88 (stats, dropout)",
+              kb["banded_attn_fwd_train"], training),
+        entry("banded_attn_bwd_q", "bert_vits2_tpu_torch/csrc/banded_attn_bwd.cu",
+              "bert_vits2_tpu/ops/attention_pallas.py:147",
+              kb["banded_attn_bwd_q"], training),
+        entry("banded_attn_bwd_k", "bert_vits2_tpu_torch/csrc/banded_attn_bwd.cu",
+              "bert_vits2_tpu/ops/attention_pallas.py:228",
+              kb["banded_attn_bwd_k"], training),
     ]}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

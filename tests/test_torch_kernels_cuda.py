@@ -9,7 +9,10 @@ skip the JAX-importing conftest):
 
 TF32 is off for matmuls and cuDNN convolutions, so the plain versions run
 in full fp32. Bounds: K1 1e-4 absolute (outputs O(1); fp32 sums of up to t
-terms in another order), K2 2e-4 absolute (18 chained convs of up to
+terms in another order); K1's train mode, B5 and B6 against the plain
+version's autograd, the row statistics and each gradient within 1e-4 of
+its max (fp32 sums of up to t terms, and of b*h*t terms for the tables,
+whose per-block partials add in block order); K2 2e-4 absolute (18 chained convs of up to
 11*C-term fp32 sums, in another order than cuDNN's), K3 exact (one fp32 add
 and one max per cell: the 0/1 path equals the plain version's bit for bit).
 """
@@ -20,7 +23,12 @@ import torch
 from bert_vits2_tpu_torch.models.generator import ResBlock1
 from bert_vits2_tpu_torch.ops.align import maximum_path, maximum_path_plain
 from bert_vits2_tpu_torch.ops.attention import (
+    banded_attention_bwd_k,
+    banded_attention_bwd_plain,
+    banded_attention_bwd_q,
+    banded_attention_fwd_train,
     banded_attention_plain,
+    banded_attention_stats_plain,
     banded_rel_self_attention,
 )
 from bert_vits2_tpu_torch.ops.mrf import (
@@ -75,6 +83,48 @@ def test_banded_attention_kernel(card, b, h, t, d, lens):
     valid = m.bool()[:, None, :, None].expand_as(got)
     err = (got - want).abs()[valid].max().item()
     assert err <= 1e-4, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_drop", [0.0, 0.1])
+@pytest.mark.parametrize("b,h,t,d,lens", [
+    (16, 2, 512, 96, None),          # the flow's shape in the training step
+    (16, 2, 128, 96, None),          # enc_p's
+    (2, 2, 1001, 96, [1001, 640]),   # ragged, odd, several tiles
+])
+def test_banded_attention_backward_kernels(card, b, h, t, d, lens, p_drop):
+    """K1 in train mode (out, m, l), B5 (dq, dek, dev) and B6 (dk, dv)
+    against the plain version's autograd, valid rows, one dropout seed."""
+    g = torch.Generator(device=card).manual_seed(t + b)
+    lens = lens or [t - (t // 16) * i for i in range(b)]
+    q, k, v = (torch.randn(b, h, t, d, device=card, generator=g)
+               for _ in range(3))
+    q = q / d ** 0.5
+    ek, ev = (torch.randn(9, d, device=card, generator=g) / d ** 0.5
+              for _ in range(2))
+    m = _lens_mask(lens, t, card)
+    go = torch.randn(b, h, t, d, device=card, generator=g) * m[:, None, :, None]
+    counts = [fn.launches for fn in (banded_attention_fwd_train,
+                                     banded_attention_bwd_q, banded_attention_bwd_k)]
+    seed = -987654321
+    out, mr, lr = banded_attention_fwd_train(q, k, v, m, ek, ev, 4, p_drop, seed)
+    args = (q, k, v, m, ek, ev, go, mr, lr, (go * out).sum(-1), 4, p_drop, seed)
+    dq, dek, dev = banded_attention_bwd_q(*args)
+    dk, dv = banded_attention_bwd_k(*args)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in (banded_attention_fwd_train, banded_attention_bwd_q,
+                                   banded_attention_bwd_k)] == [c + 1 for c in counts]
+    valid = m.bool()[:, None, :].expand(b, h, t)
+    want_out = banded_attention_plain(q, k, v, m, ek, ev, 4, p_drop, seed)
+    assert (out - want_out)[valid].abs().max().item() <= 1e-4
+    want = (*banded_attention_stats_plain(q, k, m, ek, 4),
+            *banded_attention_bwd_plain(q, k, v, m, ek, ev, go, 4, p_drop, seed))
+    for name, got, ref in zip(("m", "l", "dq", "dk", "dv", "dek", "dev"),
+                              (mr, lr, dq, dk, dv, dek, dev), want):
+        if got.dim() > 2:
+            got, ref = got[valid], ref[valid]
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= 1e-4, (name, rel)
 
 
 @pytest.mark.cuda

@@ -15,6 +15,7 @@ Tolerance: fp32 max-abs-err <= 1e-5 on valid positions (the two frameworks
 sum in different orders; values are O(1)).
 """
 
+import functools
 import numpy as np
 import pytest
 import torch
@@ -64,12 +65,12 @@ def random_tree(shapes, seed):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
-def random_synth_params(jax_model, seed, bert_dim=1024):
-    """Random parameters for every leaf of the JAX Synthesizer. The
-    posterior encoder `enc_q` draws from a stream of its own, so the other
-    modules' values do not depend on it."""
+@functools.lru_cache(maxsize=None)
+def _synth_shapes(cfg, bert_dim):
+    """The JAX Synthesizer's parameter shapes for a config (one trace per
+    config and process: several files share a config)."""
     z = lambda *s, dt=jnp.float32: jnp.zeros(s, dt)  # noqa: E731
-    shapes = jax.eval_shape(lambda: jax_model.init(
+    return jax.eval_shape(lambda: JaxSynthesizer(cfg).init(
         {"params": jax.random.key(0), "noise": jax.random.key(1),
          "dropout": jax.random.key(2)},
         z(1, 8, dt=jnp.int32), jnp.asarray([8]), z(1, 16, 33), jnp.asarray([16]),
@@ -77,6 +78,13 @@ def random_synth_params(jax_model, seed, bert_dim=1024):
         z(1, 8, bert_dim), z(1, 8, bert_dim), z(1, 8, bert_dim),
         deterministic=True,
     ))["params"]
+
+
+def random_synth_params(jax_model, seed, bert_dim=1024):
+    """Random parameters for every leaf of the JAX Synthesizer. The
+    posterior encoder `enc_q` draws from a stream of its own, so the other
+    modules' values do not depend on it."""
+    shapes = dict(_synth_shapes(jax_model.cfg, bert_dim))
     enc_q = shapes.pop("enc_q")
     params = random_tree(shapes, seed)
     params["enc_q"] = random_tree(enc_q, seed + 1000)
@@ -266,10 +274,15 @@ def test_generator_without_packed_weights_is_differentiable(pair):
 
 def test_attention_dispatch_follows_grad_mode(pair, monkeypatch):
     """Gradients wanted -> the dense formula (differentiable, dropout in
-    train() mode only); no-grad -> the K1 wrapper, which keeps refusing
-    tensors that require grad."""
+    train() mode only), or with BV2_FUSED_ATTENTION_TRAIN=1 the wrapper of
+    the fused kernels (on the CPU its plain version with the hash dropout);
+    no-grad -> the K1 wrapper's inference launch. The wrapper returns a
+    result with a graph for tensors that require grad."""
     from bert_vits2_tpu_torch.nn import attention as attn_mod
-    from bert_vits2_tpu_torch.ops.attention import banded_rel_self_attention
+    from bert_vits2_tpu_torch.ops.attention import (
+        banded_attention_plain,
+        banded_rel_self_attention,
+    )
 
     _, _, port = pair
     layer = port.enc_p.encoder.attn_layers[0]
@@ -277,6 +290,7 @@ def test_attention_dispatch_follows_grad_mode(pair, monkeypatch):
     real = attn_mod.banded_rel_self_attention
     monkeypatch.setattr(attn_mod, "banded_rel_self_attention",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.delenv("BV2_FUSED_ATTENTION_TRAIN", raising=False)
     x = torch.randn(2, 8, 16, generator=torch.Generator().manual_seed(0))
     m = _t(_mask([16, 11], 16)[:, None])
     with torch.no_grad():
@@ -295,9 +309,14 @@ def test_attention_dispatch_follows_grad_mode(pair, monkeypatch):
         a = layer(x, m)
         b = layer(x, m)  # another dropout mask
         assert (a - b).abs().max() > 0 and calls == [1]
+        monkeypatch.setenv("BV2_FUSED_ATTENTION_TRAIN", "1")
+        fused = layer(xg, m)  # the fused op, hash dropout
+        assert calls == [1, 1] and fused.requires_grad
     finally:
         layer.eval()
     q = torch.randn(1, 2, 16, 4, requires_grad=True)
     e = torch.randn(9, 4)
-    with pytest.raises(RuntimeError):
-        banded_rel_self_attention(q, q, q, torch.ones(1, 16), e, e, 4)
+    out = banded_rel_self_attention(q, q, q, torch.ones(1, 16), e, e, 4)
+    assert out.requires_grad
+    assert torch.equal(out, banded_attention_plain(q, q, q, torch.ones(1, 16),
+                                                   e, e, 4))

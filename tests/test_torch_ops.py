@@ -4,8 +4,11 @@ against the JAX package, on the CPU.
 The plain versions are what the port runs on the CPU and what the CUDA
 kernels are held against on the card (tests/test_torch_kernels_cuda.py), so
 each is held here against the JAX function the TPU kernel computes: the
-Pallas kernels in interpret mode, as the JAX package's own tests run them,
-and the JAX dense attention path. Inputs come from numpy with a fixed seed.
+attention's Pallas kernel in interpret mode, as the JAX package's own tests
+run it, and the JAX dense attention path; the MRF against the JAX ResBlock1
+stack, which tests/test_mrf_pallas.py holds both MRF kernels to (their
+interpret mode costs ~10 s a case on a CPU). Inputs come from numpy with a
+fixed seed.
 
 Tolerances: fp32 max-abs-err <= 1e-5 on valid positions (fp32 sums taken in
 another order by the two frameworks; values are O(1)).
@@ -24,12 +27,6 @@ from bert_vits2_tpu.nn.attention import MultiHeadAttention as JMHA
 from bert_vits2_tpu.ops import masking as jmask
 from bert_vits2_tpu.ops import spline as jspline
 from bert_vits2_tpu.ops.attention_pallas import banded_rel_self_attention as j_banded
-from bert_vits2_tpu.ops.mrf_pallas import (
-    fused_mrf as j_fused_mrf,
-    fused_mrf_folded as j_fused_mrf_folded,
-    prepare_mrf_weights as j_prepare_mrf,
-    prepare_mrf_weights_folded as j_prepare_mrf_folded,
-)
 from bert_vits2_tpu_torch.compat.params import from_jax_params
 from bert_vits2_tpu_torch.models.generator import ResBlock1
 from bert_vits2_tpu_torch.nn.attention import MultiHeadAttention
@@ -128,11 +125,16 @@ def test_banded_plain_is_the_dense_formula():
 
 
 def test_wrappers_refuse_grad_and_dropout():
+    """The attention wrapper takes gradients and the hash dropout (its
+    backward kernels exist) but refuses dropout without a seed; the MRF
+    wrapper, whose kernel has no backward, refuses tensors that require
+    grad."""
     q, k, v, m, ek, ev = map(_t, _attn_inputs(1, 1, 8, 4, 4, [8], seed=4))
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="dropout_seed"):
         banded_rel_self_attention(q, k, v, m, ek, ev, 4, dropout_p=0.1)
-    with pytest.raises(RuntimeError):
-        banded_rel_self_attention(q.requires_grad_(), k, v, m, ek, ev, 4)
+    out = banded_rel_self_attention(q.requires_grad_(), k, v, m, ek, ev, 4,
+                                    dropout_p=0.1, dropout_seed=3)
+    assert out.requires_grad
     blocks = [ResBlock1(8, 3, (1, 3))]
     with pytest.raises(RuntimeError):
         fused_mrf(torch.zeros(1, 8, 16, requires_grad=True), torch.ones(1, 16),
@@ -182,26 +184,34 @@ def _port_mrf(port_w, x, m):
     return out.numpy().transpose(0, 2, 1)
 
 
+def _jax_mrf(jblocks, c, x, m):
+    """The JAX package's ResBlock1 stack (the generator's path during
+    training), which tests/test_mrf_pallas.py holds the TPU kernels to."""
+    params = {f"rb_{j}": p for j, p in enumerate(jblocks)}
+    return np.asarray(_JMRF(c).apply({"params": params}, x, m))
+
+
 @pytest.mark.parametrize("c,t", [(16, 512), (32, 256)])
 def test_mrf_plain_matches_pallas_kernel(c, t):
-    """Plain K2 vs the TPU kernel `_mrf_kernel` (interpret mode)."""
+    """Plain K2 vs the function of the TPU kernel `_mrf_kernel`: the JAX
+    ResBlock1 stack it is held to by the JAX package's own tests."""
     jblocks, port_w, x, m = _mrf_case(c, t)
-    packed = j_prepare_mrf(jblocks, KS, DS, jnp.float32)
-    want = np.asarray(j_fused_mrf(x, m, packed, KS, DS))
+    want = _jax_mrf(jblocks, c, x, m)
     got = _port_mrf(port_w, x, m)
-    assert np.abs(got - want).max() <= ATOL
+    valid = m.astype(bool)
+    assert np.abs(got - want)[valid].max() <= ATOL
     assert np.abs(got[1, t - 57:]).max() == 0.0  # masked tail silent
 
 
 @pytest.mark.parametrize("c,t", [(16, 1024), (64, 256)])
 def test_mrf_plain_matches_pallas_folded_kernel(c, t):
-    """Plain K2 vs the TPU kernel `_mrf_folded_kernel` (interpret mode): the
-    same function in the TPU's phase-folded layout."""
+    """Plain K2 vs the function of the TPU kernel `_mrf_folded_kernel` (the
+    same function in the TPU's phase-folded layout), at its widths: the
+    JAX ResBlock1 stack, as above."""
     jblocks, port_w, x, m = _mrf_case(c, t)
-    packed = j_prepare_mrf_folded(jblocks, KS, DS, 128 // c, jnp.float32)
-    want = np.asarray(j_fused_mrf_folded(x, m, packed, KS, DS))
+    want = _jax_mrf(jblocks, c, x, m)
     got = _port_mrf(port_w, x, m)
-    assert np.abs(got - want).max() <= ATOL
+    assert np.abs(got - want)[m.astype(bool)].max() <= ATOL
 
 
 def test_mrf_plain_matches_resblock_modules():

@@ -110,7 +110,8 @@ for info in pkgutil.walk_packages(bert_vits2_tpu_torch.__path__,
 from bert_vits2_tpu_torch.config import ModelConfig
 from bert_vits2_tpu_torch.infer import TTSEngine
 from bert_vits2_tpu_torch.models import build_synthesizer
-from bert_vits2_tpu_torch.train.trainer import build_models
+from bert_vits2_tpu_torch.train.trainer import Trainer, build_models
+from bert_vits2_tpu_torch.train.__main__ import main as train_main
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                        "bert_vits2_tpu"))
@@ -128,6 +129,14 @@ try:
     build_models(ModelConfig(n_layers=1))
 except RuntimeError:
     raised.append("build_models")
+try:
+    Trainer("no-such-config.json", "no-such-dir")
+except RuntimeError:
+    raised.append("Trainer")
+try:
+    train_main(["-c", "no-such-config.json", "-m", "no-such-dir"])
+except RuntimeError:
+    raised.append("train CLI")
 assert "bert_vits2_tpu_torch.train.step" in sys.modules
 assert "bert_vits2_tpu_torch.ops.align" in sys.modules
 print(json.dumps({"loaded": loaded, "raised": raised}))
@@ -136,15 +145,17 @@ print(json.dumps({"loaded": loaded, "raised": raised}))
 
 def test_import_boundary_and_default_device():
     """In a fresh interpreter with no card visible: importing every module of
-    the port (the training modules included) loads neither JAX, flax, optax
-    nor the JAX package, and the entry points default to CUDA and raise
-    instead of falling back to the CPU."""
+    the port (the training modules, the data pipeline and the CLI included)
+    loads neither JAX, flax, optax nor the JAX package, and the entry
+    points (the Trainer and the training CLI included) default to CUDA and
+    raise instead of falling back to the CPU."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"loaded": [], "raised": ["build_synthesizer", "TTSEngine",
-                                            "build_models"]}
+                                            "build_models", "Trainer",
+                                            "train CLI"]}
 
 
 @pytest.mark.parametrize("path", ["bert_vits2_tpu_torch", "chip_smoke.py"])
