@@ -53,6 +53,12 @@ SIGNATURES = {
         # device, stream
         "mrf_fwd": [_P] * 4 + [_I] * 5 + [_P] * 4 + [_I, _P],
     },
+    "tc_probe.cu": {  # built on demand by utils/tc_probe.py, not by build_all
+        # A, B, D, lbo, sbo, stream
+        "tc_probe_layout": [_P] * 3 + [_I] * 2 + [_P],
+        # sink, kind, iters, blocks, stream
+        "tc_probe_rate": [_P] + [_I] * 3 + [_P],
+    },
     "mas.cu": {
         # neg_cent, t_ys, t_xs, path, decisions, b, t_y, t_x, device, stream
         "mas_fwd": [_P] * 5 + [_I] * 4 + [_P],

@@ -9,7 +9,9 @@ the design answers that. Beside it:
 
 - `prepare_mrf_weights`, run once per engine: resolves weight norm and packs
   every conv of the stage's `ResBlock1` blocks (reference layout) and the
-  kernel's flat [c_in][tap][c_out] buffer.
+  kernel's flat buffer, each conv weight split into TF32 hi and lo parts
+  (`split_tf32`) and laid out as the kernel's tensor-core B fragments
+  (`pack_conv_weight`).
 - `fused_mrf_plain`, the same function in plain PyTorch (`F.conv1d`), which
   the CPU runs and the tests and `chip_smoke.py` hold the kernel against.
 - `fused_mrf`, the wrapper: plain version for CPU tensors, the kernel for
@@ -35,13 +37,15 @@ LRELU_SLOPE = 0.1
 MAX_BLOCKS = 4  # csrc/mrf.cu MAXB
 MAX_STAGES = 4  # csrc/mrf.cu MAXS
 SMEM_BYTES = 232448  # dynamic shared memory a block may take (227 KB)
-# the kernel's work split (csrc/mrf.cu): units of 8 channels x STRIP
-# samples, at most UNITS per conv window; weights staged CI_CHUNK input
-# channels at a time, double-buffered, and PAD floats past the buffers
-STRIP = 128
-UNITS = 24
-CI_CHUNK = 4
-PAD = 3 * STRIP
+# the kernel's work split (csrc/mrf.cu): WGS warpgroups, each holding MT
+# M tiles of 64 samples for NT = min(C / 8, 8) N tiles of 8 channels, so a
+# window of at most 64 * WGS * MT samples, by NT; weight slabs stream
+# through NSTAGE ring stages of STAGE_FLOATS floats; SLACK floats past the
+# mask
+NSTAGE = 3
+STAGE_FLOATS = 2048
+SLACK = 32
+MAX_WINDOW = {1: 4096, 2: 2048, 3: 1280, 4: 1024, 5: 768, 6: 512, 7: 384, 8: 384}
 
 
 def stage_supported(channels: int, kernel_sizes, dilations) -> bool:
@@ -59,8 +63,9 @@ class MrfWeights:
     """Weight-norm-resolved weights of one stage's MRF blocks.
 
     convs[j][s] = (w1, b1, w2, b2) in the reference layout [C, C, k];
-    flat / offsets: the kernel's buffer and the (w1, b1, w2, b2) float
-    offsets per (block, stage) into it."""
+    flat / offsets: the kernel's buffer (`pack_conv_weight` per conv
+    weight, the biases as they are) and the (w1, b1, w2, b2) float offsets
+    per (block, stage) into it."""
 
     kernel_sizes: tuple
     dilations: tuple
@@ -78,6 +83,35 @@ class MrfWeights:
                    for k, ds in zip(self.kernel_sizes, self.dilations))
 
 
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (ties away from zero), as
+    `cvt.rna.tf32.f32`: the low 13 mantissa bits rounded off."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """v -> (hi, lo), both TF32 values, hi = tf32(v), lo = tf32(v - hi):
+    hi + lo equals v within 2**-22 of |v| (the 3xTF32 split)."""
+    hi = tf32_round(v)
+    return hi, tf32_round(v - hi)
+
+
+def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
+    """A conv weight [C_out, C_in, k] -> the kernel's B operands, flat: per
+    slab (tap, kstep) of 8 input channels, the hi part, then the lo part,
+    each as `wgmma` core matrices: 8-channel output group j, K half kh,
+    row r, column c holds w[8j + r, 8*kstep + 4*kh + c, tap]
+    (csrc/mrf.cu)."""
+    co, ci, k = w.shape
+    parts = []
+    for part in split_tf32(w.float()):
+        # [tap, ci, co] -> [tap, kstep, kh, c, j, r] -> [tap, kstep, j, kh, r, c]
+        t = part.permute(2, 1, 0).reshape(k, ci // 8, 2, 4, co // 8, 8)
+        parts.append(t.permute(0, 1, 4, 2, 5, 3))
+    return torch.stack(parts, dim=2).reshape(-1)
+
+
 @torch.no_grad()
 def prepare_mrf_weights(blocks) -> MrfWeights:
     """blocks: the stage's ResBlock1 modules (each with `convs1`, `convs2`,
@@ -92,8 +126,7 @@ def prepare_mrf_weights(blocks) -> MrfWeights:
             stages.append(quad)
             offs = []
             for i, p in enumerate(quad):
-                # weights as [c_in][tap][c_out] for warp-uniform float4 loads
-                flat = p.permute(1, 2, 0).reshape(-1) if i % 2 == 0 else p
+                flat = pack_conv_weight(p) if i % 2 == 0 else p
                 offs.append(n)
                 pieces.append(flat)
                 n += flat.numel()
@@ -127,13 +160,19 @@ def fused_mrf_plain(x: torch.Tensor, mask: torch.Tensor,
     return acc / len(weights.convs)
 
 
-def pick_tile(channels: int, t: int, halo: int, kmax: int) -> int:
+def _smem_bytes(channels: int, window: int) -> int:
+    """csrc/mrf.cu's shared memory for a window: the weight ring, two
+    [C][Wp] buffers (Wp >= window, 8 mod 32), the mask and the slack."""
+    wp = (window + 23) // 32 * 32 + 8
+    return 4 * (NSTAGE * STAGE_FLOATS + 2 * channels * wp + wp + SLACK)
+
+
+def pick_tile(channels: int, t: int, halo: int) -> int:
     """Largest output tile whose window (tile + 2*halo samples) fits both
-    the kernel's units per conv and shared memory: two [C][window] fp32
-    buffers, the mask, two weight windows and the pad."""
-    window = (UNITS // (channels // 8)) * STRIP
-    fixed = 4 * (2 * CI_CHUNK * kmax * channels + PAD)
-    window = min(window, (SMEM_BYTES - fixed) // (4 * (2 * channels + 1)))
+    the warpgroups' M tiles and shared memory."""
+    window = MAX_WINDOW[min(channels // 8, 8)]
+    while window > 32 and _smem_bytes(channels, window) > SMEM_BYTES:
+        window -= 32
     tile = min(window - 2 * halo, t)
     if tile < 1:
         raise ValueError(f"C={channels} leaves no room for a tile")
@@ -175,7 +214,7 @@ def fused_mrf(x: torch.Tensor, mask: torch.Tensor,
                 weights.offsets[i])
             i += 1
     out = torch.empty_like(x)
-    tile = pick_tile(c, t, weights.halo, max(weights.kernel_sizes))
+    tile = pick_tile(c, t, weights.halo)
     lib = _build.library("mrf.cu")
     err = lib.mrf_fwd(
         x.data_ptr(), mask.data_ptr(), weights.flat.data_ptr(), out.data_ptr(),

@@ -2,19 +2,24 @@
 """Drive the PyTorch port's synthesis and training paths on one NVIDIA GPU
 and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase
+    python3 chip_smoke.py --kernels   # phases 1-3: the kernels alone
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
    no CUDA device is a failure.
-2. build: nvcc builds every kernel in bert_vits2_tpu_torch/csrc (sm_90a),
-   one process per source, all started together.
+2. build: nvcc builds every kernel source of the main paths
+   (bert_vits2_tpu_torch/_build.py SOURCES, sm_90a), one process per
+   source, all started together.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes, TF32 off; max-abs-err (the MAS kernel: exact
    equality; K1's train mode, B5 and B6 against the plain version's
-   autograd, with and without the hash dropout), kernel time, plain time
-   and the least time the card could take (fp32 rate or memory rate).
+   autograd, with and without the hash dropout), kernel time (CUDA events)
+   and device time (the profiler's kernel time), plain time and the least
+   time the card could take (fp32 rate or memory rate), and the bound of
+   the unit the kernel's design uses (K1 and K2: 3xTF32 on the tensor
+   cores).
 4. serving path: TTSEngine.run_prepared on 8 seeded requests at the default
    V2.3 ModelConfig with random weights from a seed; the attention and MRF
    kernels must have launched, and the waves must be finite, in [-1, 1] and
@@ -57,6 +62,7 @@ import numpy as np
 import torch
 
 FP32_FLOPS = 67e12  # H100 SXM fp32 rate outside the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core rate
 HBM_BYTES = 3.35e12  # H100 SXM HBM3 rate
 K1_BOUND = 1e-4  # fp32, outputs O(1), sums of up to t terms in another order
 K2_BOUND = 2e-4  # fp32, 18 chained convs of up to 11*C-term sums
@@ -104,6 +110,29 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
 
 
+def bound_3xtf32(flops: float, nbytes: float) -> float:
+    """The bound of K1's and K2's design: every fp32 product as three TF32
+    tensor-core products (3xTF32) at the TF32 rate, or the bytes."""
+    return max(3 * flops / TF32_FLOPS, nbytes / HBM_BYTES) * 1e3
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of fn per call: the kernels' own time in a profiler
+    trace of `iters` calls after a warm-up, summed over every kernel the
+    call launches (no host time between them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / iters
+
+
 def lens_mask(lens, t, dev):
     return (torch.arange(t, device=dev)[None, :]
             < torch.as_tensor(lens, device=dev)[:, None]).float()
@@ -131,18 +160,22 @@ def check_attention(dev):
             valid = m.bool()[:, None, :, None].expand_as(got)
             err = (got - want).abs()[valid].max().item()
             ms = cuda_ms(lambda: banded_rel_self_attention(*args))
+            dms = device_ms(lambda: banded_rel_self_attention(*args))
             plain = cuda_ms(lambda: banded_attention_plain(*args))
         flops = 4 * b * h * t * t * d + 4 * b * h * t * (2 * w + 1) * d
         nbytes = 4 * (4 * b * h * t * d + b * t + 2 * (2 * w + 1) * d)
         bms, by = bound(flops, nbytes)
+        tc = bound_3xtf32(flops, nbytes)
         log(f"K1 {name} [b={b},h={h},t={t},d={d}]: max_abs_err {err:.3e} "
-            f"(bound {K1_BOUND:g}), kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"bound {bms:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP at 67 TFLOP/s "
-            f"fp32, {nbytes / 1e6:.1f} MB at 3.35 TB/s)")
+            f"(bound {K1_BOUND:g}), kernel {ms:.4f} ms (device {dms:.4f} ms), "
+            f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}: "
+            f"{flops / 1e9:.2f} GFLOP at 67 TFLOP/s fp32, {nbytes / 1e6:.1f} MB "
+            f"at 3.35 TB/s), 3xTF32 bound {tc:.4f} ms (3 x FLOP at 495 TFLOP/s)")
         if not err <= K1_BOUND:
             raise AssertionError(f"K1 {name}: max_abs_err {err} > {K1_BOUND}")
         rows.append(dict(shape=[b, h, t, d], launches_per_call=n_main, err=err,
-                         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by))
+                         ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms,
+                         bound_by=by, bound_design_ms=tc))
     return rows
 
 
@@ -209,6 +242,9 @@ def check_attention_bwd(dev):
             ms_f = cuda_ms(fwd)
             ms_q = cuda_ms(lambda: banded_attention_bwd_q(*bargs))
             ms_k = cuda_ms(lambda: banded_attention_bwd_k(*bargs))
+            dev_f = device_ms(fwd)
+            dev_q = device_ms(lambda: banded_attention_bwd_q(*bargs))
+            dev_k = device_ms(lambda: banded_attention_bwd_k(*bargs))
             plain_f = cuda_ms(lambda: (banded_attention_plain(*args[:7], p_drop, seed),
                                        banded_attention_stats_plain(q, k, m, ek, w)))
             leaves = [a.detach().requires_grad_() for a in (q, k, v, ek, ev)]
@@ -220,20 +256,25 @@ def check_attention_bwd(dev):
             del o, leaves
             nb = 2 * w + 1
             io = 4 * (b * t + 2 * nb * d)  # mask and the tables
-            fwd_b = bound(4 * b * h * t * t * d + 4 * b * h * t * nb * d,
-                          io + 4 * (4 * b * h * t * d + 2 * b * h * t))
+            fwd_flops = 4 * b * h * t * t * d + 4 * b * h * t * nb * d
+            fwd_bytes = io + 4 * (4 * b * h * t * d + 2 * b * h * t)
+            fwd_b = bound(fwd_flops, fwd_bytes)
             # B5: s, g.v, ds.k; B6: s, g.v, p.g, ds.q (+ the band terms)
             q_b = bound(6 * b * h * t * t * d + 6 * b * h * t * nb * d,
                         io + 4 * (5 * b * h * t * d + 3 * b * h * t) + 8 * nb * d)
             k_b = bound(8 * b * h * t * t * d + 4 * b * h * (t + 2 * w) * nb * d,
                         io + 4 * (6 * b * h * t * d + 3 * b * h * t))
-            for key, ms, plain, (bms, by) in (
-                    ("banded_attn_fwd_train", ms_f, plain_f, fwd_b),
-                    ("banded_attn_bwd_q", ms_q, plain_b, q_b),
-                    ("banded_attn_bwd_k", ms_k, plain_b, k_b)):
+            # K1 runs its products as 3xTF32 on the tensor cores; B5 and B6
+            # as fp32 FMAs, so their design bound is the fp32 one
+            for key, ms, dms, plain, (bms, by), tc in (
+                    ("banded_attn_fwd_train", ms_f, dev_f, plain_f, fwd_b,
+                     bound_3xtf32(fwd_flops, fwd_bytes)),
+                    ("banded_attn_bwd_q", ms_q, dev_q, plain_b, q_b, q_b[0]),
+                    ("banded_attn_bwd_k", ms_k, dev_k, plain_b, k_b, k_b[0])):
                 log(f"{key} {name} [b={b},h={h},t={t},d={d}] p_drop {p_drop}: "
-                    f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} "
-                    f"ms ({by})")
+                    f"kernel {ms:.4f} ms (device {dms:.4f} ms), plain "
+                    f"{plain:.4f} ms, bound {bms:.4f} ms ({by}), design bound "
+                    f"{tc:.4f} ms")
                 outs = {"banded_attn_fwd_train": ("m", "l"),
                         "banded_attn_bwd_q": ("dq", "dek", "dev"),
                         "banded_attn_bwd_k": ("dk", "dv")}[key]
@@ -242,7 +283,8 @@ def check_attention_bwd(dev):
                     err = max(err, out_err)
                 rows[key].append(dict(
                     shape=[b, h, t, d], launches_per_call=n_main, err=err,
-                    ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by))
+                    ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, bound_design_ms=tc))
             del bargs
         torch.cuda.empty_cache()
     log("[kernels] plain time of B5 and of B6: the plain version's autograd "
@@ -274,21 +316,28 @@ def check_mrf(dev):
             want = fused_mrf_plain(x, m, wts)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
+            masked = got[m[:, None, :].expand_as(got) == 0].abs().max().item()
             del got, want
             ms = cuda_ms(lambda: fused_mrf(x, m, wts), iters=5)
+            dms = device_ms(lambda: fused_mrf(x, m, wts), iters=3)
             plain = cuda_ms(lambda: fused_mrf_plain(x, m, wts), iters=3, warmup=1)
         macs = sum(2 * c * c * k * len(dd) for k, dd in zip(ks, ds))
         flops = 2 * macs * MAIN_BATCH * t
         nbytes = 4 * (2 * MAIN_BATCH * c * t + MAIN_BATCH * t + wts.flat.numel())
         bms, by = bound(flops, nbytes)
+        tc = bound_3xtf32(flops, nbytes)
         log(f"K2 C={c} [B={MAIN_BATCH},T={t}]: max_abs_err {err:.3e} "
-            f"(bound {K2_BOUND:g}), kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-            f"bound {bms:.3f} ms ({by}: {flops / 1e9:.1f} GFLOP at 67 TFLOP/s "
-            f"fp32, {nbytes / 1e6:.1f} MB at 3.35 TB/s)")
-        if not err <= K2_BOUND:
-            raise AssertionError(f"K2 C={c}: max_abs_err {err} > {K2_BOUND}")
+            f"(bound {K2_BOUND:g}), masked outputs max |y| {masked:.1e} (must "
+            f"be 0), kernel {ms:.3f} ms (device {dms:.3f} ms), plain "
+            f"{plain:.3f} ms, bound {bms:.3f} ms ({by}: {flops / 1e9:.1f} GFLOP "
+            f"at 67 TFLOP/s fp32, {nbytes / 1e6:.1f} MB at 3.35 TB/s), 3xTF32 "
+            f"bound {tc:.3f} ms (3 x FLOP at 495 TFLOP/s)")
+        if not (err <= K2_BOUND and masked == 0.0):
+            raise AssertionError(f"K2 C={c}: max_abs_err {err} > {K2_BOUND} "
+                                 f"or masked outputs {masked} != 0")
         rows.append(dict(shape=[MAIN_BATCH, c, t], launches_per_call=1, err=err,
-                         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by))
+                         ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms,
+                         bound_by=by, bound_design_ms=tc))
     return rows
 
 
@@ -325,6 +374,7 @@ def check_mas(dev):
         if row is not None:
             continue
         ms = cuda_ms(lambda: maximum_path(neg, *lens), iters=20)
+        dms = device_ms(lambda: maximum_path(neg, *lens), iters=20)
         plain = cuda_ms(lambda: maximum_path_plain(neg, *lens), iters=2, warmup=1)
         # bytes: the scores of the valid cells read once, the path and the
         # packed decision bits written once
@@ -347,7 +397,8 @@ def check_mas(dev):
             f"barrier step = {chain_ms:.4f} ms, then as many dependent steps "
             f"of the walk")
         row = dict(shape=[b, t_y, t_x], launches_per_call=1, err=0.0, ms=ms,
-                   plain_ms=plain, bound_ms=bms, bound_by=by, chain_ms=chain_ms,
+                   device_ms=dms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                   bound_design_ms=bms, chain_ms=chain_ms,
                    barrier_step_ns=link_us * 1e3)
     return [row]
 
@@ -787,7 +838,13 @@ def check_training_forward_on_cpu(dev):
         raise AssertionError("card and CPU disagree on the training forward")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", action="store_true",
+                    help="phases 1-3 only: build, hold every kernel against its "
+                         "plain version and time it; no model phases, no ok line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -817,7 +874,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     for src, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(key in line for key in ("entry function", "registers", "spill")):
                 log(f"[build] {src}: {line.strip()}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -828,6 +885,9 @@ def main() -> int:
     k3 = check_mas(dev)
     kb = check_attention_bwd(dev)
     torch.cuda.empty_cache()
+    if args.kernels:
+        print(json.dumps({"K1": k1, "K2": k2, "K3": k3, **kb}), flush=True)
+        return 0
 
     model = make_model("cuda")
     cfg = model.cfg
@@ -905,20 +965,27 @@ def main() -> int:
                                                                     "mrf_fwd")})
     n_trainer = TRAINER_WARMUP + TRAINER_TIMED
 
-    def entry(name, source, replaces, rows, basis):
+    def entry(name, source, replaces, rows, basis, design):
         tot = lambda k: sum(r[k] * r["launches_per_call"] for r in rows)  # noqa: E731
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(r["err"] for r in rows),
-            "ms": tot("ms"), "plain_ms": tot("plain_ms"),
-            "bound_ms": tot("bound_ms"),
+            "ms": tot("ms"), "device_ms": tot("device_ms"),
+            "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
             "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+            "bound_design_ms": tot("bound_design_ms"), "design": design,
             "library_ms": None,
             "basis": basis + ": the sum over the shapes below of time x "
-                             "launches per call",
+                             "launches per call; ms from CUDA events around "
+                             "launches, device_ms from the profiler's kernel "
+                             "time",
             "shapes": rows,
         }
+
+    tc3 = ("3xTF32 on the tensor cores (mma.sync m16n8k8): bound_design_ms "
+           "is 3 x FLOP at 495 TFLOP/s or the bytes")
+    fp32 = "fp32 on the CUDA cores: bound_design_ms is bound_ms"
 
     serving = f"per run_prepared call at batch {MAIN_BATCH}"
     training = (f"per training step at batch {TRAIN_BATCH}, {TRAIN_TX} tokens and "
@@ -926,20 +993,21 @@ def main() -> int:
 
     record = {"kernels": [
         entry("banded_attn_fwd", "bert_vits2_tpu_torch/csrc/banded_attn.cu",
-              "bert_vits2_tpu/ops/attention_pallas.py:88", k1, serving),
+              "bert_vits2_tpu/ops/attention_pallas.py:88", k1, serving, tc3),
         entry("mrf_fwd", "bert_vits2_tpu_torch/csrc/mrf.cu",
-              "bert_vits2_tpu/ops/mrf_pallas.py:128 and :434", k2, serving),
+              "bert_vits2_tpu/ops/mrf_pallas.py:128 and :434", k2, serving, tc3),
         entry("mas_fwd", "bert_vits2_tpu_torch/csrc/mas.cu",
-              "bert_vits2_tpu/ops/align_pallas.py:39", k3, training),
+              "bert_vits2_tpu/ops/align_pallas.py:39", k3, training,
+              "a chain of dependent frames: bound_design_ms is bound_ms"),
         entry("banded_attn_fwd_train", "bert_vits2_tpu_torch/csrc/banded_attn.cu",
               "bert_vits2_tpu/ops/attention_pallas.py:88 (stats, dropout)",
-              kb["banded_attn_fwd_train"], training),
+              kb["banded_attn_fwd_train"], training, tc3),
         entry("banded_attn_bwd_q", "bert_vits2_tpu_torch/csrc/banded_attn_bwd.cu",
               "bert_vits2_tpu/ops/attention_pallas.py:147",
-              kb["banded_attn_bwd_q"], training),
+              kb["banded_attn_bwd_q"], training, fp32),
         entry("banded_attn_bwd_k", "bert_vits2_tpu_torch/csrc/banded_attn_bwd.cu",
               "bert_vits2_tpu/ops/attention_pallas.py:228",
-              kb["banded_attn_bwd_k"], training),
+              kb["banded_attn_bwd_k"], training, fp32),
     ]}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

@@ -8,7 +8,12 @@ skip the JAX-importing conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 TF32 is off for matmuls and cuDNN convolutions, so the plain versions run
-in full fp32. Bounds: K1 1e-4 absolute (outputs O(1); fp32 sums of up to t
+in full fp32. K1 and K2 do their products on the tensor cores in TF32, but
+split each operand into two TF32 parts (v = hi + lo, hi rounded to TF32,
+lo within 2**-21 |v| of v - hi) and sum hi*hi + hi*lo + lo*hi in fp32
+(3xTF32): each product is then within ~2**-20 of its fp32 value, the size
+of the rounding of the fp32 sums the bounds are set for (outputs of
+O(1) from sums of up to 11*C or t terms), so the fp32 bounds stay. Bounds: K1 1e-4 absolute (outputs O(1); fp32 sums of up to t
 terms in another order); K1's train mode, B5 and B6 against the plain
 version's autograd, the row statistics and each gradient within 1e-4 of
 its max (fp32 sums of up to t terms, and of b*h*t terms for the tables,
@@ -64,6 +69,12 @@ def _lens_mask(lens, t, dev):
     (3, 2, 13, 4, [13, 8, 1]),     # t < one tile, tiny head width
     (1, 1, 8, 128, [8]),           # t == 2w, widest head
     (8, 2, 768, 96, None),         # the flow's shape at a 768-frame cap
+    (2, 2, 9, 96, [9, 5]),         # t = 2w + 1
+    (2, 2, 17, 96, [17, 1]),       # one row past a warp's 16 rows
+    (2, 2, 33, 36, [33, 32]),      # one key past a 32-key tile; d % 8 != 0
+    (3, 2, 97, 96, [97, 64, 2]),   # a 64-row query block and 33 rows
+    (8, 2, 129, 96, None),         # one row past two 64-row query blocks
+    (2, 2, 40, 10, [40, 23]),      # d % 4 != 0: rows staged element-wise
 ])
 def test_banded_attention_kernel(card, b, h, t, d, lens):
     g = torch.Generator(device=card).manual_seed(t)
@@ -91,6 +102,8 @@ def test_banded_attention_kernel(card, b, h, t, d, lens):
     (16, 2, 512, 96, None),          # the flow's shape in the training step
     (16, 2, 128, 96, None),          # enc_p's
     (2, 2, 1001, 96, [1001, 640]),   # ragged, odd, several tiles
+    (2, 2, 33, 96, [33, 17]),        # one past a query tile and a key tile
+    (3, 2, 9, 20, [9, 9, 3]),        # t = 2w + 1, d % 8 != 0
 ])
 def test_banded_attention_backward_kernels(card, b, h, t, d, lens, p_drop):
     """K1 in train mode (out, m, l), B5 (dq, dek, dev) and B6 (dk, dv)
@@ -139,6 +152,17 @@ def test_banded_attention_backward_kernels(card, b, h, t, d, lens, p_drop):
     # the tiny test config's single block, and two blocks of 4 stages
     (8, 333, [333, 200], (3,), ((1, 3),)),
     (16, 1200, [1200, 999], (5, 9), ((1, 2, 4, 8), (1, 3, 1, 3))),
+    # T one past a multiple of the sample tile (264 / 648 / 1416 at C = 64 /
+    # 32 / 16 and halo 60), lengths of 1
+    (64, 793, [793, 1], KS, DS),
+    (32, 1297, [1, 1297], KS, DS),
+    (16, 2833, [2833, 1], KS, DS),
+    # N not 16, 32 or 64: 8, 24 and 48 channels, tile-edge T
+    (8, 2921, [2921, 1], KS, DS),
+    (24, 905, [1, 905], KS, DS),
+    (48, 393, [393, 1], KS, DS),
+    # above 64 channels the N tiles run in two passes of the weights
+    (72, 500, [500, 311], KS, DS),
 ])
 def test_mrf_kernel(card, c, t, lens, ks, ds):
     torch.manual_seed(c)

@@ -255,3 +255,44 @@ def test_masks_and_path_match_jax():
     want = np.asarray(jmask.generate_path(dur, x_mask, y_mask))
     got = masking.generate_path(_t(dur), _t(x_mask), _t(y_mask)).numpy()
     assert np.array_equal(got, want)
+
+
+def test_mrf_weight_split_and_packing():
+    """K2's weights as the kernel reads them (csrc/mrf.cu note): per conv
+    and slab (tap, kstep), the hi part, then the lo part, each as core
+    matrices: output group j, K half kh, row r, column c holds
+    W[8j + r, 8*kstep + 4*kh + c, tap]. Read back by that rule, hi and lo
+    are TF32 values (13 low mantissa bits zero), hi is W rounded to TF32,
+    and hi + lo is W within 2**-20 of |W|; the biases lie as they are."""
+    c = 24
+    torch.manual_seed(3)
+    blocks = [ResBlock1(c, k, d) for k, d in zip(KS, DS)]
+    with torch.no_grad():
+        for blk in blocks:
+            for conv in (*blk.convs1, *blk.convs2):
+                conv.weight_g.uniform_(0.5, 2.0)
+                conv.bias.normal_()
+    w = prepare_mrf_weights(blocks)
+    quads = [q for stages in w.convs for q in stages]
+    assert len(quads) == len(w.offsets) == 9
+    for quad, offs in zip(quads, w.offsets):
+        for wt, off in ((quad[0], offs[0]), (quad[2], offs[2])):
+            k = wt.shape[2]
+            tap, ks, part, j, kh, r, cc = torch.meshgrid(
+                *(torch.arange(n) for n in (k, c // 8, 2, c // 8, 2, 8, 4)),
+                indexing="ij")
+            idx = ((((((tap * (c // 8) + ks) * 2 + part) * (c // 8) + j) * 2 + kh)
+                    * 8 + r) * 4 + cc)
+            assert idx.numel() == 2 * wt.numel()
+            assert sorted(idx.reshape(-1).tolist()) == list(range(idx.numel()))
+            co, ci = 8 * j + r, 8 * ks + 4 * kh + cc
+            read = w.flat[off + idx]
+            hi, lo = (torch.zeros_like(wt).index_put_(
+                (co[:, :, p_], ci[:, :, p_], tap[:, :, p_]), read[:, :, p_])
+                for p_ in (0, 1))
+            for part_ in (hi, lo):
+                assert not (part_.view(torch.int32) & 0x1FFF).any()
+            assert ((hi - wt).abs() <= wt.abs() * 2.0 ** -11).all()
+            assert ((hi + lo - wt).abs() <= wt.abs() * 2.0 ** -20).all()
+        for b_, off in ((quad[1], offs[1]), (quad[3], offs[3])):
+            assert torch.equal(w.flat[off:off + c], b_)
