@@ -22,56 +22,60 @@
 //
 // What bounds it on the card: B5 does three t x t x d products (s, g.v and
 // ds.k), 6 b h t^2 d FLOP, and B6 four (s, g.v, p.g and ds.q), 8 b h t^2 d
-// FLOP; in fp32 on the CUDA cores that is 67 TFLOP/s, and the bytes (each
-// input read once) are far below it. Unlike the TPU kernel, which held
-// whole [Bq, t] rows in VMEM to renormalise, both kernels rebuild p from
-// the saved m and l, so neither needs full rows: each walks the other side
-// in shared-memory tiles (t ~ 2000 fits), fp32 FMAs from shared memory as
-// in the forward kernel. wgmma tiles are later work.
+// FLOP; each input byte is reused t/16 times or more, so the bound is the
+// rate of the unit that does the products. As in the forward kernel they
+// run on the tensor cores as wgmma TF32 products in a 3xTF32 split (v = hi
+// + lo, lo*hi + hi*lo + hi*hi summed in fp32: fp32 accuracy), so the bound
+// is 3 * FLOP at 495 TFLOP/s. Unlike the TPU kernel, which held whole
+// [Bq, t] rows in VMEM to renormalise, both kernels rebuild p from the
+// saved m and l, so neither needs full rows: each walks the other side in
+// shared-memory tiles (any t).
 //
-// B5: one block per (32 query rows, batch*head); 8 threads per row, each
-// owning 8 of a 64-key tile's columns and 16 of the up-to-128 output
-// columns; the 2w+1 band values of ds and p*ks ride in registers as in the
-// forward kernel.
-// B6: one block per (32 keys, batch*head); 8 threads per key, each owning 8
-// of a 64-row query tile's rows and 16 output columns of dk and of dv. The
-// band logits it needs are those of the rows within w of its keys only,
-// computed once per block.
+// B5: one warpgroup per (64 query rows, batch*head). Q and G are split
+// once and kept in shared memory (K-major along the dims, the A operands
+// of S = Q K^T and G V^T). Each tile of TN keys is loaded into registers a
+// tile ahead, split, and stored twice for K (K-major along the dims as the
+// B of S; K-major along the keys, in the accumulator's key order (2i, 2i+1)
+// -> (i, i+4), as the B of dS K) and once for V. Per tile: six SS products
+// per k step (S and G V^T, 3xTF32), one wait; the band terms, mask, p,
+// keep mask and ds in the accumulator registers (each band entry of ds
+// and p*ks, one element of one lane, stored to shared memory); then
+// dQ += dS K with dS as the A operand from the registers. The band logits
+// q . ek, g . ev come first, as in the forward (mma.sync from the staged
+// rows); at the end dq += band_ds . ek and the block's partial dek, dev
+// [2][2w+1][d] = band^T . (Q, G), small mma.sync products, go to a buffer.
+// B6: one block per (64 keys, batch*head), the transpose: K and V of the
+// block are the A operands (S^T = K Q^T, (G V^T)^T = V G^T), the query
+// rows are walked in tiles of TN (the N dimension), and dV += Pd^T G,
+// dK += dS^T Q take Pd^T and dS^T from the registers, so each Q and G tile
+// is stored in both layouts. Two warpgroups share the block (one at d >
+// 96, where the tile is 16 rows wide), each taking
+// half of every row tile with its own accumulators, which are added in a
+// fixed order at the end: one's softmax rebuild (p, then ds after a second
+// wait) overlaps the other's products. The band logits are needed for the
+// rows within w of the block's keys only: computed once per block from
+// those rows staged in shared memory, a thread per (row, table).
+//
+// The block's one-off work (staging, band logits, the partials) is written
+// so that its loads are issued together: with one or two warpgroups per SM
+// nothing else hides their latency.
+//
+// TN, the tile width, is 32, and 16 at d > 96: with d = 128 B6's shared
+// memory at TN = 32 (K, V split 131 KB, each Q and G tile twice, 66 KB)
+// would not fit in 227 KB. d is zero-padded to a multiple of 8.
 //
 // dek and dev sum over every row of every (batch, head): the TPU carries
 // them across its sequential grid steps in one resident block. Here each B5
-// block writes its partial [2][2w+1][d] sums, and a second kernel adds the
-// partials in block order. Partials over atomics: the same gradient on
-// every run, and no zero-fill launch; the partials are ~3.5 MB at the flow's
-// shape.
-
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// block writes its partial sums, and a second kernel adds the partials in
+// block order. Partials over atomics: the same gradient on every run, and
+// no zero-fill launch.
 
 #include "banded_attn_hash.cuh"
+#include "banded_attn_tc.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int TPR = 8;              // threads per query row (B5) / key (B6)
-constexpr int DMAX = 128;           // largest head width
-constexpr int WMAX = 4;             // largest window
-constexpr int NBAND = 2 * WMAX + 1;
-constexpr int DCOLS = DMAX / TPR;   // output columns per thread
-constexpr float NEG_FILL = -1e4f;
-
-// B5 tiles
-constexpr int Q_ROWS = THREADS / TPR;   // 32 query rows per block
-constexpr int Q_KEYS = 64;              // keys per shared-memory tile
-constexpr int Q_KCOLS = Q_KEYS / TPR;   // key columns per thread
-// B6 tiles
-constexpr int K_KEYS = THREADS / TPR;   // 32 keys per block
-constexpr int K_ROWS = 64;              // query rows per shared-memory tile
-constexpr int K_RROWS = K_ROWS / TPR;   // query rows per thread
-constexpr int K_BAND_ROWS = K_KEYS + 2 * WMAX;
-
-static_assert(32 % TPR == 0, "a row's (key's) threads must share a warp");
+constexpr int KBR = 64 + 2 * WMAX;  // B6: rows whose band reaches the block's keys
 
 struct Drop {
   bool on;
@@ -79,20 +83,81 @@ struct Drop {
   float scale;
 };
 
-size_t bwd_q_smem(int d) {
-  const int dp = d + 1;
-  return sizeof(float) * (size_t)(2 * Q_ROWS * dp + 2 * Q_KEYS * dp +
-                                  Q_ROWS * (Q_KEYS + 1) + 4 * Q_ROWS * NBAND);
+// Shared memory of a block, in floats: the A side (64 rows or keys of
+// the block, split, K-major along the dims), a B tile (TN rows, split,
+// K-major along the dims) and a pair tile (TN rows, split, PairLayout).
+// WGS warpgroups share a tile, each taking TN / WGS of its rows; with two,
+// the second's sums go through the tiles' space at the end.
+template <int DK, int TN, int WGS>
+struct Tiles {
+  static constexpr int THREADS = 128 * WGS;
+  static constexpr int NT = TN / 8;               // 8-row groups per tile
+  static constexpr int NTW = NT / WGS;            // per warpgroup
+  static constexpr int NLD = (TN * 2 * DK + THREADS - 1) / THREADS;  // float4 loads a thread
+  static constexpr int A = 2 * DK * 512;
+  static constexpr int B = 2 * DK * TN * 8;
+  static constexpr int P = 2 * NT * PairLayout<DK>::KKS;
+  // B5: Q, G (A); K, V (B); K (pair); q.ek and g.ev of each warp's rows
+  // [2][4][16][16]; the block's band of ds and of p*ks [2][64][12]; the
+  // key mask of a tile
+  static constexpr int q_total = 2 * A + 2 * B + P + 2 * 1024 + 2 * 64 * 12 + TN;
+  // B6: K, V (A); Q, G (B); Q, G (pair); q.ek, g.ev [2][KBR][NBAND]; m,
+  // 1/l and D of a tile's rows
+  static constexpr int k_total = 2 * A + 2 * B + 2 * P + 2 * KBR * NBAND + 3 * TN;
+  static_assert(WGS == 1 || 2 * B + 2 * P >= 8 * DK * 128, "B6's exchange space");
+};
+
+// rows [r0, r0 + 64) of two [t, d] matrices, split, K-major along the dims
+// (the A operands of a block): every global load issued before any store
+template <int DK, int THREADS>
+__device__ __forceinline__ void stage_rows(float* a1, const float* __restrict__ x1,
+                                           float* a2, const float* __restrict__ x2, int r0,
+                                           int t, int d, bool vec, int tid) {
+  constexpr int N = (128 * DK + THREADS - 1) / THREADS;  // 64 rows x 2DK chunks
+  float4 v1[N], v2[N];
+#pragma unroll
+  for (int it = 0; it < N; ++it) {
+    const int idx = tid + THREADS * it;
+    const bool in = idx < 128 * DK;
+    v1[it] = in ? load4(x1, r0 + idx % 64, 4 * (idx / 64), t, d, vec) : float4{};
+    v2[it] = in ? load4(x2, r0 + idx % 64, 4 * (idx / 64), t, d, vec) : float4{};
+  }
+#pragma unroll
+  for (int it = 0; it < N; ++it) {
+    const int idx = tid + THREADS * it;
+    if (idx < 128 * DK) {
+      store_dim_major<DK, 64>(a1, idx % 64, idx / 64, v1[it]);
+      store_dim_major<DK, 64>(a2, idx % 64, idx / 64, v2[it]);
+    }
+  }
 }
 
-size_t bwd_k_smem(int d) {
-  const int dp = d + 1;
-  return sizeof(float) * (size_t)(2 * K_KEYS * dp + 2 * K_ROWS * dp +
-                                  2 * K_ROWS * (K_KEYS + 1) +
-                                  2 * K_BAND_ROWS * NBAND + 3 * K_ROWS);
+// A warpgroup's accumulator (element 4n + e: row g + 8(e/2), column 8n +
+// 2i + e%2) to rows row[0], row[1] of out [t, d], column pairs as one
+// 8-byte store where d is even.
+template <int DK>
+__device__ __forceinline__ void store_acc_rows(float* out, const float (&acc)[4 * DK],
+                                               const int (&row)[2], int t, int d, int i4) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= t) continue;
+    float* p = out + (size_t)row[r] * d;
+#pragma unroll
+    for (int nt = 0; nt < DK; ++nt) {
+      const int col = nt * 8 + 2 * i4;
+      const float x0 = acc[4 * nt + 2 * r], x1 = acc[4 * nt + 2 * r + 1];
+      if (d % 2 == 0) {
+        if (col < d) *reinterpret_cast<float2*>(p + col) = make_float2(x0, x1);
+      } else {
+        if (col < d) p[col] = x0;
+        if (col + 1 < d) p[col + 1] = x1;
+      }
+    }
+  }
 }
 
-__global__ void __launch_bounds__(THREADS)
+template <int DK, int TN>
+__global__ void __launch_bounds__(128)
 attn_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ mask,
                   const float* __restrict__ ek, const float* __restrict__ ev,
@@ -100,170 +165,178 @@ attn_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ l, const float* __restrict__ dd,
                   float* __restrict__ dq, float* __restrict__ partials, int h,
                   int t, int d, int w, Drop drop) {
-  extern __shared__ float smem[];
-  const int dp = d + 1;                 // padded row: conflict-free reads
-  float* Qs = smem;                     // [Q_ROWS][dp]
-  float* Gs = Qs + Q_ROWS * dp;         // [Q_ROWS][dp]
-  float* Ks = Gs + Q_ROWS * dp;         // [Q_KEYS][dp]
-  float* Vs = Ks + Q_KEYS * dp;         // [Q_KEYS][dp]
-  float* Ss = Vs + Q_KEYS * dp;         // [Q_ROWS][Q_KEYS + 1]: ds
-  float* Rk = Ss + Q_ROWS * (Q_KEYS + 1);  // [Q_ROWS][NBAND]: q_i . ek[c]
-  float* Rv = Rk + Q_ROWS * NBAND;      // [Q_ROWS][NBAND]: g_i . ev[c]
-  float* Bds = Rv + Q_ROWS * NBAND;     // [Q_ROWS][NBAND]: band of ds
-  float* Bpd = Bds + Q_ROWS * NBAND;    // [Q_ROWS][NBAND]: band of p * ks
+  using L = Tiles<DK, TN, 1>;
+  constexpr int NT = L::NT, THREADS = L::THREADS;
+  extern __shared__ __align__(16) float4 smem4[];
+  float* Qa = reinterpret_cast<float*>(smem4);
+  float* Ga = Qa + L::A;
+  float* Kb = Ga + L::A;
+  float* Vb = Kb + L::B;
+  float* Kp = Vb + L::B;
+  float* Rs = Kp + L::P;             // [2][4 warps][16][16]: q.ek, g.ev
+  float* Bs = Rs + 2 * 1024;         // [2][64][12]: band of ds, of p*ks
+  float* Mk = Bs + 2 * 64 * 12;      // [TN] key mask
 
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, i4 = lane % 4;
   const int bh = blockIdx.y;
   const int b = bh / h;
-  const int q0 = blockIdx.x * Q_ROWS;
+  const int q0 = blockIdx.x * 64;
+  const int r0 = q0 + 16 * warp;  // this warp's first row
   const size_t base = (size_t)bh * t * d;
   const float* mrow = mask + (size_t)b * t;
-  const int tid = threadIdx.x;
-  const int r = tid / TPR;
-  const int lane = tid % TPR;
-  const int i = q0 + r;
   const int nb = 2 * w + 1;
+  const bool vec = d % 4 == 0;
 
-  for (int idx = tid; idx < Q_ROWS * d; idx += THREADS) {
-    const int rr = idx / d, c = idx % d;
-    const int qi = q0 + rr;
-    const bool in = qi < t;
-    Qs[rr * dp + c] = in ? q[base + (size_t)qi * d + c] : 0.f;
-    Gs[rr * dp + c] = in ? g[base + (size_t)qi * d + c] : 0.f;
-  }
+  stage_rows<DK, THREADS>(Qa, q + base, Ga, g + base, q0, t, d, vec, tid);
+  for (int idx = tid; idx < 2 * 64 * 12; idx += THREADS) Bs[idx] = 0.f;
   __syncthreads();
-  for (int idx = tid; idx < Q_ROWS * nb; idx += THREADS) {
-    const int rr = idx / nb, c = idx % nb;
-    float sk = 0.f, sv = 0.f;
-    for (int e = 0; e < d; ++e) {
-      sk = fmaf(Qs[rr * dp + e], ek[c * d + e], sk);
-      sv = fmaf(Gs[rr * dp + e], ev[c * d + e], sv);
-    }
-    Rk[rr * NBAND + c] = sk;
-    Rv[rr * NBAND + c] = sv;
+  const float* rk = Rs + warp * 256;
+  const float* rv = Rs + 1024 + warp * 256;
+  band_logits<DK>(Qa, ek, nb, d, Rs + warp * 256, warp, gq, i4);
+  band_logits<DK>(Ga, ev, nb, d, Rs + 1024 + warp * 256, warp, gq, i4);
+
+  float mi[2], linv[2], di[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = r0 + gq + 8 * r;
+    const size_t s = (size_t)bh * t + (i < t ? i : 0);
+    mi[r] = i < t ? m[s] : 0.f;
+    linv[r] = i < t ? 1.f / l[s] : 0.f;
+    di[r] = i < t ? dd[s] : 0.f;
   }
 
-  const bool row_in = i < t;
-  const size_t srow = (size_t)bh * t + (row_in ? i : 0);
-  const float mi = row_in ? m[srow] : 0.f;
-  const float linv = row_in ? 1.f / l[srow] : 0.f;
-  const float di = row_in ? dd[srow] : 0.f;
-
-  float acc[DCOLS];
-  float bds[NBAND], bpd[NBAND];
+  float acc[4 * DK];  // dq: element 4n + e: row gq + 8(e/2), dim 8n + 2i + e%2
 #pragma unroll
-  for (int c = 0; c < DCOLS; ++c) acc[c] = 0.f;
-#pragma unroll
-  for (int c = 0; c < NBAND; ++c) bds[c] = bpd[c] = 0.f;
+  for (int e = 0; e < 4 * DK; ++e) acc[e] = 0.f;
 
-  for (int j0 = 0; j0 < t; j0 += Q_KEYS) {
-    __syncthreads();  // the previous tile's readers are done; Rk/Rv visible
-    for (int idx = tid; idx < Q_KEYS * d; idx += THREADS) {
-      const int jj = idx / d, c = idx % d;
-      const int j = j0 + jj;
-      const bool in = j < t;
-      Ks[jj * dp + c] = in ? k[base + (size_t)j * d + c] : 0.f;
-      Vs[jj * dp + c] = in ? v[base + (size_t)j * d + c] : 0.f;
+  // K and V rows of a tile, loaded one tile ahead
+  float4 kpre[L::NLD], vpre[L::NLD];
+  float mpre = 0.f;
+  auto load = [&](int j0) {
+#pragma unroll
+    for (int it = 0; it < L::NLD; ++it) {
+      const int idx = tid + THREADS * it;
+      const int key = idx % TN, dim = 4 * (idx / TN);
+      kpre[it] = load4(k + base, j0 + key, dim, t, d, vec);
+      vpre[it] = load4(v + base, j0 + key, dim, t, d, vec);
     }
+    if (tid < TN) mpre = j0 + tid < t ? mrow[j0 + tid] : 0.f;
+  };
+  load(0);
+
+  for (int j0 = 0; j0 < t; j0 += TN) {
+    __syncthreads();  // the previous tile's readers are done
+#pragma unroll
+    for (int it = 0; it < L::NLD; ++it) {
+      const int idx = tid + THREADS * it;
+      if (TN * 2 * DK % THREADS && idx >= TN * 2 * DK) break;
+      const int key = idx % TN, c4 = idx / TN;
+      store_dim_major<DK, TN>(Kb, key, c4, kpre[it]);
+      store_row_paired<DK, NT>(Kp, key, 4 * c4, kpre[it]);
+      store_dim_major<DK, TN>(Vb, key, c4, vpre[it]);
+    }
+    if (tid < TN) Mk[tid] = mpre;
+    fence_async_smem();
     __syncthreads();
+    if (j0 + TN < t) load(j0 + TN);  // in flight while this tile is computed
 
-    float s[Q_KCOLS], gv[Q_KCOLS];
+    // S = Q K^T and G V^T; element 4n + e: row gq + 8(e/2), key j0 + 8n + 2i + e%2
+    float sc[4 * NT], gv[4 * NT];
 #pragma unroll
-    for (int a = 0; a < Q_KCOLS; ++a) s[a] = gv[a] = 0.f;
-    for (int e = 0; e < d; ++e) {
-      const float qe = Qs[r * dp + e];
-      const float ge = Gs[r * dp + e];
-#pragma unroll
-      for (int a = 0; a < Q_KCOLS; ++a) {
-        const int jj = lane + a * TPR;
-        s[a] = fmaf(qe, Ks[jj * dp + e], s[a]);
-        gv[a] = fmaf(ge, Vs[jj * dp + e], gv[a]);
-      }
-    }
+    for (int e = 0; e < 4 * NT; ++e) sc[e] = gv[e] = 0.f;
+    wg_fence();
+    wgmma_rows_dot<DK, NT>(sc, Qa, Kb);
+    wgmma_rows_dot<DK, NT>(gv, Ga, Vb);
+    wg_commit();
+    wg_wait<0>();
+    fence_operands(sc);
+    fence_operands(gv);
 
+    // ds = p (dp - D) in place of S (0 for a masked key or past t); the
+    // band entries of ds and p*ks (one element each) to Bs
+    const bool in_band = j0 <= r0 + 15 + w && j0 + TN - 1 >= r0 - w;
 #pragma unroll
-    for (int a = 0; a < Q_KCOLS; ++a) {
-      const int jj = lane + a * TPR;
-      const int j = j0 + jj;
+    for (int e4 = 0; e4 < 4 * NT; ++e4) {
+      const int e = e4 % 4, r = e / 2;
+      const int jj = (e4 / 4) * 8 + 2 * i4 + e % 2;
+      const int rr = gq + 8 * r;
+      const int i = r0 + rr, j = j0 + jj;
       float ds = 0.f;
-      if (row_in && j < t) {
+      if (i < t && j < t) {
         const int c = j - i + w;
-        const bool in_band = c >= 0 && c < nb;
-        float x = s[a], dpv = gv[a];
-        if (in_band) {
-          x += Rk[r * NBAND + c];
-          dpv += Rv[r * NBAND + c];
+        const bool band = in_band && c >= 0 && c < nb;
+        float x = sc[e4], dpv = gv[e4];
+        if (band) {
+          x += rk[rr * 16 + c];
+          dpv += rv[rr * 16 + c];
         }
-        const bool key = mrow[j] != 0.f;
+        const bool key = Mk[jj] != 0.f;
         if (!key) x = NEG_FILL;
-        const float p = expf(x - mi) * linv;
+        const float p = expf(x - mi[r]) * linv[r];
         float pd = p;
         if (drop.on) {
           const float ks = hash_keep(i, j, bh, drop.seed, drop.thr) ? drop.scale : 0.f;
           pd = p * ks;
           dpv *= ks;
         }
-        ds = key ? p * (dpv - di) : 0.f;
-#pragma unroll
-        for (int cc = 0; cc < NBAND; ++cc)
-          if (cc == c) {
-            bds[cc] += ds;
-            bpd[cc] += pd;
-          }
+        ds = key ? p * (dpv - di[r]) : 0.f;
+        if (band) {
+          Bs[(16 * warp + rr) * 12 + c] = ds;
+          Bs[(64 + 16 * warp + rr) * 12 + c] = pd;
+        }
       }
-      Ss[r * (Q_KEYS + 1) + jj] = ds;
+      sc[e4] = ds;
     }
-    __syncwarp();  // this row's ds come from lanes of this warp
 
-    for (int jj = 0; jj < Q_KEYS; ++jj) {
-      const float dsv = Ss[r * (Q_KEYS + 1) + jj];
-      const float* krow = Ks + jj * dp;
-#pragma unroll
-      for (int c = 0; c < DCOLS; ++c) {
-        const int col = lane + c * TPR;
-        if (col < d) acc[c] = fmaf(dsv, krow[col], acc[c]);
-      }
-    }
+    // dQ += dS K: dS straight from the accumulator registers
+    const AccFrags<NT> df = acc_frags<NT>(sc);
+    wg_fence();
+    wgmma_frags_times<DK, NT>(acc, df, Kp);
+    wg_commit();
+    wg_wait<0>();
+    fence_operands(acc);
   }
 
+  // dq += band_ds . ek: the warp's own rows of Bs (it wrote them)
+  __syncwarp();
+  float bds[2][NBAND];
 #pragma unroll
-  for (int c = 0; c < NBAND; ++c) {
+  for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int off = TPR / 2; off > 0; off >>= 1) {
-      bds[c] += __shfl_xor_sync(0xffffffffu, bds[c], off);
-      bpd[c] += __shfl_xor_sync(0xffffffffu, bpd[c], off);
-    }
-  }
-  if (row_in) {
-    float* drow = dq + base + (size_t)i * d;
-#pragma unroll
-    for (int c = 0; c < DCOLS; ++c) {
-      const int col = lane + c * TPR;
-      if (col < d) {
-        float o = acc[c];
-        for (int bc = 0; bc < nb; ++bc) o = fmaf(bds[bc], ek[bc * d + col], o);
-        drow[col] = o;
-      }
-    }
-  }
-  if (lane == 0) {  // rows past t hold zeros
-#pragma unroll
-    for (int c = 0; c < NBAND; ++c) {
-      Bds[r * NBAND + c] = bds[c];
-      Bpd[r * NBAND + c] = bpd[c];
-    }
-  }
+    for (int c = 0; c < NBAND; ++c) bds[r][c] = Bs[(16 * warp + gq + 8 * r) * 12 + c];
+  add_band_term<DK>(acc, bds, ek, nb, d, gq, i4);
+  const int rows[2] = {r0 + gq, r0 + gq + 8};
+  store_acc_rows<DK>(dq + base, acc, rows, t, d, i4);
   __syncthreads();
-  // this block's partial dek (which 0) and dev (which 1), [2][nb][d]
+  // this block's partial dek (which 0) and dev (which 1), [2][nb][d] =
+  // band^T [12 x 64 rows] . Q or G [64 rows x d]: 3xTF32 mma.sync, the
+  // rows' hi and lo straight from shared memory; a warp per 8 output dims
   float* part = partials + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 2 * nb * d;
-  for (int idx = tid; idx < 2 * nb * d; idx += THREADS) {
-    const int which = idx / (nb * d);
-    const int c = (idx / d) % nb, e = idx % d;
-    const float* band = which ? Bpd : Bds;
-    const float* rows = which ? Gs : Qs;
-    float sum = 0.f;
-    for (int rr = 0; rr < Q_ROWS; ++rr)
-      sum = fmaf(band[rr * NBAND + c], rows[rr * dp + e], sum);
-    part[idx] = sum;
+  for (int tile = warp; tile < 2 * DK; tile += 4) {
+    const int which = tile / DK, nt = tile % DK;
+    const float* band = Bs + which * 64 * 12;
+    const float* rows = (which ? Ga : Qa) + nt * 512 + (gq / 4) * 32 + gq % 4;
+    float o[4] = {};  // element e: c = g + 8(e/2), dim 8nt + 2i + e%2
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      // b0 (row 8ks + i, dim 8nt + g), b1 (row + 4): hi, then lo
+      const float* bp = rows + ks * 64 + i4 * 4;
+      const float4 bv = make_float4(bp[0], bp[16], bp[DK * 512], bp[DK * 512 + 16]);
+      // a0 (c = g, row 8ks + i), a1 (c + 8, zero past 11), a2, a3 (row + 4)
+      const float* ap = band + (8 * ks + i4) * 12 + gq;
+      const float av[4] = {ap[0], gq < 4 ? ap[8] : 0.f, ap[48], gq < 4 ? ap[56] : 0.f};
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(av[e], ah[e], al[e]);
+      mma3(o, ah, al, bv);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = gq + 8 * (e / 2), col = nt * 8 + 2 * i4 + e % 2;
+      if (c < nb && col < d) part[(which * nb + c) * d + col] = o[e];
+    }
   }
 }
 
@@ -274,6 +347,7 @@ __global__ void band_tables_reduce(const float* __restrict__ partials,
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= 2 * n) return;
   float sum = 0.f;
+#pragma unroll 16
   for (int blk = 0; blk < n_blocks; ++blk) sum += partials[(size_t)blk * 2 * n + idx];
   if (idx < n)
     dek[idx] = sum;
@@ -281,7 +355,8 @@ __global__ void band_tables_reduce(const float* __restrict__ partials,
     dev[idx - n] = sum;
 }
 
-__global__ void __launch_bounds__(THREADS)
+template <int DK, int TN, int WGS>
+__global__ void __launch_bounds__(128 * WGS)
 attn_bwd_k_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ mask,
                   const float* __restrict__ ek, const float* __restrict__ ev,
@@ -289,157 +364,291 @@ attn_bwd_k_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ l, const float* __restrict__ dd,
                   float* __restrict__ dk, float* __restrict__ dv, int h, int t,
                   int d, int w, Drop drop) {
-  extern __shared__ float smem[];
-  const int dp = d + 1;
-  float* Ks = smem;                        // [K_KEYS][dp]
-  float* Vs = Ks + K_KEYS * dp;            // [K_KEYS][dp]
-  float* Qs = Vs + K_KEYS * dp;            // [K_ROWS][dp]
-  float* Gs = Qs + K_ROWS * dp;            // [K_ROWS][dp]
-  float* Pd = Gs + K_ROWS * dp;            // [K_ROWS][K_KEYS + 1]: p * ks
-  float* Ds = Pd + K_ROWS * (K_KEYS + 1);  // [K_ROWS][K_KEYS + 1]: ds
-  float* Rk = Ds + K_ROWS * (K_KEYS + 1);  // [K_BAND_ROWS][NBAND]: q_i . ek[c]
-  float* Rv = Rk + K_BAND_ROWS * NBAND;    // [K_BAND_ROWS][NBAND]: g_i . ev[c]
-  float* Ms = Rv + K_BAND_ROWS * NBAND;    // [K_ROWS] row max
-  float* Li = Ms + K_ROWS;                 // [K_ROWS] 1 / row sum
-  float* Dr = Li + K_ROWS;                 // [K_ROWS] D_i
+  using L = Tiles<DK, TN, WGS>;
+  constexpr int NT = L::NT, NTW = L::NTW, THREADS = L::THREADS;
+  extern __shared__ __align__(16) float4 smem4[];
+  float* Ka = reinterpret_cast<float*>(smem4);
+  float* Va = Ka + L::A;
+  float* Qb = Va + L::A;
+  float* Gb = Qb + L::B;
+  float* Qp = Gb + L::B;
+  float* Gp = Qp + L::P;
+  float* Rk = Gp + L::P;             // [KBR][NBAND]: q_i . ek[c]
+  float* Rv = Rk + KBR * NBAND;      // [KBR][NBAND]: g_i . ev[c]
+  float* Ms = Rv + KBR * NBAND;      // [TN] row max
+  float* Li = Ms + TN;               // [TN] 1 / row sum
+  float* Dr = Li + TN;               // [TN] D_i
+  float* X = Qb;                     // at the end: the second warpgroup's sums
 
+  const int tid = threadIdx.x;
+  const int wg = WGS == 1 ? 0 : tid / 128, wt = tid % 128;  // rows [wg TN/WGS, +TN/WGS) of a tile
+  const int warp = wt / 32, lane = tid % 32;
+  const int gq = lane / 4, i4 = lane % 4;
   const int bh = blockIdx.y;
   const int b = bh / h;
-  const int k0 = blockIdx.x * K_KEYS;
+  const int k0 = blockIdx.x * 64;
   const size_t base = (size_t)bh * t * d;
   const size_t sbase = (size_t)bh * t;
-  const int tid = threadIdx.x;
-  const int jj = tid / TPR;
-  const int lane = tid % TPR;
-  const int j = k0 + jj;
   const int nb = 2 * w + 1;
   const int r0 = k0 - w;  // the first query row whose band reaches key k0
+  const bool vec = d % 4 == 0;
 
-  for (int idx = tid; idx < K_KEYS * d; idx += THREADS) {
-    const int kk = idx / d, c = idx % d;
-    const int jx = k0 + kk;
-    const bool in = jx < t;
-    Ks[kk * dp + c] = in ? k[base + (size_t)jx * d + c] : 0.f;
-    Vs[kk * dp + c] = in ? v[base + (size_t)jx * d + c] : 0.f;
-  }
-  for (int idx = tid; idx < K_BAND_ROWS * nb; idx += THREADS) {
-    const int rr = idx / nb, c = idx % nb;
-    const int ix = r0 + rr;
-    float sk = 0.f, sv = 0.f;
-    if (ix >= 0 && ix < t) {
-      const float* qrow = q + base + (size_t)ix * d;
-      const float* grow = g + base + (size_t)ix * d;
-      for (int e = 0; e < d; ++e) {
-        sk = fmaf(qrow[e], ek[c * d + e], sk);
-        sv = fmaf(grow[e], ev[c * d + e], sv);
+  // q_i . ek[c] and g_i . ev[c] of the KBR rows around the block's keys,
+  // before K and V are staged: the rows (rows padded to d + 1 floats) and
+  // the tables ([d][12], one 16-byte load per 4 columns) in K's and V's
+  // space; a thread per (row, table), 2w+1 independent sums
+  {
+    const int dp = d + 1;
+    float* rows = Ka;                              // [2][KBR][dp]
+    float* tabs = Ka + ((2 * KBR * dp + 3) & ~3);  // [2][d][12]
+    // 4-float chunks of the rows, then of the tables, 8 loads in flight
+    const int d4 = (d + 3) / 4;
+    const int n_rows = 2 * KBR * d4, n_all = n_rows + 2 * nb * d4;
+    for (int c0 = 0; c0 < n_all; c0 += THREADS * 8) {
+      float4 x[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int idx = c0 + tid + THREADS * u;
+        const int which = idx < n_rows ? idx / (KBR * d4) : (idx - n_rows) / (nb * d4);
+        const int rr = idx < n_rows ? (idx / d4) % KBR : ((idx - n_rows) / d4) % nb;
+        const int ix = idx < n_rows ? r0 + rr : rr;
+        const float* src = idx < n_rows ? (which ? g + base : q + base) : (which ? ev : ek);
+        x[u] = idx < n_all && ix >= 0 ? load4(src, ix, 4 * (idx % d4), idx < n_rows ? t : nb, d, vec)
+                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int idx = c0 + tid + THREADS * u;
+        if (idx >= n_all) break;
+        const float xs[4] = {x[u].x, x[u].y, x[u].z, x[u].w};
+        const int e0 = 4 * (idx % d4);
+        if (idx < n_rows) {
+          float* row = rows + (idx / d4) * dp;
+          for (int k4 = 0; k4 < 4 && e0 + k4 < d; ++k4) row[e0 + k4] = xs[k4];
+        } else {
+          const int j = idx - n_rows, which = j / (nb * d4), c = (j / d4) % nb;
+          for (int k4 = 0; k4 < 4 && e0 + k4 < d; ++k4)
+            tabs[(which * d + e0 + k4) * 12 + c] = xs[k4];
+        }
       }
     }
-    Rk[rr * NBAND + c] = sk;
-    Rv[rr * NBAND + c] = sv;
-  }
-
-  const bool key_in = j < t;
-  const bool key = key_in && mask[(size_t)b * t + j] != 0.f;
-  float adk[DCOLS], adv[DCOLS];
-#pragma unroll
-  for (int c = 0; c < DCOLS; ++c) adk[c] = adv[c] = 0.f;
-
-  for (int i0 = 0; i0 < t; i0 += K_ROWS) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int idx = tid; idx < K_ROWS * d; idx += THREADS) {
-      const int rr = idx / d, c = idx % d;
-      const int ix = i0 + rr;
-      const bool in = ix < t;
-      Qs[rr * dp + c] = in ? q[base + (size_t)ix * d + c] : 0.f;
-      Gs[rr * dp + c] = in ? g[base + (size_t)ix * d + c] : 0.f;
-    }
-    for (int rr = tid; rr < K_ROWS; rr += THREADS) {
-      const int ix = i0 + rr;
-      const bool in = ix < t;
-      Ms[rr] = in ? m[sbase + ix] : 0.f;
-      Li[rr] = in ? 1.f / l[sbase + ix] : 0.f;  // rows past t: p = 0
-      Dr[rr] = in ? dd[sbase + ix] : 0.f;
-    }
+    for (int idx = tid; idx < 2 * d * (12 - nb); idx += THREADS)  // the zero columns
+      tabs[(idx / (12 - nb)) * 12 + nb + idx % (12 - nb)] = 0.f;
     __syncthreads();
-
-    float s[K_RROWS], gv[K_RROWS];
+    for (int task = tid; task < 2 * KBR; task += THREADS) {
+      const int which = task / KBR, rr = task % KBR;
+      const float* row = rows + task * dp;
+      const float4* tab = reinterpret_cast<const float4*>(tabs + which * d * 12);
+      float sum[12];
 #pragma unroll
-    for (int a = 0; a < K_RROWS; ++a) s[a] = gv[a] = 0.f;
-    for (int e = 0; e < d; ++e) {
-      const float ke = Ks[jj * dp + e];
-      const float ve = Vs[jj * dp + e];
+      for (int c = 0; c < 12; ++c) sum[c] = 0.f;
+#pragma unroll 4
+      for (int e = 0; e < d; ++e) {
+        const float x = row[e];
 #pragma unroll
-      for (int a = 0; a < K_RROWS; ++a) {
-        const int rr = lane + a * TPR;
-        s[a] = fmaf(Qs[rr * dp + e], ke, s[a]);
-        gv[a] = fmaf(Gs[rr * dp + e], ve, gv[a]);
-      }
-    }
-
-#pragma unroll
-    for (int a = 0; a < K_RROWS; ++a) {
-      const int rr = lane + a * TPR;
-      const int i = i0 + rr;
-      float pd = 0.f, ds = 0.f;
-      if (key_in && i < t) {
-        const int c = j - i + w;
-        float x = s[a], dpv = gv[a];
-        if (c >= 0 && c < nb) {
-          x += Rk[(i - r0) * NBAND + c];
-          dpv += Rv[(i - r0) * NBAND + c];
-        }
-        if (!key) x = NEG_FILL;
-        const float p = expf(x - Ms[rr]) * Li[rr];
-        pd = p;
-        if (drop.on) {
-          const float ks = hash_keep(i, j, bh, drop.seed, drop.thr) ? drop.scale : 0.f;
-          pd = p * ks;
-          dpv *= ks;
-        }
-        ds = key ? p * (dpv - Dr[rr]) : 0.f;
-      }
-      Pd[rr * (K_KEYS + 1) + jj] = pd;
-      Ds[rr * (K_KEYS + 1) + jj] = ds;
-    }
-    __syncwarp();  // this key's column comes from lanes of this warp
-
-    for (int rr = 0; rr < K_ROWS; ++rr) {
-      const float pdv = Pd[rr * (K_KEYS + 1) + jj];
-      const float dsv = Ds[rr * (K_KEYS + 1) + jj];
-      const float* grow = Gs + rr * dp;
-      const float* qrow = Qs + rr * dp;
-#pragma unroll
-      for (int c = 0; c < DCOLS; ++c) {
-        const int col = lane + c * TPR;
-        if (col < d) {
-          adv[c] = fmaf(pdv, grow[col], adv[c]);
-          adk[c] = fmaf(dsv, qrow[col], adk[c]);
+        for (int c4 = 0; c4 < 3; ++c4) {
+          const float4 tv = tab[e * 3 + c4];
+          sum[4 * c4] = fmaf(x, tv.x, sum[4 * c4]);
+          sum[4 * c4 + 1] = fmaf(x, tv.y, sum[4 * c4 + 1]);
+          sum[4 * c4 + 2] = fmaf(x, tv.z, sum[4 * c4 + 2]);
+          sum[4 * c4 + 3] = fmaf(x, tv.w, sum[4 * c4 + 3]);
         }
       }
+      float* out = which ? Rv : Rk;
+#pragma unroll
+      for (int c = 0; c < NBAND; ++c) out[rr * NBAND + c] = sum[c];
     }
+    __syncthreads();  // K and V overwrite the rows and tables
+  }
+  stage_rows<DK, THREADS>(Ka, k + base, Va, v + base, k0, t, d, vec, tid);
+
+  int jr[2];  // this lane's two keys
+  bool key[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    jr[r] = k0 + 16 * warp + gq + 8 * r;
+    key[r] = jr[r] < t && mask[(size_t)b * t + jr[r]] != 0.f;
+  }
+  float adk[4 * DK], adv[4 * DK];  // element 4n + e: key gq + 8(e/2), dim 8n + 2i + e%2
+#pragma unroll
+  for (int e = 0; e < 4 * DK; ++e) adk[e] = adv[e] = 0.f;
+
+  // Q and G rows of a tile and their statistics, loaded one tile ahead
+  float4 qpre[L::NLD], gpre[L::NLD];
+  float mpre = 0.f, lpre = 0.f, dpre = 0.f;
+  auto load = [&](int i0) {
+#pragma unroll
+    for (int it = 0; it < L::NLD; ++it) {
+      const int idx = tid + THREADS * it;
+      const int row = idx % TN, dim = 4 * (idx / TN);
+      qpre[it] = load4(q + base, i0 + row, dim, t, d, vec);
+      gpre[it] = load4(g + base, i0 + row, dim, t, d, vec);
+    }
+    if (tid < TN) {
+      const int i = i0 + tid;
+      const bool in = i < t;
+      mpre = in ? m[sbase + i] : 0.f;
+      lpre = in ? 1.f / l[sbase + i] : 0.f;  // rows past t: p = 0
+      dpre = in ? dd[sbase + i] : 0.f;
+    }
+  };
+  load(0);
+
+  for (int i0 = 0; i0 < t; i0 += TN) {
+    __syncthreads();  // the previous tile's readers are done; K, V, Rk, Rv visible
+#pragma unroll
+    for (int it = 0; it < L::NLD; ++it) {
+      const int idx = tid + THREADS * it;
+      if (TN * 2 * DK % THREADS && idx >= TN * 2 * DK) break;
+      const int row = idx % TN, c4 = idx / TN;
+      store_dim_major<DK, TN>(Qb, row, c4, qpre[it]);
+      store_row_paired<DK, NT>(Qp, row, 4 * c4, qpre[it]);
+      store_dim_major<DK, TN>(Gb, row, c4, gpre[it]);
+      store_row_paired<DK, NT>(Gp, row, 4 * c4, gpre[it]);
+    }
+    if (tid < TN) {
+      Ms[tid] = mpre;
+      Li[tid] = lpre;
+      Dr[tid] = dpre;
+    }
+    fence_async_smem();
+    __syncthreads();
+    if (i0 + TN < t) load(i0 + TN);  // in flight while this tile is computed
+
+    // S^T = K Q^T, then (G V^T)^T = V G^T, over this warpgroup's rows, each
+    // its own group; element 4n + e: key gq + 8(e/2), row i0 + wg TN/WGS +
+    // 8n + 2i + e%2
+    float sc[4 * NTW], gv[4 * NTW];
+#pragma unroll
+    for (int e = 0; e < 4 * NTW; ++e) sc[e] = gv[e] = 0.f;
+    wg_fence();
+    wgmma_rows_dot<DK, NTW, NT>(sc, Ka, Qb + wg * NTW * 64);
+    wg_commit();
+    wgmma_rows_dot<DK, NTW, NT>(gv, Va, Gb + wg * NTW * 64);
+    wg_commit();
+
+    // p while V G^T runs (0 past t)
+    const int ib = i0 + wg * (TN / WGS);
+    const bool in_band = ib <= k0 + 63 + w && ib + TN / WGS - 1 >= k0 - w;
+    wg_wait<1>();
+    fence_operands(sc);
+#pragma unroll
+    for (int e4 = 0; e4 < 4 * NTW; ++e4) {
+      const int e = e4 % 4, r = e / 2;
+      const int ii = wg * (TN / WGS) + (e4 / 4) * 8 + 2 * i4 + e % 2;
+      const int i = i0 + ii, j = jr[r];
+      const int c = j - i + w;
+      float x = sc[e4];
+      if (in_band && c >= 0 && c < nb) x += Rk[(i - r0) * NBAND + c];
+      if (!key[r]) x = NEG_FILL;
+      sc[e4] = i < t && j < t ? expf(x - Ms[ii]) * Li[ii] : 0.f;
+    }
+    wg_wait<0>();
+    fence_operands(gv);
+    // p*ks in place of p and ds = p (dp - D) in place of V G^T (0 for a
+    // masked key)
+#pragma unroll
+    for (int e4 = 0; e4 < 4 * NTW; ++e4) {
+      const int e = e4 % 4, r = e / 2;
+      const int ii = wg * (TN / WGS) + (e4 / 4) * 8 + 2 * i4 + e % 2;
+      const int i = i0 + ii, j = jr[r];
+      const int c = j - i + w;
+      const float p = sc[e4];
+      float dpv = gv[e4];
+      if (in_band && c >= 0 && c < nb) dpv += Rv[(i - r0) * NBAND + c];
+      if (drop.on) {
+        const float ks = hash_keep(i, j, bh, drop.seed, drop.thr) ? drop.scale : 0.f;
+        sc[e4] = p * ks;
+        dpv *= ks;
+      }
+      gv[e4] = key[r] ? p * (dpv - Dr[ii]) : 0.f;
+    }
+
+    // dV += Pd^T G and dK += dS^T Q over this warpgroup's rows, Pd^T and
+    // dS^T from the registers
+    const AccFrags<NTW> pf = acc_frags<NTW>(sc), df = acc_frags<NTW>(gv);
+    const int pk = wg * NTW * PairLayout<DK>::KKS;
+    wg_fence();
+    wgmma_frags_times<DK, NTW, NT>(adv, pf, Gp + pk);
+    wgmma_frags_times<DK, NTW, NT>(adk, df, Qp + pk);
+    wg_commit();
+    wg_wait<0>();
+    fence_operands(adv);
+    fence_operands(adk);
   }
 
-  if (key_in) {
-    float* dkrow = dk + base + (size_t)j * d;
-    float* dvrow = dv + base + (size_t)j * d;
+  // with two warpgroups, the first writes dk and the second dv, each
+  // adding the other's half through shared memory, element-wise by thread,
+  // in a fixed order (the first warpgroup's sum first)
+  if constexpr (WGS == 2) {
+    __syncthreads();  // every tile's readers are done
 #pragma unroll
-    for (int c = 0; c < DCOLS; ++c) {
-      const int col = lane + c * TPR;
-      if (col < d) {
-        dkrow[col] = adk[c];
-        dvrow[col] = adv[c];
-      }
+    for (int e = 0; e < 4 * DK; ++e) X[(wg * 4 * DK + e) * 128 + wt] = wg ? adk[e] : adv[e];
+    __syncthreads();
+    if (wg == 0) {
+#pragma unroll
+      for (int e = 0; e < 4 * DK; ++e) adk[e] += X[(4 * DK + e) * 128 + wt];
+      store_acc_rows<DK>(dk + base, adk, jr, t, d, i4);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4 * DK; ++e) adv[e] = X[e * 128 + wt] + adv[e];
+      store_acc_rows<DK>(dv + base, adv, jr, t, d, i4);
     }
+  } else {
+    store_acc_rows<DK>(dk + base, adk, jr, t, d, i4);
+    store_acc_rows<DK>(dv + base, adv, jr, t, d, i4);
   }
 }
 
-bool bad_shape(int b, int h, int t, int d, int w) {
-  return d < 1 || d > DMAX || w < 0 || w > WMAX || t < 2 * w || t < 1 ||
-         b < 1 || h < 1 || b * h > 65535;
+struct Args {
+  const float *q, *k, *v, *mask, *ek, *ev, *g, *m, *l, *dd;
+  int b, h, t, d, w;
+  Drop drop;
+  cudaStream_t stream;
+};
+
+// The shared-memory attribute of each instantiation is set once per device.
+template <int DK, int TN>
+int launch_q(const Args& a, float* dq, float* partials, float* dek, float* dev,
+             int device) {
+  static size_t configured[MAXDEV] = {};
+  const size_t bytes = sizeof(float) * Tiles<DK, TN, 1>::q_total;
+  cudaError_t err = allow_smem((const void*)attn_bwd_q_kernel<DK, TN>, bytes,
+                               configured, device);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.t + 63) / 64, a.b * a.h);
+  attn_bwd_q_kernel<DK, TN><<<grid, 128, bytes, a.stream>>>(
+      a.q, a.k, a.v, a.mask, a.ek, a.ev, a.g, a.m, a.l, a.dd, dq, partials, a.h,
+      a.t, a.d, a.w, a.drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int n = (2 * a.w + 1) * a.d;
+  band_tables_reduce<<<(2 * n + 255) / 256, 256, 0, a.stream>>>(
+      partials, grid.x * grid.y, n, dek, dev);
+  return (int)cudaGetLastError();
 }
 
-Drop make_drop(int on, int thr, int seed, float scale) {
-  return Drop{on != 0, (uint32_t)thr, (uint32_t)seed, scale};
+template <int DK, int TN, int WGS>
+int launch_k(const Args& a, float* dk, float* dv, int device) {
+  static size_t configured[MAXDEV] = {};
+  const size_t bytes = sizeof(float) * Tiles<DK, TN, WGS>::k_total;
+  const cudaError_t err = allow_smem((const void*)attn_bwd_k_kernel<DK, TN, WGS>, bytes,
+                                     configured, device);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.t + 63) / 64, a.b * a.h);
+  attn_bwd_k_kernel<DK, TN, WGS><<<grid, 128 * WGS, bytes, a.stream>>>(
+      a.q, a.k, a.v, a.mask, a.ek, a.ev, a.g, a.m, a.l, a.dd, dk, dv, a.h, a.t,
+      a.d, a.w, a.drop);
+  return (int)cudaGetLastError();
+}
+
+Args make_args(const float* q, const float* k, const float* v, const float* mask,
+               const float* ek, const float* ev, const float* g, const float* m,
+               const float* l, const float* dd, int b, int h, int t, int d, int w,
+               int drop, int thr, int seed, float scale, void* stream) {
+  return Args{q, k, v, mask, ek, ev, g, m, l, dd, b, h, t, d, w,
+              Drop{drop != 0, (uint32_t)thr, (uint32_t)seed, scale},
+              (cudaStream_t)stream};
 }
 
 }  // namespace
@@ -447,8 +656,22 @@ Drop make_drop(int on, int thr, int seed, float scale) {
 // The number of B5 blocks, which the caller's partials buffer
 // [blocks][2][2w+1][d] must hold.
 extern "C" int banded_attn_bwd_q_blocks(int b, int h, int t) {
-  return ((t + Q_ROWS - 1) / Q_ROWS) * b * h;
+  return ((t + 63) / 64) * b * h;
 }
+
+// d in 8-wide steps picks the instantiation; the tile is 16 rows wide at
+// d > 96 (shared memory), 32 below. B6 shares each tile between two
+// warpgroups below d = 97 (one's softmax rebuild overlaps the other's
+// products); B5 keeps one (with two, each S = Q K^T slice runs at N = 16
+// and reads Q from shared memory twice as often: slower on the card), as
+// does B6 at d > 96 (8-row halves).
+#define BANDED_ATTN_BWD_DISPATCH(CALL)         \
+  const int steps = (d + 7) / 8;               \
+  if (steps <= 2) return CALL(2, 32, 2);       \
+  if (steps <= 4) return CALL(4, 32, 2);       \
+  if (steps <= 8) return CALL(8, 32, 2);       \
+  if (steps <= 12) return CALL(12, 32, 2);     \
+  return CALL(16, 16, 1)
 
 // B5, then the reduction of its partials: dq [b,h,t,d], dek, dev [2w+1,d].
 extern "C" int banded_attn_bwd_q(const float* q, const float* k, const float* v,
@@ -459,25 +682,14 @@ extern "C" int banded_attn_bwd_q(const float* q, const float* k, const float* v,
                                  float* dek, float* dev, int b, int h, int t,
                                  int d, int w, int drop, int thr, int seed,
                                  float scale, int device, void* stream) {
-  if (bad_shape(b, h, t, d, w)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  if (bad_attn_shape(b, h, t, d, w, device)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t bytes = bwd_q_smem(d);
-  err = cudaFuncSetAttribute(attn_bwd_q_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid((t + Q_ROWS - 1) / Q_ROWS, b * h);
-  attn_bwd_q_kernel<<<grid, THREADS, bytes, s>>>(
-      q, k, v, mask, ek, ev, g, m, l, dd, dq, partials, h, t, d, w,
-      make_drop(drop, thr, seed, scale));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int n = (2 * w + 1) * d;
-  band_tables_reduce<<<(2 * n + 255) / 256, 256, 0, s>>>(
-      partials, grid.x * grid.y, n, dek, dev);
-  return (int)cudaGetLastError();
+  const Args a = make_args(q, k, v, mask, ek, ev, g, m, l, dd, b, h, t, d, w, drop,
+                           thr, seed, scale, stream);
+#define B5_CALL(DK, TN, WGS) launch_q<DK, TN>(a, dq, partials, dek, dev, device)
+  BANDED_ATTN_BWD_DISPATCH(B5_CALL);
+#undef B5_CALL
 }
 
 // B6: dk, dv [b,h,t,d].
@@ -489,17 +701,12 @@ extern "C" int banded_attn_bwd_k(const float* q, const float* k, const float* v,
                                  int h, int t, int d, int w, int drop, int thr,
                                  int seed, float scale, int device,
                                  void* stream) {
-  if (bad_shape(b, h, t, d, w)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  if (bad_attn_shape(b, h, t, d, w, device)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t bytes = bwd_k_smem(d);
-  err = cudaFuncSetAttribute(attn_bwd_k_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((t + K_KEYS - 1) / K_KEYS, b * h);
-  attn_bwd_k_kernel<<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
-      q, k, v, mask, ek, ev, g, m, l, dd, dk, dv, h, t, d, w,
-      make_drop(drop, thr, seed, scale));
-  return (int)cudaGetLastError();
+  const Args a = make_args(q, k, v, mask, ek, ev, g, m, l, dd, b, h, t, d, w, drop,
+                           thr, seed, scale, stream);
+#define B6_CALL(DK, TN, WGS) launch_k<DK, TN, WGS>(a, dk, dv, device)
+  BANDED_ATTN_BWD_DISPATCH(B6_CALL);
+#undef B6_CALL
 }

@@ -18,8 +18,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    autograd, with and without the hash dropout), kernel time (CUDA events)
    and device time (the profiler's kernel time), plain time and the least
    time the card could take (fp32 rate or memory rate), and the bound of
-   the unit the kernel's design uses (K1 and K2: 3xTF32 on the tensor
-   cores).
+   the unit the kernel's design uses (K1, K2, B5 and B6: 3xTF32 on the
+   tensor cores).
 4. serving path: TTSEngine.run_prepared on 8 seeded requests at the default
    V2.3 ModelConfig with random weights from a seed; the attention and MRF
    kernels must have launched, and the waves must be finite, in [-1, 1] and
@@ -111,8 +111,9 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 def bound_3xtf32(flops: float, nbytes: float) -> float:
-    """The bound of K1's and K2's design: every fp32 product as three TF32
-    tensor-core products (3xTF32) at the TF32 rate, or the bytes."""
+    """The bound of the kernels' design (K1, K2, B5, B6): every fp32
+    product as three TF32 tensor-core products (3xTF32) at the TF32 rate,
+    or the bytes."""
     return max(3 * flops / TF32_FLOPS, nbytes / HBM_BYTES) * 1e3
 
 
@@ -260,17 +261,18 @@ def check_attention_bwd(dev):
             fwd_bytes = io + 4 * (4 * b * h * t * d + 2 * b * h * t)
             fwd_b = bound(fwd_flops, fwd_bytes)
             # B5: s, g.v, ds.k; B6: s, g.v, p.g, ds.q (+ the band terms)
-            q_b = bound(6 * b * h * t * t * d + 6 * b * h * t * nb * d,
-                        io + 4 * (5 * b * h * t * d + 3 * b * h * t) + 8 * nb * d)
-            k_b = bound(8 * b * h * t * t * d + 4 * b * h * (t + 2 * w) * nb * d,
-                        io + 4 * (6 * b * h * t * d + 3 * b * h * t))
-            # K1 runs its products as 3xTF32 on the tensor cores; B5 and B6
-            # as fp32 FMAs, so their design bound is the fp32 one
+            q_work = (6 * b * h * t * t * d + 6 * b * h * t * nb * d,
+                      io + 4 * (5 * b * h * t * d + 3 * b * h * t) + 8 * nb * d)
+            k_work = (8 * b * h * t * t * d + 4 * b * h * (t + 2 * w) * nb * d,
+                      io + 4 * (6 * b * h * t * d + 3 * b * h * t))
+            # all three run their products as 3xTF32 on the tensor cores
             for key, ms, dms, plain, (bms, by), tc in (
                     ("banded_attn_fwd_train", ms_f, dev_f, plain_f, fwd_b,
                      bound_3xtf32(fwd_flops, fwd_bytes)),
-                    ("banded_attn_bwd_q", ms_q, dev_q, plain_b, q_b, q_b[0]),
-                    ("banded_attn_bwd_k", ms_k, dev_k, plain_b, k_b, k_b[0])):
+                    ("banded_attn_bwd_q", ms_q, dev_q, plain_b, bound(*q_work),
+                     bound_3xtf32(*q_work)),
+                    ("banded_attn_bwd_k", ms_k, dev_k, plain_b, bound(*k_work),
+                     bound_3xtf32(*k_work))):
                 log(f"{key} {name} [b={b},h={h},t={t},d={d}] p_drop {p_drop}: "
                     f"kernel {ms:.4f} ms (device {dms:.4f} ms), plain "
                     f"{plain:.4f} ms, bound {bms:.4f} ms ({by}), design bound "
@@ -983,9 +985,8 @@ def main(argv=None) -> int:
             "shapes": rows,
         }
 
-    tc3 = ("3xTF32 on the tensor cores (mma.sync m16n8k8): bound_design_ms "
+    tc3 = ("3xTF32 on the tensor cores (wgmma m64nNk8): bound_design_ms "
            "is 3 x FLOP at 495 TFLOP/s or the bytes")
-    fp32 = "fp32 on the CUDA cores: bound_design_ms is bound_ms"
 
     serving = f"per run_prepared call at batch {MAIN_BATCH}"
     training = (f"per training step at batch {TRAIN_BATCH}, {TRAIN_TX} tokens and "
@@ -1004,10 +1005,10 @@ def main(argv=None) -> int:
               kb["banded_attn_fwd_train"], training, tc3),
         entry("banded_attn_bwd_q", "bert_vits2_tpu_torch/csrc/banded_attn_bwd.cu",
               "bert_vits2_tpu/ops/attention_pallas.py:147",
-              kb["banded_attn_bwd_q"], training, fp32),
+              kb["banded_attn_bwd_q"], training, tc3),
         entry("banded_attn_bwd_k", "bert_vits2_tpu_torch/csrc/banded_attn_bwd.cu",
               "bert_vits2_tpu/ops/attention_pallas.py:228",
-              kb["banded_attn_bwd_k"], training, fp32),
+              kb["banded_attn_bwd_k"], training, tc3),
     ]}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

@@ -8,8 +8,8 @@ skip the JAX-importing conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 TF32 is off for matmuls and cuDNN convolutions, so the plain versions run
-in full fp32. K1 and K2 do their products on the tensor cores in TF32, but
-split each operand into two TF32 parts (v = hi + lo, hi rounded to TF32,
+in full fp32. K1, K2, B5 and B6 do their products on the tensor cores in
+TF32, but split each operand into two TF32 parts (v = hi + lo, hi rounded to TF32,
 lo within 2**-21 |v| of v - hi) and sum hi*hi + hi*lo + lo*hi in fp32
 (3xTF32): each product is then within ~2**-20 of its fp32 value, the size
 of the rounding of the fp32 sums the bounds are set for (outputs of
@@ -98,14 +98,20 @@ def test_banded_attention_kernel(card, b, h, t, d, lens):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("p_drop", [0.0, 0.1])
-@pytest.mark.parametrize("b,h,t,d,lens", [
-    (16, 2, 512, 96, None),          # the flow's shape in the training step
-    (16, 2, 128, 96, None),          # enc_p's
-    (2, 2, 1001, 96, [1001, 640]),   # ragged, odd, several tiles
-    (2, 2, 33, 96, [33, 17]),        # one past a query tile and a key tile
-    (3, 2, 9, 20, [9, 9, 3]),        # t = 2w + 1, d % 8 != 0
+@pytest.mark.parametrize("b,h,t,d,lens,w", [
+    (16, 2, 512, 96, None, 4),          # the flow's shape in the training step
+    (16, 2, 128, 96, None, 4),          # enc_p's
+    (2, 2, 1001, 96, [1001, 640], 4),   # ragged, odd, several tiles
+    (2, 2, 33, 96, [33, 17], 4),        # one past a 32-row/32-key tile
+    (3, 2, 9, 20, [9, 9, 3], 4),        # t = 2w + 1, d % 8 != 0
+    (2, 2, 65, 96, [65, 40], 4),        # one past a 64-row/64-key block
+    (2, 2, 17, 128, [17, 9], 4),        # d = 128: 16-wide tiles; one past one
+    (2, 2, 300, 128, [300, 201], 4),    # d = 128 (the shared-memory limit)
+    (2, 2, 130, 64, [130, 77], 4),      # d = 64
+    (2, 2, 97, 96, [97, 50], 1),        # w = 1
+    (2, 2, 70, 96, [70, 31], 0),        # w = 0: no band terms
 ])
-def test_banded_attention_backward_kernels(card, b, h, t, d, lens, p_drop):
+def test_banded_attention_backward_kernels(card, b, h, t, d, lens, w, p_drop):
     """K1 in train mode (out, m, l), B5 (dq, dek, dev) and B6 (dk, dv)
     against the plain version's autograd, valid rows, one dropout seed."""
     g = torch.Generator(device=card).manual_seed(t + b)
@@ -113,31 +119,54 @@ def test_banded_attention_backward_kernels(card, b, h, t, d, lens, p_drop):
     q, k, v = (torch.randn(b, h, t, d, device=card, generator=g)
                for _ in range(3))
     q = q / d ** 0.5
-    ek, ev = (torch.randn(9, d, device=card, generator=g) / d ** 0.5
+    ek, ev = (torch.randn(2 * w + 1, d, device=card, generator=g) / d ** 0.5
               for _ in range(2))
     m = _lens_mask(lens, t, card)
     go = torch.randn(b, h, t, d, device=card, generator=g) * m[:, None, :, None]
     counts = [fn.launches for fn in (banded_attention_fwd_train,
                                      banded_attention_bwd_q, banded_attention_bwd_k)]
     seed = -987654321
-    out, mr, lr = banded_attention_fwd_train(q, k, v, m, ek, ev, 4, p_drop, seed)
-    args = (q, k, v, m, ek, ev, go, mr, lr, (go * out).sum(-1), 4, p_drop, seed)
+    out, mr, lr = banded_attention_fwd_train(q, k, v, m, ek, ev, w, p_drop, seed)
+    args = (q, k, v, m, ek, ev, go, mr, lr, (go * out).sum(-1), w, p_drop, seed)
     dq, dek, dev = banded_attention_bwd_q(*args)
     dk, dv = banded_attention_bwd_k(*args)
     torch.cuda.synchronize()
     assert [fn.launches for fn in (banded_attention_fwd_train, banded_attention_bwd_q,
                                    banded_attention_bwd_k)] == [c + 1 for c in counts]
     valid = m.bool()[:, None, :].expand(b, h, t)
-    want_out = banded_attention_plain(q, k, v, m, ek, ev, 4, p_drop, seed)
+    want_out = banded_attention_plain(q, k, v, m, ek, ev, w, p_drop, seed)
     assert (out - want_out)[valid].abs().max().item() <= 1e-4
-    want = (*banded_attention_stats_plain(q, k, m, ek, 4),
-            *banded_attention_bwd_plain(q, k, v, m, ek, ev, go, 4, p_drop, seed))
+    want = (*banded_attention_stats_plain(q, k, m, ek, w),
+            *banded_attention_bwd_plain(q, k, v, m, ek, ev, go, w, p_drop, seed))
     for name, got, ref in zip(("m", "l", "dq", "dk", "dv", "dek", "dev"),
                               (mr, lr, dq, dk, dv, dek, dev), want):
         if got.dim() > 2:
             got, ref = got[valid], ref[valid]
         rel = ((got - ref).abs().max() / ref.abs().max()).item()
         assert rel <= 1e-4, (name, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [96, 128])
+def test_banded_attention_backward_is_deterministic(card, d):
+    """Two B5 launches on the same inputs give bit-equal dq, dek and dev
+    (dek, dev: per-block partials added in block order, no atomics), and
+    two B6 launches bit-equal dk and dv."""
+    b, h, t, w = 4, 2, 333, 4
+    g = torch.Generator(device=card).manual_seed(d)
+    q, k, v, go = (torch.randn(b, h, t, d, device=card, generator=g)
+                   for _ in range(4))
+    q = q / d ** 0.5
+    ek, ev = (torch.randn(2 * w + 1, d, device=card, generator=g) / d ** 0.5
+              for _ in range(2))
+    m = _lens_mask([t, 300, 201, 64], t, card)
+    out, mr, lr = banded_attention_fwd_train(q, k, v, m, ek, ev, w, 0.1, 7)
+    args = (q, k, v, m, ek, ev, go, mr, lr, (go * out).sum(-1), w, 0.1, 7)
+    first_q, second_q = banded_attention_bwd_q(*args), banded_attention_bwd_q(*args)
+    first_k, second_k = banded_attention_bwd_k(*args), banded_attention_bwd_k(*args)
+    torch.cuda.synchronize()
+    for a, b_ in zip((*first_q, *first_k), (*second_q, *second_k)):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.cuda
