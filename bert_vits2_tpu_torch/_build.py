@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("banded_attn.cu", "banded_attn_bwd.cu", "mrf.cu", "mas.cu")
+SOURCES = ("banded_attn.cu", "banded_attn_bwd.cu", "banded_attn_wide.cu", "mrf.cu",
+           "mas.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,6 +49,16 @@ SIGNATURES = {
         # seed, scale, device, stream
         "banded_attn_bwd_k": [_P] * 12 + [_I] * 8 + [_F, _I, _P],
     },
+    "banded_attn_wide.cu": {
+        # as banded_attn.cu's two entry points
+        "banded_attn_wide_fwd": [_P] * 7 + [_I] * 6 + [_P],
+        "banded_attn_wide_fwd_train": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
+        # q, k, v, mask, ek, ev, g, m, l, D, dq, band_ds, band_pd, dek, dev,
+        # b, h, t, d, w, drop, thr, seed, scale, device, stream
+        "banded_attn_wide_bwd_q": [_P] * 15 + [_I] * 8 + [_F, _I, _P],
+        # as banded_attn_bwd.cu's banded_attn_bwd_k
+        "banded_attn_wide_bwd_k": [_P] * 12 + [_I] * 8 + [_F, _I, _P],
+    },
     "mrf.cu": {
         # x, mask, weights, out, b, c, t, tile, nb, ks, ns, dils, offs,
         # device, stream
@@ -60,10 +71,11 @@ SIGNATURES = {
         "tc_probe_rate": [_P] + [_I] * 3 + [_P],
     },
     "mas.cu": {
-        # neg_cent, t_ys, t_xs, path, decisions, b, t_y, t_x, device, stream
-        "mas_fwd": [_P] * 5 + [_I] * 4 + [_P],
-        # out, steps, threads, device, stream
-        "mas_sync_probe": [_P] + [_I] * 3 + [_P],
+        # neg_cent, t_ys, t_xs, path, decisions (or NULL), b, t_y, t_x, k,
+        # warps, shared-memory bytes, device, stream
+        "mas_fwd": [_P] * 5 + [_I] * 7 + [_P],
+        # out, steps, kind, threads, device, stream
+        "mas_link_probe": [_P] + [_I] * 4 + [_P],
     },
 }
 

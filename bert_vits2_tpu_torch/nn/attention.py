@@ -10,10 +10,13 @@ formula in plain PyTorch with `F.dropout` on the probabilities, or, with
 `BV2_FUSED_ATTENTION_TRAIN=1` in the environment (read at each call, as
 the JAX package reads it while tracing), the fused op: K1 in train mode
 and the backward kernels B5/B6 on the card, the plain version on the CPU,
-both with the position-hash dropout. A shorter sequence takes the
-window-embedding path in plain PyTorch. Speaker conditioning enters before
-layer `cond_layer_idx`. Dropout sits where the JAX modules have it and is
-active in train() mode only.
+both with the position-hash dropout. Every head width, window and b*h
+goes to the kernels, as the JAX module sends them to its TPU kernels (the
+wrappers pick the tensor-core kernels or, outside their range, those of
+`csrc/banded_attn_wide.cu`). A shorter sequence takes the window-embedding
+path in plain PyTorch. Speaker conditioning enters before layer
+`cond_layer_idx`. Dropout sits where the JAX modules have it and is active
+in train() mode only.
 """
 
 from __future__ import annotations

@@ -9,6 +9,10 @@ how the design answers that. Beside it:
   frames, each step vectorized over [b, t_x], then the backtrack loop (the
   shape of the JAX package's `maximum_path_scan`). The CPU runs it, and the
   tests and `chip_smoke.py` hold the kernel against it, bit for bit.
+- `mas_plan`, the launch's shape by (t_y, t_x): columns per lane K, warps
+  per item, and whether the move-left bits fit in shared memory (else a
+  scratch in device memory); `plan_for_k` builds the plan for one K.
+  Plain functions, so the CPU tests read them.
 - `maximum_path`, the wrapper: plain version for CPU tensors, the kernel
   for CUDA tensors, an error for anything else. Its `launches` attribute
   counts kernel launches.
@@ -21,13 +25,75 @@ stays on the tensors' device; the result carries no gradient.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from bert_vits2_tpu_torch import _build
 
 NEG = -1e9
 SMEM_BYTES = 232448  # dynamic shared memory a block may take (227 KB)
-SMEM_ROWS = 6  # csrc/mas.cu: two value rows and a ring of STAGES = 4
+# csrc/mas.cu: its templates of K (columns per lane), the warps a block may
+# have (compute warps and at least one helper) and the boundary ring
+# between two warps
+K_CHOICES = (1, 2, 4, 8, 16, 32)
+MAX_WARPS = 16
+RING_FRAMES = 64
+# the plan takes the fewest columns per lane whose warps number at most
+# PLAN_WARPS: a frame's time grows with K (its chain and its instructions),
+# while warps beyond one per SM sub-partition cost little
+# (`python -m bert_vits2_tpu_torch.utils.mas_ab --sweep` on the card)
+PLAN_WARPS = 12
+
+
+def _stages(k: int) -> int:
+    """Frames of scores in flight per warp (csrc/mas.cu `stages`)."""
+    return 32 if k <= 2 else 16 if k == 4 else 8 if k <= 16 else 4
+
+
+def mas_smem_bytes(t_y: int, k: int, warps: int, dec_in_smem: bool) -> int:
+    """Shared memory of one block (csrc/mas.cu `smem_bytes`): the score
+    rings, the boundary rings, the progress counters and, where they fit,
+    the move-left bits."""
+    words = warps * _stages(k) * 32 * k + warps * RING_FRAMES + MAX_WARPS
+    if dec_in_smem:
+        words += t_y * warps * k
+    return 4 * words
+
+
+class MasPlan(NamedTuple):
+    k: int  # columns per lane
+    warps: int  # compute warps per item: 32 * k * warps >= t_x
+    dec_in_smem: bool  # move-left bits in shared memory, else device scratch
+    smem_bytes: int
+
+
+def plan_for_k(t_y: int, t_x: int, k: int,
+               dec_in_smem: bool | None = None) -> MasPlan | None:
+    """The launch with K columns per lane for scores [b, t_y, t_x]: the
+    fewest warps that cover t_x, the move-left bits in shared memory where
+    t_y * warps * k words fit beside the rings (or where `dec_in_smem`
+    says); None where the block does not fit. Every plan, the wrapper's,
+    the tests' and `utils/mas_ab.py`'s, is made here; the kernel refuses a
+    launch whose shared-memory figure is not its own."""
+    warps = -(-t_x // (32 * k))
+    if dec_in_smem is None:
+        dec_in_smem = mas_smem_bytes(t_y, k, warps, True) <= SMEM_BYTES
+    smem = mas_smem_bytes(t_y, k, warps, dec_in_smem)
+    if warps + 1 > MAX_WARPS or smem > SMEM_BYTES:
+        return None
+    return MasPlan(k, warps, dec_in_smem, smem)
+
+
+def mas_plan(t_y: int, t_x: int) -> MasPlan:
+    """The kernel's launch for scores [b, t_y, t_x]: the least K whose
+    `plan_for_k` fits with at most PLAN_WARPS warps. Raises ValueError
+    where no template fits."""
+    for k in K_CHOICES:
+        plan = plan_for_k(t_y, t_x, k)
+        if plan is not None and plan.warps <= PLAN_WARPS:
+            return plan
+    raise ValueError(f"unsupported shape t_y={t_y} t_x={t_x}")
 
 
 @torch.no_grad()
@@ -83,18 +149,25 @@ def maximum_path(neg_cent: torch.Tensor, t_ys: torch.Tensor,
         raise ValueError("the kernel takes float32 scores")
     if not neg_cent.is_contiguous():
         raise ValueError("the kernel takes contiguous scores")
-    if b < 1 or t_y < 1 or t_x < 1 or SMEM_ROWS * 4 * t_x > SMEM_BYTES:
+    if b < 1 or t_y < 1 or t_x < 1:
         raise ValueError(f"unsupported shape {tuple(neg_cent.shape)}")
-    neg = neg_cent.detach()
+    return _launch(neg_cent.detach(), t_ys, t_xs, mas_plan(t_y, t_x))
+
+
+def _launch(neg: torch.Tensor, t_ys: torch.Tensor, t_xs: torch.Tensor,
+            plan: MasPlan) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA inputs with this plan (the
+    tests also give it plans other than `mas_plan`'s)."""
+    b, t_y, t_x = neg.shape
     t_ys = t_ys.to(torch.int32).contiguous()
     t_xs = t_xs.to(torch.int32).contiguous()
     path = torch.empty_like(neg)
-    decisions = torch.empty((b, t_y, (t_x + 31) // 32), dtype=torch.int32,
-                            device=neg.device)
-    lib = _build.library("mas.cu")
-    err = lib.mas_fwd(
+    decisions = None if plan.dec_in_smem else torch.empty(
+        (b, t_y, plan.warps * plan.k), dtype=torch.int32, device=neg.device)
+    err = _build.library("mas.cu").mas_fwd(
         neg.data_ptr(), t_ys.data_ptr(), t_xs.data_ptr(), path.data_ptr(),
-        decisions.data_ptr(), b, t_y, t_x, neg.device.index or 0,
+        None if decisions is None else decisions.data_ptr(), b, t_y, t_x,
+        plan.k, plan.warps, plan.smem_bytes, neg.device.index or 0,
         torch.cuda.current_stream(neg.device).cuda_stream,
     )
     _build.check(err, "mas_fwd")

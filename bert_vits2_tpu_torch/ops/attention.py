@@ -12,6 +12,11 @@ card and how the design answers that:
 - `csrc/banded_attn_bwd.cu` replaces `_attn_bwd_q_kernel` (B5,
   attention_pallas.py:147) and `_attn_bwd_k_kernel` (B6,
   attention_pallas.py:228).
+- `csrc/banded_attn_wide.cu` holds the same four functions for the shapes
+  those tensor-core kernels do not take (a head wider than 128, a window
+  above 4, b*h above 65535), which the TPU kernels take by padding: simple
+  fp32 kernels (`wide_fwd`, `wide_fwd_train`, `wide_bwd_q`, `wide_bwd_k`).
+  Each wrapper picks the variant by shape, `banded_kernels_support`.
 
 Beside them:
 
@@ -25,9 +30,12 @@ Beside them:
 - `banded_rel_self_attention`, the public wrapper: the plain version for
   CPU tensors; for CUDA tensors the inference launch of K1, or, when a
   gradient is wanted or dropout is on, `BandedAttentionFn` (K1 in train
-  mode forward, B5 and B6 backward); an error for anything else.
+  mode forward, B5 and B6 backward), each in the variant the shape takes;
+  an error for anything else.
+- `banded_kernels_support`, the tensor-core kernels' range of shapes.
 
-Each kernel wrapper counts its launches in its `launches` attribute.
+Each kernel launcher counts its launches in its `launches` attribute: the
+wrappers count the tensor-core kernels', the `wide_*` functions their own.
 
 Dropout is the JAX package's counter-based position hash (`hash_keep`):
 the keep mask of probability (row i, column j) of batch row b and head
@@ -45,8 +53,9 @@ import torch.nn.functional as F
 from bert_vits2_tpu_torch import _build
 
 NEG_FILL = -1e4  # the reference's mask fill: a fully masked row is uniform
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 128  # the tensor-core kernels' widest head and window
 MAX_WINDOW = 4
+WIDE_MAX_HEAD_DIM = 8192  # csrc/banded_attn_wide.cu MAX_D
 _M32 = 0xFFFFFFFF
 
 
@@ -194,8 +203,17 @@ def _check_bwd_shapes(q, g, m, l, delta) -> None:
         raise ValueError(f"m, l, delta must be {tuple(q.shape[:3])}")
 
 
-def _check_kernel_inputs(tensors, w: int) -> None:
-    """Raise on what the kernels do not take (CUDA tensors only)."""
+def banded_kernels_support(b: int, h: int, t: int, d: int, w: int) -> bool:
+    """Whether the tensor-core kernels (csrc/banded_attn.cu,
+    banded_attn_bwd.cu) take float32 inputs of this shape; the wrappers
+    send every other shape they accept to csrc/banded_attn_wide.cu."""
+    return (1 <= d <= MAX_HEAD_DIM and 0 <= w <= MAX_WINDOW and t >= 2 * w
+            and b * h <= 65535)
+
+
+def _check_kernel_inputs(tensors, w: int) -> bool:
+    """Raise on what no kernel takes (CUDA tensors only); True where the
+    tensor-core kernels take the shape, False where the wide ones do."""
     q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
@@ -206,9 +224,10 @@ def _check_kernel_inputs(tensors, w: int) -> None:
     if any(not x.is_contiguous() for x in tensors):
         raise ValueError("the kernel takes contiguous inputs")
     b, h, t, d = q.shape
-    if not (1 <= d <= MAX_HEAD_DIM and 0 <= w <= MAX_WINDOW and t >= 2 * w
-            and b * h <= 65535):
+    if not (1 <= d <= WIDE_MAX_HEAD_DIM and 0 <= w and 1 <= t and t >= 2 * w
+            and b * h < 2**31):
         raise ValueError(f"unsupported shape b={b} h={h} t={t} d={d} w={w}")
+    return banded_kernels_support(b, h, t, d, w)
 
 
 def _stream(x: torch.Tensor):
@@ -239,7 +258,8 @@ def banded_attention_fwd_train(q, k, v, x_mask, emb_rel_k, emb_rel_v,
     if q.device.type == "cpu":
         out = banded_attention_plain(*tensors, w, dropout_p, dropout_seed)
         return (out, *banded_attention_stats_plain(q, k, x_mask, emb_rel_k, w))
-    _check_kernel_inputs(tensors, w)
+    if not _check_kernel_inputs(tensors, w):
+        return wide_fwd_train(tensors, w, dropout_p, dropout_seed)
     b, h, t, d = q.shape
     drop, thr, seed, scale = _dropout_args(dropout_p, dropout_seed)
     out = torch.empty_like(q)
@@ -267,7 +287,8 @@ def banded_attention_bwd_q(q, k, v, x_mask, emb_rel_k, emb_rel_v, g, m, l,
         dq, _, _, dek, dev = banded_attention_bwd_plain(
             *tensors[:7], w, dropout_p, dropout_seed)
         return dq, dek, dev
-    _check_kernel_inputs(tensors, w)
+    if not _check_kernel_inputs(tensors, w):
+        return wide_bwd_q(tensors, w, dropout_p, dropout_seed)
     b, h, t, d = q.shape
     drop, thr, seed, scale = _dropout_args(dropout_p, dropout_seed)
     dq = torch.empty_like(q)
@@ -295,7 +316,8 @@ def banded_attention_bwd_k(q, k, v, x_mask, emb_rel_k, emb_rel_v, g, m, l,
         _, dk, dv, _, _ = banded_attention_bwd_plain(
             *tensors[:7], w, dropout_p, dropout_seed)
         return dk, dv
-    _check_kernel_inputs(tensors, w)
+    if not _check_kernel_inputs(tensors, w):
+        return wide_bwd_k(tensors, w, dropout_p, dropout_seed)
     b, h, t, d = q.shape
     drop, thr, seed, scale = _dropout_args(dropout_p, dropout_seed)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -304,6 +326,64 @@ def banded_attention_bwd_k(q, k, v, x_mask, emb_rel_k, emb_rel_v, g, m, l,
         b, h, t, d, w, drop, thr, seed, scale, *_stream(q))
     _build.check(err, "banded_attn_bwd_k")
     banded_attention_bwd_k.launches += 1
+    return dk, dv
+
+
+def wide_fwd(tensors, w: int) -> torch.Tensor:
+    """The inference launch of csrc/banded_attn_wide.cu on checked inputs
+    (q, k, v, x_mask, emb_rel_k, emb_rel_v) -> out."""
+    q = tensors[0]
+    out = torch.empty_like(q)
+    err = _build.library("banded_attn_wide.cu").banded_attn_wide_fwd(
+        *(x.data_ptr() for x in (*tensors, out)), *q.shape, w, *_stream(q))
+    _build.check(err, "banded_attn_wide_fwd")
+    wide_fwd.launches += 1
+    return out
+
+
+def wide_fwd_train(tensors, w: int, dropout_p: float, dropout_seed):
+    """The train-mode launch of csrc/banded_attn_wide.cu -> (out, m, l)."""
+    q = tensors[0]
+    drop, thr, seed, scale = _dropout_args(dropout_p, dropout_seed)
+    out = torch.empty_like(q)
+    m = torch.empty(q.shape[:3], device=q.device)
+    l = torch.empty_like(m)
+    err = _build.library("banded_attn_wide.cu").banded_attn_wide_fwd_train(
+        *(x.data_ptr() for x in (*tensors, out, m, l)), *q.shape, w, drop, thr,
+        seed, scale, *_stream(q))
+    _build.check(err, "banded_attn_wide_fwd_train")
+    wide_fwd_train.launches += 1
+    return out, m, l
+
+
+def wide_bwd_q(tensors, w: int, dropout_p: float, dropout_seed):
+    """B5 of csrc/banded_attn_wide.cu on checked inputs (q, k, v, x_mask,
+    emb_rel_k, emb_rel_v, g, m, l, delta) -> (dq, dek, dev)."""
+    q = tensors[0]
+    b, h, t, _ = q.shape
+    drop, thr, seed, scale = _dropout_args(dropout_p, dropout_seed)
+    dq = torch.empty_like(q)
+    dek, dev = torch.empty_like(tensors[4]), torch.empty_like(tensors[5])
+    band = torch.empty((2, b * h * t, 2 * w + 1), device=q.device)
+    err = _build.library("banded_attn_wide.cu").banded_attn_wide_bwd_q(
+        *(x.data_ptr() for x in (*tensors, dq, band[0], band[1], dek, dev)),
+        *q.shape, w, drop, thr, seed, scale, *_stream(q))
+    _build.check(err, "banded_attn_wide_bwd_q")
+    wide_bwd_q.launches += 1
+    return dq, dek, dev
+
+
+def wide_bwd_k(tensors, w: int, dropout_p: float, dropout_seed):
+    """B6 of csrc/banded_attn_wide.cu on checked inputs (as `wide_bwd_q`'s)
+    -> (dk, dv)."""
+    q = tensors[0]
+    drop, thr, seed, scale = _dropout_args(dropout_p, dropout_seed)
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    err = _build.library("banded_attn_wide.cu").banded_attn_wide_bwd_k(
+        *(x.data_ptr() for x in (*tensors, dk, dv)), *q.shape, w, drop, thr, seed,
+        scale, *_stream(q))
+    _build.check(err, "banded_attn_wide_bwd_k")
+    wide_bwd_k.launches += 1
     return dk, dv
 
 
@@ -359,7 +439,8 @@ def banded_rel_self_attention(q, k, v, x_mask, emb_rel_k, emb_rel_v,
     if grad or dropout_p:
         return BandedAttentionFn.apply(*tensors, w, float(dropout_p),
                                        dropout_seed)
-    _check_kernel_inputs(tensors, w)
+    if not _check_kernel_inputs(tensors, w):
+        return wide_fwd(tensors, w)
     b, h, t, d = q.shape
     out = torch.empty_like(q)
     err = _build.library("banded_attn.cu").banded_attn_fwd(
@@ -373,3 +454,7 @@ banded_rel_self_attention.launches = 0
 banded_attention_fwd_train.launches = 0
 banded_attention_bwd_q.launches = 0
 banded_attention_bwd_k.launches = 0
+wide_fwd.launches = 0
+wide_fwd_train.launches = 0
+wide_bwd_q.launches = 0
+wide_bwd_k.launches = 0

@@ -20,6 +20,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    time the card could take (fp32 rate or memory rate), and the bound of
    the unit the kernel's design uses (K1, K2, B5 and B6: 3xTF32 on the
    tensor cores).
+   K3 at the training step's shape, the Trainer's longest text and a long
+   text, exactly; the latency of one link of each of its dependent chains
+   (probes in csrc/mas.cu) and the chain bounds built from them.
+3b. attention outside the tensor-core kernels' range, the path of
+   csrc/banded_attn_wide.cu: each wide kernel against its plain version
+   and timed; MultiHeadAttention with a head of 160 channels and one with
+   a window of 5, card against CPU at inference and in fused training
+   (outputs and parameter gradients), each wide kernel launched and no
+   tensor-core one.
 4. serving path: TTSEngine.run_prepared on 8 seeded requests at the default
    V2.3 ModelConfig with random weights from a seed; the attention and MRF
    kernels must have launched, and the waves must be finite, in [-1, 1] and
@@ -73,12 +82,22 @@ FRAMES = 768  # frame cap the kernel checks use (128-token bucket x 6)
 TRAIN_BATCH, TRAIN_TX, TRAIN_TY = 16, 128, 512
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 LENGTH_REL_BOUND = 1e-3  # card vs CPU, fp32: the duration loss, relative
+ATTN_RANGE_BOUND = 1e-5  # card vs CPU, fp32, TF32 off: one attention (wide kernel vs plain)
 # K1 train mode, B5, B6 against the plain autograd, each error relative to
 # the max of its reference: fp32 sums of up to t terms (rows) and of up to
 # b*h*t terms (dek, dev: per-block partials added in block order) in
 # another order than cuBLAS's and autograd's
 BWD_REL_BOUND = 1e-4
 N_ENC_ATTN, N_FLOW_ATTN = 6, 16  # attention layers of enc_p and of the flow
+# the [attention-range] phase: MultiHeadAttention (channels, heads, window)
+# outside the tensor-core kernels' range, at [b, t] with these lengths; its
+# kernels (csrc/banded_attn_wide.cu) checked at the same [b, h, t, d, w],
+# each launched once per module call
+RANGE_MODULES = ((160, 1, 4), (192, 2, 5))
+RANGE_T, RANGE_LENS = 200, [200, 151, 77, 9]
+WIDE_KEYS = ("banded_attn_wide_fwd_train", "banded_attn_wide_bwd_q",
+             "banded_attn_wide_bwd_k")
+TC_KEYS = ("banded_attn_fwd_train", "banded_attn_bwd_q", "banded_attn_bwd_k")
 AB_ROUNDS = 3  # fused vs dense: D F F D per round
 TRAINER_UTTS, TRAINER_WARMUP, TRAINER_TIMED = 32, 2, 6
 
@@ -110,6 +129,12 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
 
 
+def bound_fp32(flops: float, nbytes: float) -> float:
+    """The bound of a design on the fp32 cores (the wide kernels): the
+    fp32 rate or the bytes."""
+    return bound(flops, nbytes)[0]
+
+
 def bound_3xtf32(flops: float, nbytes: float) -> float:
     """The bound of the kernels' design (K1, K2, B5, B6): every fp32
     product as three TF32 tensor-core products (3xTF32) at the TF32 rate,
@@ -139,13 +164,22 @@ def lens_mask(lens, t, dev):
             < torch.as_tensor(lens, device=dev)[:, None]).float()
 
 
-def check_attention(dev):
+def range_cases():
+    """The wide kernels' shapes: (name, b, h, t, d, w, launches per call)."""
+    return [(f"d{c // h}w{w}", len(RANGE_LENS), h, RANGE_T, c // h, w, 1)
+            for c, h, w in RANGE_MODULES]
+
+
+def check_attention(dev, cases=None, label="K1", design=bound_3xtf32):
+    """The inference launch against the plain version, timed: K1 at the
+    serving path's shapes, or (cases) the wide kernel at its own."""
     from bert_vits2_tpu_torch.ops.attention import (
         banded_attention_plain, banded_rel_self_attention)
     rows = []
     # enc_p at the 128-token bucket; the flow at a 768-frame cap
-    for name, t, n_main in (("enc_p", 128, 12), ("flow", FRAMES, 16)):
-        b, h, d, w = MAIN_BATCH, 2, 96, 4
+    for name, b, h, t, d, w, n_main in cases or (
+            ("enc_p", MAIN_BATCH, 2, 128, 96, 4, 12),
+            ("flow", MAIN_BATCH, 2, FRAMES, 96, 4, 16)):
         g = torch.Generator(device=dev).manual_seed(t)
         q, k, v = (torch.randn(b, h, t, d, device=dev, generator=g)
                    for _ in range(3))
@@ -166,36 +200,37 @@ def check_attention(dev):
         flops = 4 * b * h * t * t * d + 4 * b * h * t * (2 * w + 1) * d
         nbytes = 4 * (4 * b * h * t * d + b * t + 2 * (2 * w + 1) * d)
         bms, by = bound(flops, nbytes)
-        tc = bound_3xtf32(flops, nbytes)
-        log(f"K1 {name} [b={b},h={h},t={t},d={d}]: max_abs_err {err:.3e} "
+        tc = design(flops, nbytes)
+        log(f"{label} {name} [b={b},h={h},t={t},d={d},w={w}]: max_abs_err {err:.3e} "
             f"(bound {K1_BOUND:g}), kernel {ms:.4f} ms (device {dms:.4f} ms), "
             f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}: "
             f"{flops / 1e9:.2f} GFLOP at 67 TFLOP/s fp32, {nbytes / 1e6:.1f} MB "
-            f"at 3.35 TB/s), 3xTF32 bound {tc:.4f} ms (3 x FLOP at 495 TFLOP/s)")
+            f"at 3.35 TB/s), design bound {tc:.4f} ms")
         if not err <= K1_BOUND:
-            raise AssertionError(f"K1 {name}: max_abs_err {err} > {K1_BOUND}")
+            raise AssertionError(f"{label} {name}: max_abs_err {err} > {K1_BOUND}")
         rows.append(dict(shape=[b, h, t, d], launches_per_call=n_main, err=err,
                          ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms,
                          bound_by=by, bound_design_ms=tc))
     return rows
 
 
-def check_attention_bwd(dev):
-    """K1 in train mode, B5 and B6 against the plain version's autograd on
-    the card: out, the row statistics and the five gradients on valid rows,
-    without and with the hash dropout (one seed)."""
+def check_attention_bwd(dev, cases=None, keys=TC_KEYS, design=bound_3xtf32):
+    """K1 in train mode, B5 and B6 (or, with cases and keys, the wide
+    kernels) against the plain version's autograd on the card: out, the
+    row statistics and the five gradients on valid rows, without and with
+    the hash dropout (one seed)."""
     from bert_vits2_tpu_torch.ops.attention import (
         banded_attention_bwd_plain, banded_attention_bwd_q,
         banded_attention_bwd_k, banded_attention_fwd_train,
         banded_attention_plain, banded_attention_stats_plain)
-    rows = {"banded_attn_fwd_train": [], "banded_attn_bwd_q": [],
-            "banded_attn_bwd_k": []}
-    b_, h, d, w, seed = TRAIN_BATCH, 2, 96, 4, -1234567
+    rows = {key: [] for key in keys}
+    seed = -1234567
     # the flow and enc_p of the training batch, launches per step; one
     # ragged odd length over several key tiles
-    for name, b, t, n_main in (("flow", b_, TRAIN_TY, N_FLOW_ATTN),
-                               ("enc_p", b_, TRAIN_TX, N_ENC_ATTN),
-                               ("ragged", 2, 1001, 0)):
+    for name, b, h, t, d, w, n_main in cases or (
+            ("flow", TRAIN_BATCH, 2, TRAIN_TY, 96, 4, N_FLOW_ATTN),
+            ("enc_p", TRAIN_BATCH, 2, TRAIN_TX, 96, 4, N_ENC_ATTN),
+            ("ragged", 2, 2, 1001, 96, 4, 0)):
         g = torch.Generator(device=dev).manual_seed(t)
         q, k, v = (torch.randn(b, h, t, d, device=dev, generator=g)
                    for _ in range(3))
@@ -228,14 +263,14 @@ def check_attention_bwd(dev):
                 abs_errs[key] = (got - ref).abs().max().item()
                 errs[key] = abs_errs[key] / ref.abs().max().item()
             out_err = (out - want_out).abs()[valid.expand(b, h, t)].max().item()
-            log(f"K1-train/B5/B6 {name} [b={b},h={h},t={t},d={d}] p_drop "
+            log(f"{'/'.join(keys)} {name} [b={b},h={h},t={t},d={d},w={w}] p_drop "
                 f"{p_drop}: out max_abs_err {out_err:.3e} (bound {K1_BOUND:g}); "
                 "relative to the max: " + ", ".join(
                     f"{k_} {e:.2e}" for k_, e in errs.items())
                 + f" (bound {BWD_REL_BOUND:g})")
             if not (out_err <= K1_BOUND
                     and all(e <= BWD_REL_BOUND for e in errs.values())):
-                raise AssertionError(f"K1-train/B5/B6 {name} p_drop {p_drop} "
+                raise AssertionError(f"{'/'.join(keys)} {name} p_drop {p_drop} "
                                      f"disagree with the plain autograd")
             if p_drop == 0.0 or n_main == 0:
                 continue
@@ -265,23 +300,21 @@ def check_attention_bwd(dev):
                       io + 4 * (5 * b * h * t * d + 3 * b * h * t) + 8 * nb * d)
             k_work = (8 * b * h * t * t * d + 4 * b * h * (t + 2 * w) * nb * d,
                       io + 4 * (6 * b * h * t * d + 3 * b * h * t))
-            # all three run their products as 3xTF32 on the tensor cores
-            for key, ms, dms, plain, (bms, by), tc in (
-                    ("banded_attn_fwd_train", ms_f, dev_f, plain_f, fwd_b,
-                     bound_3xtf32(fwd_flops, fwd_bytes)),
-                    ("banded_attn_bwd_q", ms_q, dev_q, plain_b, bound(*q_work),
-                     bound_3xtf32(*q_work)),
-                    ("banded_attn_bwd_k", ms_k, dev_k, plain_b, bound(*k_work),
-                     bound_3xtf32(*k_work))):
-                log(f"{key} {name} [b={b},h={h},t={t},d={d}] p_drop {p_drop}: "
+            # the tensor-core kernels run their products as 3xTF32, the
+            # wide ones on the fp32 cores (design)
+            for key, ms, dms, plain, (bms, by), tc, outs in (
+                    (keys[0], ms_f, dev_f, plain_f, fwd_b,
+                     design(fwd_flops, fwd_bytes), ("m", "l")),
+                    (keys[1], ms_q, dev_q, plain_b, bound(*q_work),
+                     design(*q_work), ("dq", "dek", "dev")),
+                    (keys[2], ms_k, dev_k, plain_b, bound(*k_work),
+                     design(*k_work), ("dk", "dv"))):
+                log(f"{key} {name} [b={b},h={h},t={t},d={d},w={w}] p_drop {p_drop}: "
                     f"kernel {ms:.4f} ms (device {dms:.4f} ms), plain "
                     f"{plain:.4f} ms, bound {bms:.4f} ms ({by}), design bound "
                     f"{tc:.4f} ms")
-                outs = {"banded_attn_fwd_train": ("m", "l"),
-                        "banded_attn_bwd_q": ("dq", "dek", "dev"),
-                        "banded_attn_bwd_k": ("dk", "dv")}[key]
                 err = max(abs_errs[o] for o in outs)
-                if key == "banded_attn_fwd_train":
+                if key == keys[0]:
                     err = max(err, out_err)
                 rows[key].append(dict(
                     shape=[b, h, t, d], launches_per_call=n_main, err=err,
@@ -351,58 +384,155 @@ def ragged_lengths(rng, b, t_y, t_x):
     return t_ys, t_xs
 
 
-def check_mas(dev):
+LINKS = ("fmax+add", "shuffle+fmax+add", "shared load", "walk step", "barrier")
+
+
+def link_ns(dev) -> dict[str, float]:
+    """ns per link of each dependent chain `mas_link_probe` runs: kinds 0-3
+    in one warp, the barrier in a block of TRAIN_TX threads."""
     from bert_vits2_tpu_torch import _build
-    from bert_vits2_tpu_torch.ops.align import maximum_path, maximum_path_plain
+    out = torch.zeros(1024, device=dev)
+    steps, ns = 200_000, {}
+    for kind, name in enumerate(LINKS):
+        threads = TRAIN_TX if name == "barrier" else 32
+        probe = lambda: _build.check(_build.library("mas.cu").mas_link_probe(  # noqa: E731
+            out.data_ptr(), steps, kind, threads, 0,
+            torch.cuda.current_stream().cuda_stream), "mas_link_probe")
+        ns[name] = cuda_ms(probe, iters=3, warmup=1) * 1e6 / steps
+    return ns
+
+
+def check_mas(dev):
+    from bert_vits2_tpu_torch.ops.align import mas_plan, maximum_path, maximum_path_plain
     rng = np.random.default_rng(3)
-    row = None
-    # the training step's shape; t_x above one block of 1024 threads; b = 1;
-    # t_x == t_y (the path is the diagonal)
-    for b, t_y, t_x in ((TRAIN_BATCH, TRAIN_TY, TRAIN_TX), (2, 1500, 1100),
-                        (1, 300, 50), (3, 96, 96)):
+    links = link_ns(dev)
+    log("[kernels] K3 links, ns each: " + ", ".join(f"{k} {v:.2f}" for k, v in links.items()))
+    rows = []
+    # the training step's shape (timed, the main path's); the Trainer's
+    # longest text (2 * 384 + 1 tokens); a long text with the decisions in
+    # device memory; b = 1; t_x == t_y (the path is the diagonal)
+    for b, t_y, t_x, n_main in ((TRAIN_BATCH, TRAIN_TY, TRAIN_TX, 1), (8, 1500, 769, 0),
+                                (2, 1500, 1100, 0), (1, 300, 50, 0), (3, 96, 96, 0)):
         g = torch.Generator(device=dev).manual_seed(t_y)
         neg = torch.randn(b, t_y, t_x, device=dev, generator=g) * 30.0 - 300.0
         t_ys, t_xs = ragged_lengths(rng, b, t_y, t_x)
         lens = [torch.as_tensor(a, device=dev) for a in (t_ys, t_xs)]
+        before = maximum_path.launches
         got = maximum_path(neg, *lens)
         want = maximum_path_plain(neg, *lens)
         torch.cuda.synchronize()
         differ = int((got != want).sum().item())
-        log(f"K3 [b={b},t_y={t_y},t_x={t_x}] ragged: cells that differ from the "
-            f"plain version {differ} (must be 0); path cells {int(got.sum().item())} "
-            f"= frames {int(t_ys.sum())}")
-        if differ or int(got.sum().item()) != int(t_ys.sum()):
+        plan = mas_plan(t_y, t_x)
+        log(f"K3 [b={b},t_y={t_y},t_x={t_x}] ragged, plan k={plan.k} warps={plan.warps} "
+            f"decisions in {'shared' if plan.dec_in_smem else 'device'} memory: cells "
+            f"that differ from the plain version {differ} (must be 0); path cells "
+            f"{int(got.sum().item())} = frames {int(t_ys.sum())}; launches "
+            f"{maximum_path.launches - before}")
+        if (differ or int(got.sum().item()) != int(t_ys.sum())
+                or maximum_path.launches != before + 1):
             raise AssertionError(f"K3 [b={b},t_y={t_y},t_x={t_x}] is not exact")
-        if row is not None:
+        if t_y < 512:
             continue
         ms = cuda_ms(lambda: maximum_path(neg, *lens), iters=20)
         dms = device_ms(lambda: maximum_path(neg, *lens), iters=20)
         plain = cuda_ms(lambda: maximum_path_plain(neg, *lens), iters=2, warmup=1)
-        # bytes: the scores of the valid cells read once, the path and the
-        # packed decision bits written once
+        # bytes: the scores of the valid cells read once, the path written
+        # once (the move-left bits are scratch); operations: a max and an
+        # add per valid cell
         cells = int((t_ys * t_xs).sum())
-        words = int((t_ys * ((t_xs + 31) // 32)).sum())
-        nbytes = 4 * (cells + b * t_y * t_x + words)
+        nbytes = 4 * (cells + b * t_y * t_x)
         bms, by = bound(2 * cells, nbytes)
-        # one link of the dependent chain: a shared-memory step and a barrier
-        out = torch.empty(TRAIN_TX, device=dev)
-        steps = 200_000
-        probe = lambda: _build.check(_build.library("mas.cu").mas_sync_probe(  # noqa: E731
-            out.data_ptr(), steps, TRAIN_TX, 0,
-            torch.cuda.current_stream().cuda_stream), "mas_sync_probe")
-        link_us = cuda_ms(probe, iters=3, warmup=1) * 1e3 / steps
-        chain_ms = int(t_ys.max()) * link_us / 1e3
-        log(f"K3 [b={b},t_y={t_y},t_x={t_x}]: kernel {ms:.4f} ms, plain {plain:.2f} "
-            f"ms, bound {bms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB at 3.35 TB/s); "
-            f"what a kernel of this shape can approach is the chain of "
-            f"{int(t_ys.max())} dependent frames x {link_us * 1e3:.1f} ns per "
-            f"barrier step = {chain_ms:.4f} ms, then as many dependent steps "
-            f"of the walk")
-        row = dict(shape=[b, t_y, t_x], launches_per_call=1, err=0.0, ms=ms,
-                   device_ms=dms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                   bound_design_ms=bms, chain_ms=chain_ms,
-                   barrier_step_ns=link_us * 1e3)
-    return [row]
+        frames = int(t_ys.max())
+        # two dependent chains of `frames` links: the frames, then the walk
+        chain_reg = 2 * frames * links["fmax+add"] / 1e6
+        chain_design = frames * (links["shuffle+fmax+add"] + links["walk step"]) / 1e6
+        log(f"K3 [b={b},t_y={t_y},t_x={t_x}]: kernel {ms:.4f} ms (device {dms:.4f} ms), "
+            f"plain {plain:.2f} ms, bound {bms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB at "
+            f"3.35 TB/s); the chains of {frames} frames and {frames} walk steps: at "
+            f"the register link {chain_reg:.4f} ms, at the design's links (a shuffle "
+            f"link per frame, a walk-step link per row) {chain_design:.4f} ms; device "
+            f"time / register-link chain {dms / max(bms, chain_reg):.1f}x")
+        rows.append(dict(shape=[b, t_y, t_x], launches_per_call=n_main, err=0.0, ms=ms,
+                         device_ms=dms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                         bound_design_ms=max(bms, chain_reg),
+                         chain_design_ms=chain_design, plan=list(plan[:3])))
+    rows[0]["link_ns"] = links
+    return rows
+
+
+def check_attention_range(dev, counters):
+    """Attention outside the tensor-core kernels' range (a head of 160
+    channels; a window of 5), the path of csrc/banded_attn_wide.cu: each
+    wide kernel against its plain version and timed at the module's
+    shapes; then MultiHeadAttention on the card and on the CPU at
+    inference and in fused training (BV2_FUSED_ATTENTION_TRAIN=1, the hash
+    dropout from one seed), every launch count zeroed just before: outputs
+    within ATTN_RANGE_BOUND on valid positions, parameter gradients within
+    BWD_REL_BOUND of the largest gradient entry, each wide kernel launched and no
+    tensor-core one. Returns (rows by kernel, launches)."""
+    from bert_vits2_tpu_torch.nn.attention import MultiHeadAttention
+    rows = {"banded_attn_wide_fwd": check_attention(dev, range_cases(), "K1-wide",
+                                                    bound_fp32)}
+    rows.update(check_attention_bwd(dev, range_cases(), WIDE_KEYS, bound_fp32))
+    t, lens = RANGE_T, RANGE_LENS
+    modules = []
+    for channels, heads, window in RANGE_MODULES:
+        torch.manual_seed(channels)
+        cpu = MultiHeadAttention(channels, channels, heads, window_size=window,
+                                 p_dropout=0.1)
+        gpu = MultiHeadAttention(channels, channels, heads, window_size=window,
+                                 p_dropout=0.1).to(dev)
+        gpu.load_state_dict(cpu.state_dict())
+        modules.append((channels, heads, window, cpu, gpu, torch.randn(len(lens), channels, t),
+                        torch.randn(len(lens), channels, t)))
+    m = lens_mask(lens, t, "cpu")[:, None, :]
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    os.environ["BV2_FUSED_ATTENTION_TRAIN"] = "1"
+    errs = {}
+    try:
+        for channels, heads, window, cpu, gpu, x, r in modules:
+            for train in (False, True):
+                outs, grads = [], []
+                for mod, where in ((cpu, "cpu"), (gpu, dev)):
+                    mod.train(train)
+                    mod.zero_grad()
+                    torch.manual_seed(7)  # the hash dropout's seed
+                    with torch.set_grad_enabled(train):
+                        out = mod(x.to(where), m.to(where)) * m.to(where)
+                        if train:
+                            (out * r.to(where)).sum().backward()
+                    outs.append(out.detach().cpu())
+                    grads.append([p.grad.cpu() for p in mod.parameters()] if train
+                                 else [])
+                torch.cuda.synchronize()
+                key = (channels, heads, window, "training" if train else "inference")
+                # gradients against the largest entry of any: conv_k's bias
+                # has a zero gradient in exact arithmetic
+                scale = max((g.abs().max().item() for g in grads[0]), default=1.0)
+                errs[key] = ((outs[0] - outs[1]).abs().max().item(), max(
+                    (g1 - g0).abs().max().item() / scale
+                    for g0, g1 in zip(*grads)) if train else 0.0)
+    finally:
+        os.environ.pop("BV2_FUSED_ATTENTION_TRAIN", None)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for (channels, heads, window, mode), (e_out, e_grad) in errs.items():
+        log(f"[attention-range] channels {channels}, {heads} head(s) (d = "
+            f"{channels // heads}), window {window}, [b={len(lens)}, t={t}], {mode}: "
+            f"card vs CPU output max_abs_err {e_out:.2e} (bound {ATTN_RANGE_BOUND:g}), "
+            f"parameter gradients {e_grad:.2e} of the largest entry (bound "
+            f"{BWD_REL_BOUND:g})")
+    log(f"[attention-range] kernel launches {launches}")
+    n = len(RANGE_MODULES)
+    want = {k: 0 for k in counters}
+    want.update({k: n for k in ("banded_attn_wide_fwd", *WIDE_KEYS)})
+    if launches != want:
+        raise AssertionError(f"[attention-range] kernel launches {launches}, not {want}")
+    if not all(e_out <= ATTN_RANGE_BOUND and e_grad <= BWD_REL_BOUND
+               for e_out, e_grad in errs.values()):
+        raise AssertionError(f"attention outside the tensor-core range: {errs}")
+    return rows, {k: launches[k] for k in ("banded_attn_wide_fwd", *WIDE_KEYS)}
 
 
 def nonzero_init(model, seed=1):
@@ -854,16 +984,18 @@ def main(argv=None) -> int:
     from bert_vits2_tpu_torch import _build
     from bert_vits2_tpu_torch.infer import TTSEngine
     from bert_vits2_tpu_torch.ops.align import maximum_path
-    from bert_vits2_tpu_torch.ops.attention import (
-        banded_attention_bwd_k, banded_attention_bwd_q,
-        banded_attention_fwd_train, banded_rel_self_attention)
+    from bert_vits2_tpu_torch.ops import attention
     from bert_vits2_tpu_torch.ops.mrf import fused_mrf
 
-    counters = {"banded_attn_fwd": banded_rel_self_attention,
+    counters = {"banded_attn_fwd": attention.banded_rel_self_attention,
                 "mrf_fwd": fused_mrf, "mas_fwd": maximum_path,
-                "banded_attn_fwd_train": banded_attention_fwd_train,
-                "banded_attn_bwd_q": banded_attention_bwd_q,
-                "banded_attn_bwd_k": banded_attention_bwd_k}
+                "banded_attn_fwd_train": attention.banded_attention_fwd_train,
+                "banded_attn_bwd_q": attention.banded_attention_bwd_q,
+                "banded_attn_bwd_k": attention.banded_attention_bwd_k,
+                "banded_attn_wide_fwd": attention.wide_fwd,
+                "banded_attn_wide_fwd_train": attention.wide_fwd_train,
+                "banded_attn_wide_bwd_q": attention.wide_bwd_q,
+                "banded_attn_wide_bwd_k": attention.wide_bwd_k}
     dev = torch.device("cuda")
     smi = smi_line()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -890,6 +1022,9 @@ def main(argv=None) -> int:
     if args.kernels:
         print(json.dumps({"K1": k1, "K2": k2, "K3": k3, **kb}), flush=True)
         return 0
+
+    wide_rows, wide_launches = check_attention_range(dev, counters)
+    torch.cuda.empty_cache()
 
     model = make_model("cuda")
     cfg = model.cfg
@@ -965,6 +1100,8 @@ def main(argv=None) -> int:
     trained = run_trainer(dev, smi, counters)
     launches.update({k: v for k, v in trained.items() if k not in ("banded_attn_fwd",
                                                                     "mrf_fwd")})
+    # the wide kernels' path is the [attention-range] phase
+    launches.update(wide_launches)
     n_trainer = TRAINER_WARMUP + TRAINER_TIMED
 
     def entry(name, source, replaces, rows, basis, design):
@@ -999,7 +1136,11 @@ def main(argv=None) -> int:
               "bert_vits2_tpu/ops/mrf_pallas.py:128 and :434", k2, serving, tc3),
         entry("mas_fwd", "bert_vits2_tpu_torch/csrc/mas.cu",
               "bert_vits2_tpu/ops/align_pallas.py:39", k3, training,
-              "a chain of dependent frames: bound_design_ms is bound_ms"),
+              "two dependent chains of max(t_y) links (frames, walk): "
+              "bound_design_ms is the larger of the bytes bound and both "
+              "chains at the register link (fmax+add); chain_design_ms both "
+              "chains at the links the kernel takes (shuffle+fmax+add, walk "
+              "step)"),
         entry("banded_attn_fwd_train", "bert_vits2_tpu_torch/csrc/banded_attn.cu",
               "bert_vits2_tpu/ops/attention_pallas.py:88 (stats, dropout)",
               kb["banded_attn_fwd_train"], training, tc3),
@@ -1010,6 +1151,18 @@ def main(argv=None) -> int:
               "bert_vits2_tpu/ops/attention_pallas.py:228",
               kb["banded_attn_bwd_k"], training, tc3),
     ]}
+    wide_src = "bert_vits2_tpu_torch/csrc/banded_attn_wide.cu"
+    ranged = ("per MultiHeadAttention call of the [attention-range] phase (launches: "
+              "that phase's, counts zeroed before it)")
+    fp32 = "fp32 CUDA cores: bound_design_ms is the bound at 67 TFLOP/s or the bytes"
+    for name, replaces in (
+            ("banded_attn_wide_fwd", "bert_vits2_tpu/ops/attention_pallas.py:88"),
+            ("banded_attn_wide_fwd_train",
+             "bert_vits2_tpu/ops/attention_pallas.py:88 (stats, dropout)"),
+            ("banded_attn_wide_bwd_q", "bert_vits2_tpu/ops/attention_pallas.py:147"),
+            ("banded_attn_wide_bwd_k", "bert_vits2_tpu/ops/attention_pallas.py:228")):
+        record["kernels"].append(entry(name, wide_src, replaces, wide_rows[name],
+                                       ranged, fp32))
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -19,22 +19,42 @@ version's autograd, the row statistics and each gradient within 1e-4 of
 its max (fp32 sums of up to t terms, and of b*h*t terms for the tables,
 whose per-block partials add in block order); K2 2e-4 absolute (18 chained convs of up to
 11*C-term fp32 sums, in another order than cuDNN's), K3 exact (one fp32 add
-and one max per cell: the 0/1 path equals the plain version's bit for bit).
+and one max per cell: the 0/1 path equals the plain version's bit for bit,
+for the wrapper's plan and for every K template, warp count and place of
+the move-left bits the tests give it). The kernels of banded_attn_wide.cu
+(outside the tensor-core kernels' range: d > 128, w > 4, b*h > 65535) in
+fp32 on the CUDA cores, with K1's and B5/B6's bounds; the attention module
+through them within 1e-5 of the CPU module (one fp32 attention, TF32 off)
+and its parameter gradients within 1e-4 of the largest gradient entry.
 """
 
 import pytest
 import torch
 
 from bert_vits2_tpu_torch.models.generator import ResBlock1
-from bert_vits2_tpu_torch.ops.align import maximum_path, maximum_path_plain
+from bert_vits2_tpu_torch.nn.attention import MultiHeadAttention
+from bert_vits2_tpu_torch.ops import align
+from bert_vits2_tpu_torch.ops.align import (
+    K_CHOICES,
+    mas_plan,
+    maximum_path,
+    maximum_path_plain,
+    plan_for_k,
+)
 from bert_vits2_tpu_torch.ops.attention import (
+    WIDE_MAX_HEAD_DIM,
     banded_attention_bwd_k,
     banded_attention_bwd_plain,
     banded_attention_bwd_q,
     banded_attention_fwd_train,
     banded_attention_plain,
     banded_attention_stats_plain,
+    banded_kernels_support,
     banded_rel_self_attention,
+    wide_bwd_k,
+    wide_bwd_q,
+    wide_fwd,
+    wide_fwd_train,
 )
 from bert_vits2_tpu_torch.ops.mrf import (
     fused_mrf,
@@ -42,7 +62,16 @@ from bert_vits2_tpu_torch.ops.mrf import (
     prepare_mrf_weights,
 )
 
+TC_COUNTERS = (banded_rel_self_attention, banded_attention_fwd_train,
+               banded_attention_bwd_q, banded_attention_bwd_k)
+WIDE_COUNTERS = (wide_fwd, wide_fwd_train, wide_bwd_q, wide_bwd_k)
 KS = (3, 7, 11)
+
+
+def _launchers(b, h, t, d, w):
+    """The launchers (inference, train forward, B5, B6) whose counts the
+    wrappers move at this shape."""
+    return TC_COUNTERS if banded_kernels_support(b, h, t, d, w) else WIDE_COUNTERS
 DS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
 
 
@@ -75,6 +104,9 @@ def _lens_mask(lens, t, dev):
     (3, 2, 97, 96, [97, 64, 2]),   # a 64-row query block and 33 rows
     (8, 2, 129, 96, None),         # one row past two 64-row query blocks
     (2, 2, 40, 10, [40, 23]),      # d % 4 != 0: rows staged element-wise
+    (2, 1, 200, 160, [200, 131]),  # wide kernel: a head of 160 channels
+    (3, 1, 257, 300, [257, 256, 3]),  # wide: d > 2 * 128, one past two tiles
+    (1, 65536, 8, 2, None),        # wide: b * h above the grid's 65535
 ])
 def test_banded_attention_kernel(card, b, h, t, d, lens):
     g = torch.Generator(device=card).manual_seed(t)
@@ -85,12 +117,13 @@ def test_banded_attention_kernel(card, b, h, t, d, lens):
     ek, ev = (torch.randn(9, d, device=card, generator=g) / d ** 0.5
               for _ in range(2))
     m = _lens_mask(lens, t, card)
-    before = banded_rel_self_attention.launches
+    launcher = _launchers(b, h, t, d, 4)[0]
+    before = launcher.launches
     with torch.inference_mode():
         got = banded_rel_self_attention(q, k, v, m, ek, ev, 4)
         want = banded_attention_plain(q, k, v, m, ek, ev, 4)
     torch.cuda.synchronize()
-    assert banded_rel_self_attention.launches == before + 1
+    assert launcher.launches == before + 1
     valid = m.bool()[:, None, :, None].expand_as(got)
     err = (got - want).abs()[valid].max().item()
     assert err <= 1e-4, err
@@ -110,10 +143,17 @@ def test_banded_attention_kernel(card, b, h, t, d, lens):
     (2, 2, 130, 64, [130, 77], 4),      # d = 64
     (2, 2, 97, 96, [97, 50], 1),        # w = 1
     (2, 2, 70, 96, [70, 31], 0),        # w = 0: no band terms
+    (2, 1, 200, 160, [200, 131], 4),    # wide kernels: a head of 160 channels
+    (3, 1, 257, 300, [257, 256, 3], 4),  # wide: d > 2 * 128; one past two tiles
+    (2, 2, 150, 16, [150, 77], 5),      # wide: w = 5
+    (2, 2, 40, 8, [40, 21], 9),         # wide: w = 9, a band of 19
+    (2, 1, 8, 160, [8, 5], 4),          # wide: t == 2w
+    (1, 65536, 8, 2, None, 4),          # wide: b * h above the grid's 65535
 ])
 def test_banded_attention_backward_kernels(card, b, h, t, d, lens, w, p_drop):
-    """K1 in train mode (out, m, l), B5 (dq, dek, dev) and B6 (dk, dv)
-    against the plain version's autograd, valid rows, one dropout seed."""
+    """K1 in train mode (out, m, l), B5 (dq, dek, dev) and B6 (dk, dv), in
+    the variant the shape takes, against the plain version's autograd,
+    valid rows, one dropout seed."""
     g = torch.Generator(device=card).manual_seed(t + b)
     lens = lens or [t - (t // 16) * i for i in range(b)]
     q, k, v = (torch.randn(b, h, t, d, device=card, generator=g)
@@ -123,16 +163,15 @@ def test_banded_attention_backward_kernels(card, b, h, t, d, lens, w, p_drop):
               for _ in range(2))
     m = _lens_mask(lens, t, card)
     go = torch.randn(b, h, t, d, device=card, generator=g) * m[:, None, :, None]
-    counts = [fn.launches for fn in (banded_attention_fwd_train,
-                                     banded_attention_bwd_q, banded_attention_bwd_k)]
+    launchers = _launchers(b, h, t, d, w)[1:]
+    counts = [fn.launches for fn in launchers]
     seed = -987654321
     out, mr, lr = banded_attention_fwd_train(q, k, v, m, ek, ev, w, p_drop, seed)
     args = (q, k, v, m, ek, ev, go, mr, lr, (go * out).sum(-1), w, p_drop, seed)
     dq, dek, dev = banded_attention_bwd_q(*args)
     dk, dv = banded_attention_bwd_k(*args)
     torch.cuda.synchronize()
-    assert [fn.launches for fn in (banded_attention_fwd_train, banded_attention_bwd_q,
-                                   banded_attention_bwd_k)] == [c + 1 for c in counts]
+    assert [fn.launches for fn in launchers] == [c + 1 for c in counts]
     valid = m.bool()[:, None, :].expand(b, h, t)
     want_out = banded_attention_plain(q, k, v, m, ek, ev, w, p_drop, seed)
     assert (out - want_out)[valid].abs().max().item() <= 1e-4
@@ -147,11 +186,12 @@ def test_banded_attention_backward_kernels(card, b, h, t, d, lens, w, p_drop):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [96, 128])
+@pytest.mark.parametrize("d", [96, 128, 160])
 def test_banded_attention_backward_is_deterministic(card, d):
     """Two B5 launches on the same inputs give bit-equal dq, dek and dev
-    (dek, dev: per-block partials added in block order, no atomics), and
-    two B6 launches bit-equal dk and dv."""
+    (dek, dev: per-block partials added in block order, no atomics; at
+    d = 160 the wide kernels' per-row band entries summed in row order),
+    and two B6 launches bit-equal dk and dv."""
     b, h, t, w = 4, 2, 333, 4
     g = torch.Generator(device=card).manual_seed(d)
     q, k, v, go = (torch.randn(b, h, t, d, device=card, generator=g)
@@ -217,17 +257,8 @@ def test_mrf_kernel(card, c, t, lens, ks, ds):
     assert got[m[:, None, :].expand_as(got) == 0].abs().max().item() == 0.0
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,t_y,t_x,ties", [
-    (16, 512, 128, False),   # the training step's shape, ragged lengths
-    (2, 1500, 1100, False),  # t_x above one block of 1024 threads
-    (1, 40, 7, False),       # b = 1
-    (3, 33, 33, False),      # t_x == t_y: the path is the diagonal
-    (4, 64, 1, False),       # a single token
-    (5, 200, 70, True),      # scores on a coarse grid: many exact ties
-])
-def test_mas_kernel(card, b, t_y, t_x, ties):
-    g = torch.Generator(device=card).manual_seed(t_y)
+def _mas_inputs(card, b, t_y, t_x, ties, seed=None):
+    g = torch.Generator(device=card).manual_seed(t_y if seed is None else seed)
     neg = torch.randn(b, t_y, t_x, device=card, generator=g)
     if ties:
         neg = torch.round(neg * 2) / 2
@@ -235,24 +266,170 @@ def test_mas_kernel(card, b, t_y, t_x, ties):
     t_xs = torch.minimum(
         torch.randint(1, t_x + 1, (b,), device=card, generator=g), t_ys)
     t_ys[0], t_xs[0] = t_y, t_x  # one item at full length
-    before = maximum_path.launches
-    got = maximum_path(neg, t_ys, t_xs)
-    want = maximum_path_plain(neg, t_ys, t_xs)
-    torch.cuda.synchronize()
-    assert maximum_path.launches == before + 1
-    assert torch.equal(got, want)
-    assert torch.equal(got.sum(2), (torch.arange(t_y, device=card)[None, :]
+    return neg, t_ys, t_xs
+
+
+def _assert_exact_path(got, neg, t_ys, t_xs):
+    t_y = neg.shape[1]
+    assert torch.equal(got, maximum_path_plain(neg, t_ys, t_xs))
+    assert torch.equal(got.sum(2), (torch.arange(t_y, device=neg.device)[None, :]
                                     < t_ys[:, None]).float())
     assert torch.equal(got.sum((1, 2)), t_ys.float())
 
 
+def _smem_edge(t_x):
+    """The longest t_y whose plan keeps the move-left bits in shared memory."""
+    lo, hi = t_x, 1 << 20
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if mas_plan(mid, t_x).dec_in_smem else (lo, mid)
+    return lo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t_y,t_x,ties", [
+    (16, 512, 128, False),   # the training step's shape, ragged lengths
+    (2, 1500, 1100, False),  # a long text: decisions in device memory
+    (1, 40, 7, False),       # b = 1
+    (3, 33, 33, False),      # t_x == t_y: the path is the diagonal
+    (4, 64, 1, False),       # a single token
+    (5, 200, 70, True),      # scores on a coarse grid: many exact ties
+    (2, 1500, 769, False),   # the Trainer's longest text (2 * 384 + 1)
+    (1, 1500, 769, True),    # b = 1, ties, at that width
+    (3, 700, 640, True),     # ties across several warps
+])
+def test_mas_kernel(card, b, t_y, t_x, ties):
+    """The wrapper's launch (its plan) against the plain version, bit for
+    bit; one launch per call."""
+    neg, t_ys, t_xs = _mas_inputs(card, b, t_y, t_x, ties)
+    before = maximum_path.launches
+    got = maximum_path(neg, t_ys, t_xs)
+    torch.cuda.synchronize()
+    assert maximum_path.launches == before + 1
+    _assert_exact_path(got, neg, t_ys, t_xs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", K_CHOICES)
+@pytest.mark.parametrize("extra", [0, 1])
+def test_mas_kernel_template_edges(card, k, extra):
+    """Each K template at t_x = 32*K (one warp's columns, full) and 32*K + 1
+    (a second warp with one column), against the plain version, exactly."""
+    t_x = 32 * k + extra
+    t_y = t_x + 37
+    plan = plan_for_k(t_y, t_x, k)
+    neg, t_ys, t_xs = _mas_inputs(card, 3, t_y, t_x, ties=k % 2 == 0)
+    got = align._launch(neg, t_ys, t_xs, plan)
+    torch.cuda.synchronize()
+    _assert_exact_path(got, neg, t_ys, t_xs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_x", [128, 769])
+@pytest.mark.parametrize("side", [0, 1])
+def test_mas_kernel_decisions_shared_or_device(card, t_x, side):
+    """The longest t_y whose move-left bits fit in shared memory and one
+    frame more (a device scratch), exactly; b = 1 and 2."""
+    t_y = _smem_edge(t_x) + side
+    plan = mas_plan(t_y, t_x)
+    assert plan.dec_in_smem == (side == 0)
+    neg, t_ys, t_xs = _mas_inputs(card, 1 + side, t_y, t_x, ties=False)
+    got = maximum_path(neg, t_ys, t_xs)
+    torch.cuda.synchronize()
+    _assert_exact_path(got, neg, t_ys, t_xs)
+
+
+@pytest.mark.cuda
+def test_mas_kernel_plans_agree_and_repeat(card):
+    """Every feasible K at one shape gives the same path, the plan's twice
+    over bit for bit; the kernel takes each plan's shared-memory figure
+    (it refuses a launch whose figure is not its own)."""
+    neg, t_ys, t_xs = _mas_inputs(card, 4, 600, 300, ties=True)
+    first = maximum_path(neg, t_ys, t_xs)
+    assert torch.equal(maximum_path(neg, t_ys, t_xs), first)
+    for k in K_CHOICES:
+        for in_smem in (True, False):
+            plan = plan_for_k(600, 300, k, in_smem)
+            got = align._launch(neg, t_ys, t_xs, plan)
+            assert torch.equal(got, first), plan
+    bad = plan._replace(smem_bytes=plan.smem_bytes + 4)
+    with pytest.raises(RuntimeError, match="mas_fwd"):
+        align._launch(neg, t_ys, t_xs, bad)
+    torch.cuda.synchronize()
+    _assert_exact_path(first, neg, t_ys, t_xs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_y,t_x", [(1500, 1100), (512, 128)])
+def test_mas_kernel_empty_and_short_items(card, t_y, t_x):
+    """An item with t_x = 0 (no path) first and one of three frames beside
+    a full one, with the move-left bits in device memory (1500 x 1100) and
+    in shared memory (512 x 128), exactly."""
+    assert mas_plan(t_y, t_x).dec_in_smem == (t_x == 128)
+    neg, _, _ = _mas_inputs(card, 3, t_y, t_x, ties=False)
+    t_ys = torch.tensor([5, 3, t_y], device=card)
+    t_xs = torch.tensor([0, 2, t_x], device=card)
+    got = maximum_path(neg, t_ys, t_xs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, maximum_path_plain(neg, t_ys, t_xs))
+    assert got[0].sum().item() == 0 and got[1].sum().item() == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels,heads,window", [(160, 1, 4), (16, 2, 5)])
+def test_attention_outside_the_kernels_range(card, channels, heads, window,
+                                             monkeypatch):
+    """A head of 160 channels or a window of 5 runs on the card through the
+    kernels of csrc/banded_attn_wide.cu (the tensor-core ones launch no
+    time) and gives the CPU module's output within 1e-5, at inference and
+    in fused training (BV2_FUSED_ATTENTION_TRAIN=1, the hash dropout from
+    one seed), and its parameter gradients within 1e-4 of the largest
+    gradient entry."""
+    monkeypatch.setenv("BV2_FUSED_ATTENTION_TRAIN", "1")
+    torch.manual_seed(channels)
+    cpu = MultiHeadAttention(channels, channels, heads, window_size=window,
+                             p_dropout=0.1)
+    gpu = MultiHeadAttention(channels, channels, heads, window_size=window,
+                             p_dropout=0.1).to(card)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, channels, 40)
+    m = _lens_mask([40, 27], 40, "cpu")[:, None, :]
+    r = torch.randn(2, channels, 40)
+    before = [fn.launches for fn in TC_COUNTERS + WIDE_COUNTERS]
+    for train in (False, True):
+        outs, grads = [], []
+        for mod, dev in ((cpu, "cpu"), (gpu, card)):
+            mod.train(train)
+            mod.zero_grad()
+            torch.manual_seed(7)  # the hash dropout's seed
+            with torch.set_grad_enabled(train):
+                out = mod(x.to(dev), m.to(dev)) * m.to(dev)
+                if train:
+                    (out * r.to(dev)).sum().backward()
+            outs.append(out.detach().cpu())
+            grads.append([p.grad.cpu() for p in mod.parameters()] if train else [])
+        assert (outs[0] - outs[1]).abs().max().item() <= 1e-5, train
+        # against the largest gradient entry: conv_k's bias has a zero
+        # gradient in exact arithmetic (a shift of every key's logit)
+        scale = max((g.abs().max() for g in grads[0]), default=1.0)
+        for want, got in zip(*grads):
+            assert ((got - want).abs().max() / scale).item() <= 1e-4
+    torch.cuda.synchronize()
+    after = [fn.launches for fn in TC_COUNTERS + WIDE_COUNTERS]
+    # inference: one wide_fwd; training: wide_fwd_train, wide_bwd_q, wide_bwd_k
+    assert [a - b for a, b in zip(after, before)] == [0, 0, 0, 0, 1, 1, 1, 1]
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
-    q = torch.randn(1, 1, 16, 160, device=card)  # d > 128
-    e = torch.randn(9, 160, device=card)
+    q = torch.randn(1, 1, 16, WIDE_MAX_HEAD_DIM + 1, device=card)  # too wide
+    e = torch.randn(9, WIDE_MAX_HEAD_DIM + 1, device=card)
     m = torch.ones(1, 16, device=card)
     with pytest.raises(ValueError):
         banded_rel_self_attention(q, q, q, m, e, e, 4)
+    q, e = torch.randn(1, 1, 7, 8, device=card), torch.randn(9, 8, device=card)
+    with pytest.raises(ValueError):  # t = 2w - 1: the window path's, not a kernel's
+        banded_rel_self_attention(q, q, q, m[:, :7], e, e, 4)
     q = torch.randn(1, 1, 16, 8, device=card, dtype=torch.float64)
     e = torch.randn(9, 8, device=card, dtype=torch.float64)
     with pytest.raises(ValueError):

@@ -33,6 +33,7 @@ from bert_vits2_tpu_torch.nn.attention import MultiHeadAttention
 from bert_vits2_tpu_torch.ops import masking, spline
 from bert_vits2_tpu_torch.ops.attention import (
     banded_attention_plain,
+    banded_kernels_support,
     banded_rel_self_attention,
 )
 from bert_vits2_tpu_torch.ops.mrf import (
@@ -79,20 +80,20 @@ def test_banded_plain_matches_pallas_kernel(t, lens):
     assert err <= ATOL, err
 
 
-def _jax_mha(t, lens, seed):
+def _jax_mha(t, lens, seed, c=8, h=2, w=4):
     """JAX MultiHeadAttention on random input and weights -> (out, port out)."""
-    c, h = 8, 2
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(2, t, c)).astype(np.float32)
     m = _mask(lens, t)
-    mod = JMHA(c, c, h, window_size=4)
+    mod = JMHA(c, c, h, window_size=w)
     attn_mask = m[:, None, :, None] * m[:, None, None, :]
+    scale = 0.5 * (8 / c) ** 0.5  # activations of O(1) at any width
     params = jax.tree_util.tree_map(
-        lambda a: rng.normal(size=a.shape).astype(np.float32) * 0.5,
+        lambda a: rng.normal(size=a.shape).astype(np.float32) * scale,
         mod.init(jax.random.key(0), x, x, attn_mask)["params"])
     want = np.asarray(mod.apply({"params": params}, x, x, attn_mask,
                                 x_mask_vec=m))
-    port = MultiHeadAttention(c, c, h, window_size=4)
+    port = MultiHeadAttention(c, c, h, window_size=w)
     port.load_state_dict(from_jax_params(params), strict=True)
     with torch.inference_mode():
         got = port(_t(x.transpose(0, 2, 1)), _t(m[:, None, :])).numpy()
@@ -112,6 +113,15 @@ def test_attention_short_t_window_path():
     assert np.abs(got - want).max() <= ATOL
 
 
+@pytest.mark.parametrize("c,h,w", [(160, 1, 4), (8, 2, 5)])
+def test_attention_outside_the_tensor_core_range_matches_jax(c, h, w):
+    """A head of 160 channels and a window of 5 (the shapes the port sends
+    to csrc/banded_attn_wide.cu on the card): the port's formula against
+    the JAX module's dense path."""
+    got, want = _jax_mha(16, [16, 11], seed=5, c=c, h=h, w=w)
+    assert np.abs(got - want).max() <= ATOL
+
+
 def test_banded_plain_is_the_dense_formula():
     """The CPU wrapper returns the plain version exactly and counts no
     launch."""
@@ -122,6 +132,20 @@ def test_banded_plain_is_the_dense_formula():
         b = banded_attention_plain(*map(_t, (q, k, v, m, ek, ev)), 4)
     assert torch.equal(a, b)
     assert banded_rel_self_attention.launches == before
+
+
+@pytest.mark.parametrize("b,h,t,d,w,ok", [
+    (2, 2, 64, 128, 4, True), (2, 2, 64, 129, 4, False),  # head width
+    (1, 1, 64, 96, 4, True), (1, 1, 64, 96, 5, False),    # window
+    (65535, 1, 8, 8, 4, True), (65536, 1, 8, 8, 4, False),  # b * h
+    (1, 1, 7, 8, 4, False), (1, 1, 8, 8, 4, True),        # t = 2w - 1, 2w
+    (1, 1, 1, 8, 0, True), (1, 1, 8, 0, 4, False),        # w = 0; d = 0
+])
+def test_banded_kernels_support_edges(b, h, t, d, w, ok):
+    """The tensor-core kernels' range, which the wrappers read to choose
+    between them and csrc/banded_attn_wide.cu: d <= 128, w <= 4, t >= 2w,
+    b*h <= 65535."""
+    assert banded_kernels_support(b, h, t, d, w) is ok
 
 
 def test_wrappers_refuse_grad_and_dropout():

@@ -25,7 +25,15 @@ from bert_vits2_tpu.ops.align_pallas import maximum_path_pallas
 from bert_vits2_tpu.train import losses as jax_losses
 from bert_vits2_tpu.train import step as jax_step
 from bert_vits2_tpu_torch.ops import masking, noise, stft
-from bert_vits2_tpu_torch.ops.align import maximum_path, maximum_path_plain
+from bert_vits2_tpu_torch.ops.align import (
+    K_CHOICES,
+    MAX_WARPS,
+    SMEM_BYTES,
+    mas_plan,
+    mas_smem_bytes,
+    maximum_path,
+    maximum_path_plain,
+)
 from bert_vits2_tpu_torch.train import losses, step
 
 
@@ -77,6 +85,30 @@ def test_mas_wrapper_refuses_bad_shapes():
     with pytest.raises(ValueError):
         maximum_path(torch.zeros(1, 4, 3, device="meta"), torch.tensor([4]),
                      torch.tensor([3]))
+
+
+@pytest.mark.parametrize("t_y,t_x", [
+    (512, 128), (512, 64), (1500, 512), (1500, 769), (3000, 769), (1500, 1100), (40, 7),
+    (64, 1), (100000, 9685), (10, 12000),
+])
+def test_mas_plan(t_y, t_x):
+    """The kernel's launch by shape: its warps cover t_x, the block fits one
+    SM's shared memory, the move-left bits sit in shared memory exactly
+    where they fit (at the training shape and at [1500, 512] among them);
+    every t_x up to 9,685 (the earlier kernel's range) is taken at any
+    t_y."""
+    plan = mas_plan(t_y, t_x)
+    assert plan.k in K_CHOICES and 32 * plan.k * plan.warps >= t_x
+    assert 32 * plan.k * (plan.warps - 1) < t_x  # no warp without columns
+    assert plan.warps + 1 <= MAX_WARPS
+    assert plan.smem_bytes == mas_smem_bytes(t_y, plan.k, plan.warps, plan.dec_in_smem)
+    assert plan.smem_bytes <= SMEM_BYTES
+    fits = mas_smem_bytes(t_y, plan.k, plan.warps, True) <= SMEM_BYTES
+    assert plan.dec_in_smem == fits
+    if (t_y, t_x) in ((512, 128), (1500, 512)):
+        assert plan.dec_in_smem
+    with pytest.raises(ValueError):
+        mas_plan(t_y, 40000)
 
 
 # ---- slicing and KL primitives ----
