@@ -1,20 +1,29 @@
-"""Batched, statically shaped synthesis engine (reference: infer.py:107-437).
+"""Batched, statically shaped TTS engine (reference: infer.py:107-437).
 
-Counterpart of the device half of `bert_vits2_tpu/infer/api.py`: requests
-prepared on the host (`PreparedRequest`) are padded to a shared text bucket
-and frame cap and synthesized in one batched call. The rules that fix the
-shapes are the JAX engine's, so `y_len` and the caps match it: text buckets
-(`_bucket`), the worst-case frame cap (`_frame_cap`), power-of-two batch
-padding (`_pad_idx`) and a cap taken from the predicted durations
-(`run_prepared`). The JAX engine's two-buffer transport served its device
-relay; here the request tensors are handed to the device directly.
+Counterpart of `bert_vits2_tpu/infer/api.py`:
 
-`prepare` (g2p + BERT) waits for the text-frontend slice: callers build
-`PreparedRequest`s themselves.
+- the host half: `get_text` (g2p, blank intersperse, BERT at phone level,
+  N(0,1) features for the two inactive languages, drawn exactly as the JAX
+  engine draws them) and `TTSEngine.prepare`, with the reference's 3/2-token
+  boundary trims (`skip_start` / `skip_end`) and mixed-language segments;
+- the device half: requests prepared on the host (`PreparedRequest`) are
+  padded to a shared text bucket and frame cap and synthesized in one
+  batched call. The rules that fix the shapes are the JAX engine's, so
+  `y_len` and the caps match it: text buckets (`_bucket`), the worst-case
+  frame cap (`_frame_cap`), power-of-two batch padding (`_pad_idx`) and a
+  cap taken from the predicted durations (`run_prepared`);
+- the entry points `infer`, `infer_multilang`, `infer_batch` (piles above
+  `max_batch` go to the length-sorted `run_packed`) and `warmup`.
+
+Only the V2.3 family: emotion inputs (V2.1/V2.2) and other version specs
+raise. The JAX engine's `pack_requests` (its two-buffer device pool, which
+its `predict_frames` and `run_packed` address by row) is not ported: here
+the request tensors are handed to the device directly for each call.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -22,6 +31,74 @@ import torch
 
 from bert_vits2_tpu_torch.device import resolve_device
 from bert_vits2_tpu_torch.models.synthesizer import Synthesizer
+from bert_vits2_tpu_torch.text import clean_text, cleaned_text_to_sequence
+from bert_vits2_tpu_torch.text.bert import BERT_DIM, AutoBertExtractor
+
+_LANGS = ("ZH", "JP", "EN")
+
+
+@functools.lru_cache(maxsize=1)
+def default_bert_extractor() -> AutoBertExtractor:
+    """Shared default extractor for direct get_text callers: the encoder
+    caches loaded weights per instance, so callers must share one instance
+    or reload the checkpoint every call (TTSEngine holds its own)."""
+    return AutoBertExtractor()
+
+
+def _intersperse(lst, item=0):
+    out = [item] * (len(lst) * 2 + 1)
+    out[1::2] = lst
+    return out
+
+
+def get_text(
+    text: str,
+    language: str,
+    bert_extractor=None,
+    add_blank: bool = True,
+    style_text: str | None = None,
+    style_weight: float = 0.7,
+    noise_seed: int = 0,
+    spec=None,
+):
+    """text -> (phones, tones, lang_ids [t] int32, bert/ja_bert/en_bert
+    [t, 1024] float32).
+
+    Ref: infer.py:107-149 (g2p, intersperse, BERT at phone level, randn
+    placeholders for the two inactive languages, here from
+    `np.random.default_rng((noise_seed, t))`). `spec` must be None or a
+    V2.3-family `compat.versions.VersionSpec`.
+    """
+    if spec is not None and spec.family != "2.3":
+        raise NotImplementedError(
+            f"version family {spec.family}: the port synthesizes the 2.3 family "
+            "only (old-version families: ROADMAP §A.6)")
+    bert_extractor = bert_extractor or default_bert_extractor()
+    norm_text, phones_s, tones, word2ph = clean_text(text, language)
+    phones, tones, lang_ids = cleaned_text_to_sequence(phones_s, tones, language)
+    if add_blank:
+        phones = _intersperse(phones)
+        tones = _intersperse(tones)
+        lang_ids = _intersperse(lang_ids)
+        word2ph = [w * 2 for w in word2ph]
+        word2ph[0] += 1
+
+    t = len(phones)
+    bert = bert_extractor(norm_text, word2ph, language,
+                          style_text=style_text, style_weight=style_weight)
+    assert bert.shape == (t, BERT_DIM), (bert.shape, t)
+    rng = np.random.default_rng((noise_seed, t))
+    feats = {lang: rng.normal(size=(t, BERT_DIM)).astype(np.float32)
+             for lang in _LANGS if lang != language}
+    feats[language] = bert.astype(np.float32)
+    return (
+        np.asarray(phones, np.int32),
+        np.asarray(tones, np.int32),
+        np.asarray(lang_ids, np.int32),
+        feats["ZH"],
+        feats["JP"],
+        feats["EN"],
+    )
 
 
 class PreparedRequest(NamedTuple):
@@ -42,17 +119,26 @@ class PreparedRequest(NamedTuple):
 class TTSEngine:
     """Holds a Synthesizer on one device and runs batched synthesis.
 
+    spk2id: speaker name -> id (config.json data.spk2id), for string
+    speakers; integer speakers pass through.
+
     `stats` counts, across run_prepared calls: frames_capacity (padded batch
     x frame cap), frames_delivered (frames inside real requests' y_len) and
     bytes_h2d (request tensors shipped to the device)."""
 
-    def __init__(self, model: Synthesizer, sampling_rate: int = 44100,
+    def __init__(self, model: Synthesizer, spk2id: dict | None = None,
+                 sampling_rate: int = 44100, bert_extractor=None,
                  text_buckets: Sequence[int] = (32, 64, 128, 256, 384),
                  frames_per_token: int = 6, frame_multiple: int = 64,
-                 device: str | torch.device = "cuda"):
+                 version_spec=None, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.spk2id = spk2id or {}
         self.sampling_rate = sampling_rate
+        # real per-language BERT on the engine's device when local weights
+        # exist; loud-warned noise otherwise
+        self.bert_extractor = bert_extractor or AutoBertExtractor(device=self.device)
+        self.version_spec = version_spec
         self.hop_length = model.cfg.hop_length
         self.text_buckets = tuple(sorted(text_buckets))
         self.frames_per_token = frames_per_token
@@ -200,3 +286,197 @@ class TTSEngine:
                                     return_waves=return_waves)
             waves.update(zip(rows, out))
         return [waves[i] for i in range(len(reqs))]
+
+    # ---- text entry points ----
+
+    @torch.inference_mode()
+    def warmup(self, batch_sizes: Sequence[int] = (1, 4, 16),
+               buckets: Sequence[int] | None = None,
+               length_scale: float = 1.0) -> int:
+        """Run the (batch, bucket, worst-case frame cap) grid once, with the
+        duration pass, so that cuDNN's algorithm choice and the caching
+        allocator settle before serving. Returns the number of grid points.
+        run_prepared picks tighter caps from the predicted durations, so a
+        cap below the worst case still meets cuDNN afresh the first time."""
+        cfg = self.model.cfg
+        n = 0
+        for t_x in list(buckets or self.text_buckets):
+            max_frames = self._frame_cap(t_x, length_scale)
+            for b in batch_sizes:
+                ints = torch.zeros((b, t_x), dtype=torch.long, device=self.device)
+                bert = torch.zeros((b, t_x, cfg.bert_dim), device=self.device)
+                ja_bert = torch.zeros((b, t_x, cfg.ja_bert_dim), device=self.device)
+                knob = torch.full((b,), 0.5, device=self.device)
+                batch = dict(x=ints, tone=ints, language=ints,
+                             x_lengths=torch.full((b,), t_x, dtype=torch.long,
+                                                  device=self.device),
+                             sid=torch.zeros((b,), dtype=torch.long, device=self.device),
+                             bert=bert, ja_bert=ja_bert, en_bert=bert,
+                             noise_scale=knob, length_scale=knob,
+                             noise_scale_w=knob, sdp_ratio=knob)
+                self._predict(batch, 0)
+                self.model.infer(max_frames=max_frames, generator=self._generator(0),
+                                 mrf_packed=self.mrf_packed, **batch)
+                n += 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return n
+
+    def resolve_speaker(self, speaker) -> int:
+        if isinstance(speaker, str):
+            return int(self.spk2id[speaker])
+        return int(speaker)
+
+    def infer(
+        self,
+        text: str,
+        speaker,
+        language: str = "ZH",
+        sdp_ratio: float = 0.2,
+        noise_scale: float = 0.667,
+        noise_scale_w: float = 0.8,
+        length_scale: float = 1.0,
+        style_text: str | None = None,
+        style_weight: float = 0.7,
+        skip_start: bool = False,
+        skip_end: bool = False,
+        emotion=None,
+        reference_audio=None,
+        seed: int = 0,
+    ) -> np.ndarray:
+        """Synthesize one utterance -> float32 waveform [n_samples].
+
+        Ref: infer.py:151-332 (incl. the 3/2-token boundary trims).
+        emotion/reference_audio condition V2.1/V2.2 checkpoints, which the
+        port does not load: passing either raises."""
+        req = self.prepare(
+            text, speaker, language=language, sdp_ratio=sdp_ratio,
+            noise_scale=noise_scale, noise_scale_w=noise_scale_w,
+            length_scale=length_scale, style_text=style_text,
+            style_weight=style_weight, skip_start=skip_start,
+            skip_end=skip_end, emotion=emotion,
+            reference_audio=reference_audio, seed=seed,
+        )
+        return self.run_prepared([req])[0]
+
+    def prepare(
+        self,
+        text: str | None,
+        speaker,
+        language: str = "ZH",
+        segments: Sequence[tuple[str, str]] | None = None,
+        sdp_ratio: float = 0.2,
+        noise_scale: float = 0.667,
+        noise_scale_w: float = 0.8,
+        length_scale: float = 1.0,
+        style_text: str | None = None,
+        style_weight: float = 0.7,
+        skip_start: bool = False,
+        skip_end: bool = False,
+        emotion=None,
+        reference_audio=None,
+        seed: int = 0,
+    ) -> PreparedRequest:
+        """Host-side half of a synthesis call (g2p + BERT + trims).
+
+        Pass `segments=[(text, lang), ...]` instead of `text` for a
+        mixed-language utterance: its per-segment features are concatenated
+        into one request, every inner boundary trimmed (ref
+        infer.py:335-437). The result runs alone or batched with other
+        requests through `run_prepared`."""
+        if emotion is not None or reference_audio is not None:
+            raise NotImplementedError(
+                "emotion inputs condition the V2.1/V2.2 families, which the port "
+                "does not load (ROADMAP §A.6)")
+        if segments is None:
+            inputs = get_text(text, language, self.bert_extractor,
+                              style_text=style_text, style_weight=style_weight,
+                              spec=self.version_spec)
+            if skip_start:
+                inputs = tuple(a[3:] for a in inputs)
+            if skip_end:
+                inputs = tuple(a[:-2] for a in inputs)
+        else:
+            parts = []
+            n = len(segments)
+            for i, (seg_text, lang) in enumerate(segments):
+                seg_inputs = get_text(seg_text, lang, self.bert_extractor,
+                                      style_text=style_text,
+                                      style_weight=style_weight,
+                                      spec=self.version_spec)
+                if i > 0 or skip_start:  # trim all but the first boundary
+                    seg_inputs = tuple(a[3:] for a in seg_inputs)
+                if i < n - 1 or skip_end:
+                    seg_inputs = tuple(a[:-2] for a in seg_inputs)
+                parts.append(seg_inputs)
+            inputs = tuple(np.concatenate([p[j] for p in parts], axis=0)
+                           for j in range(6))
+        return PreparedRequest(
+            inputs=inputs, sid=self.resolve_speaker(speaker),
+            sdp_ratio=float(sdp_ratio), noise_scale=float(noise_scale),
+            noise_scale_w=float(noise_scale_w),
+            length_scale=float(length_scale), seed=int(seed),
+        )
+
+    def infer_multilang(
+        self,
+        segments: Sequence[tuple[str, str]],
+        speaker,
+        sdp_ratio: float = 0.2,
+        noise_scale: float = 0.667,
+        noise_scale_w: float = 0.8,
+        length_scale: float = 1.0,
+        seed: int = 0,
+    ) -> np.ndarray:
+        """Mixed-language synthesis: per-segment features (with boundary
+        trims) concatenated into one model call. Ref: infer.py:335-437."""
+        req = self.prepare(
+            None, speaker, segments=segments, sdp_ratio=sdp_ratio,
+            noise_scale=noise_scale, noise_scale_w=noise_scale_w,
+            length_scale=length_scale, seed=seed,
+        )
+        return self.run_prepared([req])[0]
+
+    def infer_batch(
+        self,
+        texts: Sequence[str],
+        speakers: Sequence,
+        language="ZH",
+        sdp_ratio: float = 0.2,
+        noise_scale: float = 0.667,
+        noise_scale_w: float = 0.8,
+        length_scale: float = 1.0,
+        seed: int = 0,
+        max_batch: int = 16,
+    ) -> list:
+        """Batched synthesis -> trimmed float32 waveforms in text order. Up to
+        `max_batch` texts share one call (run_prepared); a larger pile is
+        length-sorted and cut into chunks (run_packed), so short texts never
+        pad to the longest one's frames.
+
+        `language` and the four knobs take one value for the whole batch or
+        a per-item sequence."""
+        n = len(texts)
+
+        def per_item(v, cast):
+            if isinstance(v, (str, int, float)):
+                return [cast(v)] * n
+            return [cast(x) for x in v]
+
+        langs = per_item(language, str)
+        knobs = {
+            "sdp_ratio": per_item(sdp_ratio, float),
+            "noise_scale": per_item(noise_scale, float),
+            "noise_scale_w": per_item(noise_scale_w, float),
+            "length_scale": per_item(length_scale, float),
+        }
+        reqs = [
+            self.prepare(
+                texts[i], speakers[i], language=langs[i], seed=seed,
+                **{k: v[i] for k, v in knobs.items()},
+            )
+            for i in range(n)
+        ]
+        if len(reqs) <= max_batch:
+            return self.run_prepared(reqs)
+        return self.run_packed(reqs, max_batch=max_batch)

@@ -1,8 +1,13 @@
-"""The part of the text frontend the training data needs: the symbol
-inventory and `cleaned_text_to_sequence` (reference: text/__init__.py:6-18).
+"""The host-side text frontend: the symbol inventory, the cleaners and
+per-language g2p, `cleaned_text_to_sequence` and `clean_text` (reference:
+text/__init__.py:6-18, text/cleaner.py), and BERT features (`text/bert.py`,
+`text/bert_encoder.py`).
 
-A copy of `bert_vits2_tpu/text`'s symbols and sequence mapping; a test pins
-the two together. g2p, cleaners and BERT features come with later slices.
+A copy of `bert_vits2_tpu/text`: the g2p modules and their `assets/` are the
+JAX package's files with only the imports changed (english.py also drops a
+home-directory dictionary path); tests pin each copy, and each asset by
+sha256, to its original. Importing the package has no side effects:
+lexicons and optional backends load on first use.
 """
 
 from __future__ import annotations
@@ -24,4 +29,11 @@ def cleaned_text_to_sequence(cleaned_text, tones, language):
     return phones, tones, lang_ids
 
 
-__all__ = ["cleaned_text_to_sequence"]
+def clean_text(text: str, language: str):
+    """text -> (norm_text, phones, tones, word2ph)."""
+    from bert_vits2_tpu_torch.text.cleaner import clean_text as _clean
+
+    return _clean(text, language)
+
+
+__all__ = ["cleaned_text_to_sequence", "clean_text"]

@@ -37,6 +37,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
    versions): equal frame counts and waves within a stated bound.
 6. serving timing: audio seconds per second and per-call latency of
    run_prepared at batch 8, peak device memory, a profiler breakdown.
+6b. text in, wave out: a config.json with the V2.3 model section and a
+   G_0.pth of the random model, loaded by load_tts_engine; warmup over
+   batches 1 and 8 and buckets 64 and 128; infer on a JP
+   and an EN sentence (ZH too when jieba imports: its g2p segments with
+   jieba), infer_multilang (JP + EN) and infer_batch of 8 sentences across
+   the languages. No BERT weights are in the checkout, so the extractor
+   gives seeded noise with its warning. Each call must launch K1 28 times
+   and K2 3 times (counts zeroed just before it); one JP sentence at zero
+   noise, card against CPU; infer_batch timed over 5 calls, host time
+   (prepare) split from synthesis time.
+6c. the BERT encoder (text/bert_encoder.py) at the published widths of
+   chinese-roberta-wwm-ext-large and deberta-v3-large, random weights:
+   ms per forward at 64 ids, peak memory, hidden_states[-3] card against
+   CPU.
 7. training step: build_models / init_params / init_train_state /
    make_train_step at the default V2.3 ModelConfig, fp32, batch 16 of 128
    tokens and 512 frames with ragged lengths; two warm-up and five timed
@@ -59,6 +73,7 @@ The last three lines are the kernels' JSON record, the nvidia-smi line and
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -811,6 +826,244 @@ def write_corpus(root, n_utts, seed=0):
     return cfg_path
 
 
+TEXT_SENTENCES = {  # three per language; [text] runs ZH only when jieba imports
+    "JP": ["こんにちは、今日はいい天気ですね。", "私は日本語を勉強しています。",
+           "飛行機が空港に到着した。"],
+    "EN": ["The quick brown fox jumps over the lazy dog.",
+           "Speech synthesis turns written text into natural sounding audio.",
+           "Hello world, this is a test of the engine."],
+    "ZH": ["今天天气很好，我们去公园散步吧。", "基于神经网络的语音合成系统能够生成自然流畅的声音。",
+           "你好，世界。"],
+}
+TEXT_BATCH = 8
+
+
+def write_engine_config(root):
+    """config.json (version 2.3, the V2.3 model section, 256 speaker slots of
+    which spk2id names 4)
+    and G_0.pth from the random model of `make_model`. -> (config, weights)."""
+    config = dict(
+        version="2.3",
+        train=dict(segment_size=16384),
+        data=dict(sampling_rate=44100, filter_length=2048, hop_length=512,
+                  win_length=2048, n_mel_channels=128, n_speakers=256,
+                  spk2id={f"spk{i}": i for i in range(4)}),
+        model=V23_MODEL_JSON,
+    )
+    cfg_path = os.path.join(root, "config.json")
+    with open(cfg_path, "w", encoding="utf-8") as f:
+        json.dump(config, f)
+    sd = make_model("cpu").state_dict()
+    weights = os.path.join(root, "G_0.pth")
+    torch.save({"model": sd, "iteration": 0}, weights)
+    return cfg_path, weights
+
+
+def run_text(dev, smi, counters):
+    """Text in, wave out through the user's entry points: `load_tts_engine`
+    from a config.json and a G_0.pth, `warmup`, then `infer` (one JP and one EN
+    sentence, ZH too when jieba imports), `infer_multilang` (JP + EN) and
+    `infer_batch` of TEXT_BATCH sentences across the languages. Each call is
+    one synthesis call: K1 and K2 launch 28 and 3 times in it, counts zeroed
+    just before it and read just after. One sentence at zero noise, card
+    against CPU (the same file loaded on the CPU). infer_batch timed: host
+    time (prepare: g2p + BERT + features) and synthesis time. Returns the
+    launches of K1 and K2 summed over the phase's calls."""
+    from bert_vits2_tpu_torch.config import ModelConfig
+    from bert_vits2_tpu_torch.infer import load_tts_engine
+
+    try:
+        import jieba  # noqa: F401
+        langs = ["JP", "EN", "ZH"]
+    except ImportError:
+        langs = ["JP", "EN"]
+        log("[text] jieba does not import on this machine: ZH (g2p through "
+            "jieba's segmenter) does not run")
+    with tempfile.TemporaryDirectory() as root:
+        config, weights = write_engine_config(root)
+        t0 = time.perf_counter()
+        engine = load_tts_engine(config, weights, device="cuda")
+        load_s = time.perf_counter() - t0
+        # the CPU side of the card-vs-CPU check: the same files on the CPU
+        cpu_engine = load_tts_engine(config, weights, device="cpu",
+                                     bert_extractor=engine.bert_extractor)
+    cfg = engine.model.cfg
+    if cfg != ModelConfig():
+        raise AssertionError(f"the loaded config is not the default V2.3 one: {cfg}")
+    n_attn = 2 * cfg.n_layers + cfg.n_flow_layer * cfg.n_layers_trans_flow
+    n_mrf = sum(1 for w in engine.mrf_packed if w is not None)
+    want = {k: 0 for k in counters}
+    want.update(banded_attn_fwd=n_attn, mrf_fwd=n_mrf)
+    log(f"[text] load_tts_engine(config.json, G_0.pth) in {load_s:.1f} s; languages "
+        f"{langs}; BERT {engine.bert_extractor.describe()} (no BERT weights in the "
+        f"checkout: seeded noise, with its warning)")
+    totals = {"banded_attn_fwd": 0, "mrf_fwd": 0}
+
+    def call(what, fn):
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items()}
+        if got != want:
+            raise AssertionError(f"[text] {what}: kernel launches {got}, want {want}")
+        for k in totals:
+            totals[k] += got[k]
+        waves = out if isinstance(out, list) else [out]
+        for w in waves:
+            if not (len(w) >= engine.hop_length and np.isfinite(w).all()
+                    and np.abs(w).max() <= 1.0):
+                raise AssertionError(f"[text] {what}: a wave is empty, non-finite or "
+                                     "out of [-1, 1]")
+        log(f"[text] {what}: K1 {got['banded_attn_fwd']} K2 {got['mrf_fwd']} launches; "
+            f"{sum(len(w) for w in waves) / engine.sampling_rate:.2f} s of audio")
+        return out
+
+    t0 = time.perf_counter()
+    n_grid = engine.warmup(batch_sizes=(1, TEXT_BATCH), buckets=(64, 128))
+    log(f"[text] warmup: {n_grid} (batch, bucket) points at the worst-case frame cap "
+        f"in {time.perf_counter() - t0:.1f} s")
+    for i, lang in enumerate(langs):
+        call(f"infer {lang}", lambda: engine.infer(
+            TEXT_SENTENCES[lang][0], f"spk{i}", language=lang))
+    call("infer_multilang JP+EN", lambda: engine.infer_multilang(
+        [(TEXT_SENTENCES["JP"][1], "JP"), (TEXT_SENTENCES["EN"][1], "EN")], "spk1"))
+    pool = [(TEXT_SENTENCES[lang][k], lang) for k in range(3) for lang in langs]
+    pairs = [pool[i % len(pool)] for i in range(TEXT_BATCH)]
+    texts, blangs = [t for t, _ in pairs], [la for _, la in pairs]
+    speakers = [f"spk{i % 4}" for i in range(TEXT_BATCH)]
+    call(f"infer_batch of {TEXT_BATCH} ({blangs})",
+         lambda: engine.infer_batch(texts, speakers, language=blangs))
+
+    zero = dict(language="JP", noise_scale=0.0, noise_scale_w=0.0)
+    gpu_wave = engine.infer(TEXT_SENTENCES["JP"][0], "spk2", **zero)
+    cpu_wave = cpu_engine.infer(TEXT_SENTENCES["JP"][0], "spk2", **zero)
+    err = (float(np.abs(gpu_wave - cpu_wave).max()) if len(gpu_wave) == len(cpu_wave)
+           else math.inf)
+    log(f"[text] one JP sentence, zero noise: frames card "
+        f"{len(gpu_wave) // engine.hop_length} cpu {len(cpu_wave) // engine.hop_length}, "
+        f"wave max_abs_err {err:.3e} (bound {WAVE_BOUND:g})")
+    if len(gpu_wave) != len(cpu_wave) or not err <= WAVE_BOUND:
+        raise AssertionError("[text] card and CPU disagree")
+    del cpu_engine
+
+    prep = []
+    prepare = engine.prepare
+
+    def timed_prepare(*a, **k):
+        t = time.perf_counter()
+        req = prepare(*a, **k)
+        prep.append(time.perf_counter() - t)
+        return req
+
+    engine.prepare = timed_prepare
+    torch.cuda.reset_peak_memory_stats()
+    lat, host = [], []
+    for _ in range(TIMED_CALLS):
+        prep.clear()
+        t0 = time.perf_counter()
+        waves = engine.infer_batch(texts, speakers, language=blangs)
+        lat.append(time.perf_counter() - t0)
+        host.append(sum(prep))
+    del engine.prepare
+    dev_ms = device_ms(lambda: engine.infer_batch(texts, speakers, language=blangs),
+                       iters=3)
+    audio_s = sum(len(w) for w in waves) / engine.sampling_rate
+    synth = [a - h for a, h in zip(lat, host)]
+    med = float(np.median(lat))
+    log(f"[text-timing] {smi}: infer_batch of {TEXT_BATCH} sentences, {audio_s:.2f} s "
+        f"of audio per call; over {TIMED_CALLS} calls median {med * 1e3:.1f} ms, max "
+        f"{max(lat) * 1e3:.1f} ms; host (prepare: clean_text + get_text + BERT noise) "
+        f"median {np.median(host) * 1e3:.1f} ms, max {max(host) * 1e3:.1f} ms, "
+        f"{np.median(host) * 1e3 / TEXT_BATCH:.2f} ms per sentence; run_prepared median "
+        f"{np.median(synth) * 1e3:.1f} ms, max {max(synth) * 1e3:.1f} ms; "
+        f"{audio_s / med:.1f} audio-s/s at the median; device time (the profiler's "
+        f"kernel time per call) {dev_ms:.1f} ms; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del engine
+    torch.cuda.empty_cache()
+    return totals
+
+
+BERT_CONFIGS = {  # published widths of the reference's two BERT families
+    "chinese-roberta-wwm-ext-large": dict(
+        vocab_size=21128, hidden_size=1024, num_layers=24, num_heads=16,
+        intermediate_size=4096, max_position_embeddings=512, type_vocab_size=2,
+        layer_norm_eps=1e-12),
+    "deberta-v3-large": dict(
+        vocab_size=128100, hidden_size=1024, num_layers=24, num_heads=16,
+        intermediate_size=4096, max_position_embeddings=512, type_vocab_size=0,
+        layer_norm_eps=1e-7, position_biased_input=False, relative_attention=True,
+        position_buckets=256, pos_att_type=("p2c", "c2p"), share_att_key=True,
+        norm_rel_ebd="layer_norm"),
+}
+BERT_T = 64
+BERT_BOUND = 1e-3  # card vs CPU, fp32, TF32 off: 22 layers of 1024/4096-term sums to the tap
+
+
+def bert_flops(cfg, t: int) -> float:
+    """The encoder's fp32 products for one sequence of t ids: projections,
+    FFN, scores and context, and (DeBERTa) the position projections of the
+    2s relative rows and the c2p/p2c scores."""
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    per_layer = 2 * t * (4 * h * h + 2 * h * i) + 2 * 2 * t * t * h
+    if cfg.relative_attention:
+        rows = 2 * cfg.pos_ebd_size
+        per_layer += 2 * 2 * rows * h * h + 2 * 2 * t * rows * h
+    return cfg.num_layers * per_layer
+
+
+def bert_bytes(model, t: int) -> float:
+    """Every parameter read once, except the embedding tables, of which the
+    t rows looked up."""
+    emb = [m.weight for m in model.modules() if isinstance(m, torch.nn.Embedding)]
+    n = sum(p.numel() for p in model.parameters()) - sum(w.numel() for w in emb)
+    return 4.0 * (n + t * sum(w.shape[1] for w in emb))
+
+
+def run_bert(smi):
+    """The BERT encoder (text/bert_encoder.py) at two published widths, random
+    weights from a seed, t = BERT_T ids from a seed: ms per forward (CUDA
+    events), peak memory, and hidden_states[-3] card against CPU."""
+    from bert_vits2_tpu_torch.text.bert_encoder import BertEncoder, EncoderConfig
+
+    for i, (name, kw) in enumerate(BERT_CONFIGS.items()):
+        cfg = EncoderConfig(**kw)
+        torch.manual_seed(i)
+        cpu_model = BertEncoder(cfg).eval()
+        model = copy.deepcopy(cpu_model).to("cuda")
+        ids = torch.from_numpy(np.random.default_rng(i).integers(
+            0, cfg.vocab_size, (1, BERT_T)))
+        mask = torch.ones_like(ids)
+        n_params = sum(p.numel() for p in model.parameters())
+        with torch.inference_mode():
+            ids_d, mask_d = ids.cuda(), mask.cuda()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: model(ids_d, mask_d), iters=10, warmup=3)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            dev = device_ms(lambda: model(ids_d, mask_d))
+            got = model(ids_d, mask_d)[-3].cpu()
+            t0 = time.perf_counter()
+            want = cpu_model(ids, mask)[-3]
+            cpu_s = time.perf_counter() - t0
+        err = float((got - want).abs().max())
+        bound_ms, bound_by = bound(bert_flops(cfg, BERT_T), bert_bytes(model, BERT_T))
+        log(f"[bert] {smi}: {name} ({n_params} parameters, {cfg.num_layers} layers, "
+            f"hidden {cfg.hidden_size}), t = {BERT_T}: {ms:.3f} ms per forward "
+            f"(CUDA events, 10 after 3 warm-up, fp32 TF32 off), device {dev:.3f} ms "
+            f"(the profiler's kernel time), bound {bound_ms:.3f} ms ({bound_by}: every "
+            f"weight read once, fp32 products at 67 TFLOP/s), peak memory {peak:.2f} "
+            f"GiB; hidden_states[-3] card vs CPU max_abs_err {err:.3e} (bound "
+            f"{BERT_BOUND:g}, |max| {float(want.abs().max()):.3f}); CPU forward "
+            f"{cpu_s:.2f} s")
+        if not (torch.isfinite(got).all() and err <= BERT_BOUND):
+            raise AssertionError(f"[bert] {name}: card and CPU disagree")
+        del model, cpu_model
+        torch.cuda.empty_cache()
+
+
 def run_trainer(dev, smi, counters):
     """The training entry point (the `python -m bert_vits2_tpu_torch.train`
     CLI's Trainer) on a synthetic corpus at the default V2.3 width, the
@@ -1093,6 +1346,9 @@ def main(argv=None) -> int:
     del engine, model, cpu_model
     torch.cuda.empty_cache()
 
+    text_launches = run_text(dev, smi, counters)
+    run_bert(smi)
+
     run_training(dev, smi, counters)
     check_training_forward_on_cpu(dev)
     # the training entry point: its kernels' launches replace the serving
@@ -1129,6 +1385,8 @@ def main(argv=None) -> int:
     training = (f"per training step at batch {TRAIN_BATCH}, {TRAIN_TX} tokens and "
                 f"{TRAIN_TY} frames (launches: over the Trainer's {n_trainer} steps)")
 
+    text_basis = ("; launches_text: over the [text] phase's synthesis calls from text "
+                  "(counts zeroed before each)")
     record = {"kernels": [
         entry("banded_attn_fwd", "bert_vits2_tpu_torch/csrc/banded_attn.cu",
               "bert_vits2_tpu/ops/attention_pallas.py:88", k1, serving, tc3),
@@ -1151,6 +1409,9 @@ def main(argv=None) -> int:
               "bert_vits2_tpu/ops/attention_pallas.py:228",
               kb["banded_attn_bwd_k"], training, tc3),
     ]}
+    for row in record["kernels"][:2]:
+        row["launches_text"] = text_launches[row["name"]]
+        row["basis"] += text_basis
     wide_src = "bert_vits2_tpu_torch/csrc/banded_attn_wide.cu"
     ranged = ("per MultiHeadAttention call of the [attention-range] phase (launches: "
               "that phase's, counts zeroed before it)")

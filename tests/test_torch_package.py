@@ -112,6 +112,13 @@ from bert_vits2_tpu_torch.infer import TTSEngine
 from bert_vits2_tpu_torch.models import build_synthesizer
 from bert_vits2_tpu_torch.train.trainer import Trainer, build_models
 from bert_vits2_tpu_torch.train.__main__ import main as train_main
+from bert_vits2_tpu_torch.infer import load_tts_engine
+for name in ("text.cleaner", "text.mandarin", "text.japanese", "text.english",
+             "text.bert", "text.bert_encoder", "infer.loader", "utils.model_tools"):
+    assert "bert_vits2_tpu_torch." + name in sys.modules, name
+from bert_vits2_tpu_torch.text import clean_text
+for text, lang in (("こんにちは", "JP"), ("Hello world.", "EN")):
+    clean_text(text, lang)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                        "bert_vits2_tpu"))
@@ -137,6 +144,15 @@ try:
     train_main(["-c", "no-such-config.json", "-m", "no-such-dir"])
 except RuntimeError:
     raised.append("train CLI")
+try:
+    load_tts_engine("no-such-config.json")
+except RuntimeError:
+    raised.append("load_tts_engine")
+from bert_vits2_tpu_torch.text.bert_encoder import BertEncoderExtractor
+try:
+    BertEncoderExtractor()
+except RuntimeError:
+    raised.append("BertEncoderExtractor")
 assert "bert_vits2_tpu_torch.train.step" in sys.modules
 assert "bert_vits2_tpu_torch.ops.align" in sys.modules
 print(json.dumps({"loaded": loaded, "raised": raised}))
@@ -145,17 +161,20 @@ print(json.dumps({"loaded": loaded, "raised": raised}))
 
 def test_import_boundary_and_default_device():
     """In a fresh interpreter with no card visible: importing every module of
-    the port (the training modules, the data pipeline and the CLI included)
-    loads neither JAX, flax, optax nor the JAX package, and the entry
-    points (the Trainer and the training CLI included) default to CUDA and
-    raise instead of falling back to the CPU."""
+    the port (the training modules, the data pipeline, the CLI, the text
+    frontend, the BERT encoder, the loader and the release reader included)
+    and cleaning a JP and an EN sentence loads neither JAX, flax, optax nor
+    the JAX package, and the entry points (the Trainer, the training CLI,
+    the loader and the BERT encoder's extractor included) default to CUDA
+    and raise instead of falling back to the CPU."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"loaded": [], "raised": ["build_synthesizer", "TTSEngine",
                                             "build_models", "Trainer",
-                                            "train CLI"]}
+                                            "train CLI", "load_tts_engine",
+                                            "BertEncoderExtractor"]}
 
 
 @pytest.mark.parametrize("path", ["bert_vits2_tpu_torch", "chip_smoke.py"])
