@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import logging
 import os
+import threading
 import warnings
 from typing import Protocol
 
@@ -125,6 +126,8 @@ class AutoBertExtractor:
         self._noise = RandomBertExtractor(seed)
         self._real: dict = {}  # language -> (backend_name, extractor|None)
         self._shared = None
+        # server handler threads resolve concurrently: one load, one warning
+        self._lock = threading.Lock()
         if not allow_noise:
             missing = [
                 f"{lang} ({path!r})"
@@ -153,6 +156,12 @@ class AutoBertExtractor:
     def _resolve(self, language: str):
         if language in self._real:
             return self._real[language]
+        with self._lock:
+            if language not in self._real:
+                self._real[language] = self._load(language)
+        return self._real[language]
+
+    def _load(self, language: str):
         path = self.paths.get(language, "")
         if not weights_present(path):
             if not self.allow_noise:
@@ -169,19 +178,17 @@ class AutoBertExtractor:
                 "weights with `python -m bert_vits2_tpu.tools.fetch_assets "
                 "--fetch` (docs/WEIGHTS.md), or silence this by passing an "
                 "explicit bert_extractor.",
-                stacklevel=3,
+                stacklevel=4,
             )
-            self._real[language] = ("noise", None)
-            return self._real[language]
+            return ("noise", None)
         if self._shared is None:
             from bert_vits2_tpu_torch.text.bert_encoder import BertEncoderExtractor
 
             self._shared = BertEncoderExtractor(paths=self.paths, device=self.device)
         self._shared._load(language)  # surface load errors here
-        self._real[language] = ("torch", self._shared)
         logger.info("BERT extractor for %s: torch on %s (%s)", language,
                     self._shared.device, path)
-        return self._real[language]
+        return ("torch", self._shared)
 
     def __call__(self, norm_text, word2ph, language, style_text=None,
                  style_weight: float = 0.7):

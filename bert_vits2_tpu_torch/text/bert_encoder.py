@@ -30,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -370,10 +371,19 @@ class BertEncoderExtractor:
         self.length_buckets = tuple(sorted(length_buckets))
         self.device = resolve_device(device)
         self._loaded: dict = {}
+        # server handler threads load concurrently: each language once
+        self._lock = threading.Lock()
 
     def _load(self, language: str):
         if language in self._loaded:
             return self._loaded[language]
+        with self._lock:
+            if language not in self._loaded:
+                self._loaded[language] = self._read(language)
+        return self._loaded[language]
+
+    def _read(self, language: str):
+        """language -> (tokenizer, BertEncoder on the device) from disk."""
         import json
 
         path = self.paths[language]
@@ -396,8 +406,7 @@ class BertEncoderExtractor:
             raise FileNotFoundError(f"no weights file under {path}")
         model = BertEncoder(cfg)
         model.load_state_dict(load_hf_bert(sd, cfg), strict=True)
-        self._loaded[language] = (tok, model.to(self.device).eval())
-        return self._loaded[language]
+        return (tok, model.to(self.device).eval())
 
     def _bucket(self, t: int) -> int:
         for b in self.length_buckets:

@@ -47,7 +47,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
    and K2 3 times (counts zeroed just before it); one JP sentence at zero
    noise, card against CPU; infer_batch timed over 5 calls, host time
    (prepare) split from synthesis time.
-6c. the BERT encoder (text/bert_encoder.py) at the published widths of
+6c. the HTTP server in process ([serve]): a ModelRegistry with the loader
+   that the server's main() builds (load_tts_engine on the card) over the
+   same config.json and G_0.pth, warmup over batches 1, 4 and 16 and
+   buckets 64 and 128, make_server on a free port. Client threads send 32
+   POST /voice requests at each concurrency level 1, 4 and 16 (JP and EN
+   sentences at the server's default knobs, every eighth an auto_split
+   paragraph of four sentences, one AUTO and one MIX request):
+   requests/s, audio-s/s, latency p50/p95/max, the micro-batcher's batch
+   sizes and device calls, peak memory, K1 = 28 and K2 = 3 launches per
+   device call; the profiler's device busy share over one burst of 16 at
+   concurrency 16. Checks: a zero-noise JP /voice within 1 LSB of
+   float_to_int16 of engine.infer; a zero-noise auto_split paragraph of
+   four sentences in one bucket rides one device call of 4, each sentence
+   within WAVE_BOUND of the sentence served alone; the same paragraph with
+   batching off equals the batched one; /status names the card,
+   /models/info the engine's device.
+6d. the server's CLI ([serve-cli]): `python -m
+   bert_vits2_tpu_torch.serve.server --device cuda --warmup --model
+   G_0.pth:config.json` in a subprocess on a free port; it must print its
+   `serving on` line, answer GET /status and two POST /voice (the first
+   also loads the EN g2p's lexicon) with a WAV of a whole number of
+   frames, and is terminated.
+6e. the BERT encoder (text/bert_encoder.py) at the published widths of
    chinese-roberta-wwm-ext-large and deberta-v3-large, random weights:
    ms per forward at 64 ids, peak memory, hidden_states[-3] card against
    CPU.
@@ -73,14 +95,21 @@ The last three lines are the kernels' JSON record, the nvidia-smi line and
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import copy
+import io
 import json
 import math
 import os
+import queue
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -986,6 +1015,302 @@ def run_text(dev, smi, counters):
     return totals
 
 
+SERVE_LEVELS = (1, 4, 16)  # client threads sending at once
+SERVE_REQUESTS = 32  # /voice requests per level
+SERVE_PARAGRAPHS = {  # four sentences each; EN: 65-128 tokens, one bucket
+    "EN": ["The quick brown fox jumps over the lazy dog.",
+           "Speech synthesis turns written text into natural sounding audio.",
+           "Good morning, everyone, and welcome to the show.",
+           "The weather today is sunny with a light breeze from the west."],
+    "JP": ["私は日本語を勉強しています。", "ありがとうございました、またお会いしましょう。",
+           "駅の近くに新しい本屋ができました。", "飛行機が空港に到着した。"],
+}
+# kana and Latin only: classify_language sends Han characters to ZH, and
+# jieba (ZH's g2p) may not import
+SERVE_AUTO = "こんにちは、おげんきですか。Hello world, this is a test of the engine."
+SERVE_MIX = ("[spk0]<JP>こんにちは、おげんきですか。<EN>Hello world."
+             "[spk1]<EN>Good morning, everyone, and welcome to the show.")
+CLI_TIMEOUT_S = 300
+
+
+def serve_traffic() -> list[dict]:
+    """The SERVE_REQUESTS /voice bodies of one level, at the server's default
+    knobs: every eighth an auto_split paragraph (EN, JP in turns), one AUTO
+    and one MIX request, the rest single JP and EN sentences."""
+    pool = [(TEXT_SENTENCES[lang][k], lang) for k in range(3) for lang in ("JP", "EN")]
+    out = []
+    for i in range(SERVE_REQUESTS):
+        if i % 8 == 0:
+            lang = ("EN", "JP")[i // 8 % 2]
+            body = dict(text="\n".join(SERVE_PARAGRAPHS[lang]), language=lang,
+                        auto_split=True)
+        elif i == 1:
+            body = dict(text=SERVE_AUTO, language="AUTO")
+        elif i == 2:
+            body = dict(text=SERVE_MIX, language="MIX")
+        else:
+            text, lang = pool[i % len(pool)]
+            body = dict(text=text, language=lang)
+        out.append(dict(body, model_id=0, speaker_name=f"spk{i % 4}"))
+    return out
+
+
+def http_json(url, body=None):
+    """GET url (body None) or POST body as JSON -> (content type, bytes)."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.headers["Content-Type"], r.read()
+
+
+def wav_pcm(ctype, body, sampling_rate):
+    from scipy.io import wavfile
+
+    if ctype != "audio/wav" or body[:4] != b"RIFF":
+        raise AssertionError(f"/voice answered {ctype} {body[:64]!r}")
+    sr, pcm = wavfile.read(io.BytesIO(body))
+    if sr != sampling_rate or pcm.dtype != np.int16 or not len(pcm):
+        raise AssertionError(f"/voice: a WAV of {len(pcm)} {pcm.dtype} samples at {sr} Hz")
+    return pcm
+
+
+def run_serve(smi, counters):
+    """The HTTP server in process: traffic at SERVE_LEVELS concurrency through
+    the micro-batcher into run_prepared, then the checks (a)-(d). Returns the
+    launches of K1 and K2 over the phase (counts zeroed before its traffic)."""
+    from bert_vits2_tpu_torch.serve import ModelRegistry
+    from bert_vits2_tpu_torch.serve.server import TTSService, engine_loader, make_server
+    from bert_vits2_tpu_torch.utils.audio import float_to_int16
+
+    with tempfile.TemporaryDirectory() as root:
+        config, weights = write_engine_config(root)
+        registry = ModelRegistry(loader=engine_loader("cuda"))
+        t0 = time.perf_counter()
+        registry.init_model(weights, config)
+        load_s = time.perf_counter() - t0
+    engine = registry.get(0)
+    cfg = engine.model.cfg
+    n_attn = 2 * cfg.n_layers + cfg.n_flow_layer * cfg.n_layers_trans_flow
+    n_mrf = sum(1 for w in engine.mrf_packed if w is not None)
+    t0 = time.perf_counter()
+    n_grid = engine.warmup(batch_sizes=(1, 4, 16), buckets=(64, 128))
+    log(f"[serve] load_tts_engine through the server's loader in {load_s:.1f} s; warmup "
+        f"of {n_grid} (batch, bucket) points in {time.perf_counter() - t0:.1f} s")
+    srv = make_server(registry, "127.0.0.1", 0)
+    service = srv.RequestHandlerClass.service
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    sr = engine.sampling_rate
+    try:
+        traffic = serve_traffic()
+
+        def send(body):
+            t = time.perf_counter()
+            pcm = wav_pcm(*http_json(url + "/voice", body), sr)
+            return time.perf_counter() - t, len(pcm) / sr
+
+        def burst(bodies, concurrency):
+            t = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(concurrency) as pool:
+                out = list(pool.map(send, bodies))
+            return time.perf_counter() - t, out
+
+        send(traffic[3])  # the server's first request: batcher thread, handler path
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        totals = {"banded_attn_fwd": 0, "mrf_fwd": 0}
+        batcher = service._batchers[id(engine)]
+        for level in SERVE_LEVELS:
+            n0 = len(batcher.batch_sizes)
+            before = {k: counters[k].launches for k in totals}
+            torch.cuda.reset_peak_memory_stats()
+            wall, out = burst(traffic, level)
+            torch.cuda.synchronize()
+            sizes = batcher.batch_sizes[n0:]
+            got = {k: counters[k].launches - before[k] for k in totals}
+            want = {"banded_attn_fwd": n_attn * len(sizes), "mrf_fwd": n_mrf * len(sizes)}
+            lat = np.array([o[0] for o in out]) * 1e3
+            audio_s = sum(o[1] for o in out)
+            log(f"[serve] {smi}: concurrency {level}, {len(out)} requests "
+                f"({sum(sizes)} utterances) in {wall:.3f} s: "
+                f"{len(out) / wall:.2f} requests/s, {audio_s / wall:.1f} audio-s/s "
+                f"({audio_s:.1f} s of audio); latency p50 {np.percentile(lat, 50):.1f} ms, "
+                f"p95 {np.percentile(lat, 95):.1f} ms, max {lat.max():.1f} ms; "
+                f"{len(sizes)} device calls, batch sizes "
+                f"{dict(sorted(collections.Counter(sizes).items()))} (mean "
+                f"{np.mean(sizes):.2f}); peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K1 "
+                f"{got['banded_attn_fwd']} K2 {got['mrf_fwd']} launches")
+            if got != want:
+                raise AssertionError(f"[serve] concurrency {level}: launches {got}, want "
+                                     f"{n_attn} and {n_mrf} per device call: {want}")
+            for k in totals:
+                totals[k] += got[k]
+
+        from torch.profiler import ProfilerActivity, profile
+        n0 = len(batcher.batch_sizes)
+        before = {k: counters[k].launches for k in totals}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wall, _ = burst(traffic[:16], 16)
+            torch.cuda.synchronize()
+        sizes = batcher.batch_sizes[n0:]
+        for k in totals:
+            totals[k] += counters[k].launches - before[k]
+        calls = len(batcher.batch_sizes) - 1  # the first request's call came before
+        if totals != {"banded_attn_fwd": n_attn * calls, "mrf_fwd": n_mrf * calls}:
+            raise AssertionError(f"[serve] launches {totals} over {calls} device calls")
+        profile_lines(prof, wall, f"[serve] {smi}: one burst of 16 requests at "
+                      f"concurrency 16 ({len(sizes)} device calls, batch sizes {sizes})",
+                      top=6)
+        log(f"[serve] {smi}: launches over the phase's traffic: K1 "
+            f"{totals['banded_attn_fwd']}, K2 {totals['mrf_fwd']} in {calls} device "
+            f"calls ({n_attn} and {n_mrf} per call)")
+
+        # (a) one zero-noise JP request against the engine's own float wave
+        zero = dict(noise=0, noisew=0)
+        text = TEXT_SENTENCES["JP"][0]
+        pcm = wav_pcm(*http_json(url + "/voice", dict(
+            text=text, model_id=0, speaker_name="spk2", language="JP", **zero)), sr)
+        want = float_to_int16(engine.infer(text, "spk2", language="JP", noise_scale=0.0,
+                                           noise_scale_w=0.0))
+        lsb = (int(np.abs(pcm.astype(np.int32) - want.astype(np.int32)).max())
+               if len(pcm) == len(want) else math.inf)
+        log(f"[serve] (a) zero-noise JP /voice against float_to_int16(engine.infer): "
+            f"{len(pcm)} / {len(want)} samples, max difference {lsb} LSB (bound 1)")
+        if not lsb <= 1:
+            raise AssertionError("[serve] (a) /voice and engine.infer disagree")
+
+        # (b) a paragraph of four sentences in one bucket: one device call of 4
+        sents = SERVE_PARAGRAPHS["EN"]
+        keys = {engine.group_key(engine.prepare(t, 1, language="EN")) for t in sents}
+        if len(keys) != 1:
+            raise AssertionError(f"[serve] (b) the paragraph spans buckets {keys}")
+        kw = dict(model_id=0, speaker="spk1", language="EN", noise=0.0, noisew=0.0)
+        n0 = len(batcher.batch_sizes)
+        para, _ = service.voice("\n".join(sents), auto_split=True, **kw)
+        if batcher.batch_sizes[n0:] != [4]:
+            raise AssertionError(f"[serve] (b) device calls {batcher.batch_sizes[n0:]}, "
+                                 "want one of 4")
+        alone = [service.voice(t, **kw)[0] for t in sents]
+        gap = int(sr * 0.2)
+        pieces, i = [], 0
+        for w in alone:
+            pieces.append(para[i:i + len(w)])
+            i += len(w) + gap
+        if i - gap != len(para):
+            raise AssertionError(f"[serve] (b) paragraph of {len(para)} samples, pieces "
+                                 f"{[len(w) for w in alone]}")
+        err_b = max(float(np.abs(p - w).max()) for p, w in zip(pieces, alone))
+        log(f"[serve] (b) auto_split paragraph of 4 (keys {keys}): one device call of 4; "
+            f"each sentence against itself served alone: max_abs_err {err_b:.3e} "
+            f"(bound {WAVE_BOUND:g})")
+        if not err_b <= WAVE_BOUND:
+            raise AssertionError("[serve] (b) a sentence depends on its batch company")
+
+        # (c) the same request with batching off
+        unbatched = TTSService(registry, batching=False)
+        flat, _ = unbatched.voice("\n".join(sents), auto_split=True, **kw)
+        err_c = (float(np.abs(flat - para).max()) if len(flat) == len(para) else math.inf)
+        log(f"[serve] (c) batching off against on: {len(flat)} / {len(para)} samples, "
+            f"max_abs_err {err_c:.3e} (bound {WAVE_BOUND:g})")
+        if not err_c <= WAVE_BOUND:
+            raise AssertionError("[serve] (c) batching off and on disagree")
+
+        # (d) the card in /status, the engine's device in /models/info
+        _, body = http_json(url + "/status")
+        devices = json.loads(body)["Data"]["devices"]
+        _, body = http_json(url + "/models/info")
+        info = json.loads(body)
+        log(f"[serve] (d) /status devices {devices}; /models/info device "
+            f"{info['0']['device']}")
+        if (not devices or devices[0]["kind"] != torch.cuda.get_device_name(0)
+                or info["0"]["device"] != "cuda"):
+            raise AssertionError("[serve] (d) /status or /models/info do not name the card")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(30)
+    del engine, registry, service
+    torch.cuda.empty_cache()
+    return totals
+
+
+def run_serve_cli(smi):
+    """The server's entry point in a subprocess on a free port: its `serving
+    on` line within CLI_TIMEOUT_S, one GET /status and two POST /voice (EN),
+    each a WAV of a whole number of frames; then it is terminated."""
+    root_dir = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as root:
+        config, weights = write_engine_config(root)
+        with open(config, encoding="utf-8") as f:
+            data = json.load(f)["data"]
+        hop, sr = data["hop_length"], data["sampling_rate"]
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        cmd = [sys.executable, "-m", "bert_vits2_tpu_torch.serve.server", "--device", "cuda",
+               "--host", "127.0.0.1", "--port", str(port), "--warmup",
+               "--model", f"{weights}:{config}"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=root_dir, env=dict(os.environ, PYTHONUNBUFFERED="1"),
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        lines: queue.Queue = queue.Queue()
+
+        def read():
+            for x in proc.stdout:
+                lines.put(x)
+
+        reader = threading.Thread(target=read, daemon=True)
+        reader.start()
+        out = []
+        try:
+            while not any(x.startswith("serving on") for x in out):
+                left = CLI_TIMEOUT_S - (time.perf_counter() - t0)
+                try:
+                    out.append(lines.get(timeout=max(left, 0.1)).rstrip())
+                except queue.Empty:
+                    raise AssertionError(f"[serve-cli] no `serving on` line in "
+                                         f"{CLI_TIMEOUT_S} s: {out[-20:]}") from None
+                if proc.poll() is not None and lines.empty():
+                    raise AssertionError(f"[serve-cli] the server exited with "
+                                         f"{proc.returncode}: {out[-20:]}")
+            up_s = time.perf_counter() - t0
+            for x in out:
+                if x.startswith(("model ", "serving on")):
+                    log(f"[serve-cli] {x}")
+            url = f"http://127.0.0.1:{port}"
+            _, body = http_json(url + "/status")
+            devices = json.loads(body)["Data"]["devices"]
+            voice_ms = []
+            for _ in range(2):  # the first request also loads the EN g2p's lexicon
+                t = time.perf_counter()
+                ctype, body = http_json(url + "/voice", dict(
+                    text=TEXT_SENTENCES["EN"][2], speaker_name="spk3", language="EN"))
+                voice_ms.append((time.perf_counter() - t) * 1e3)
+                pcm = wav_pcm(ctype, body, sr)
+                cap = 6 * 128 * hop  # the 128-token bucket's worst-case frame cap
+                if len(pcm) % hop or not hop <= len(pcm) <= cap:
+                    raise AssertionError(f"[serve-cli] a WAV of {len(pcm)} samples: not a "
+                                         f"whole number of {hop}-sample frames up to {cap}")
+            if not devices or devices[0]["kind"] != torch.cuda.get_device_name(0):
+                raise AssertionError(f"[serve-cli] /status devices {devices}")
+            log(f"[serve-cli] {smi}: `serving on` after {up_s:.1f} s (interpreter, load, "
+                f"warmup); /status lists {devices[0]['kind']}; POST /voice (EN) twice in "
+                f"{voice_ms[0]:.1f} and {voice_ms[1]:.1f} ms: a RIFF WAV of {len(pcm)} "
+                f"samples ({len(pcm) // hop} frames)")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            reader.join(10)
+
+
 BERT_CONFIGS = {  # published widths of the reference's two BERT families
     "chinese-roberta-wwm-ext-large": dict(
         vocab_size=21128, hidden_size=1024, num_layers=24, num_heads=16,
@@ -1347,6 +1672,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     text_launches = run_text(dev, smi, counters)
+    serve_launches = run_serve(smi, counters)
+    run_serve_cli(smi)
     run_bert(smi)
 
     run_training(dev, smi, counters)
@@ -1409,9 +1736,12 @@ def main(argv=None) -> int:
               "bert_vits2_tpu/ops/attention_pallas.py:228",
               kb["banded_attn_bwd_k"], training, tc3),
     ]}
+    serve_basis = ("; launches_serve: over the [serve] phase's traffic through the "
+                   "HTTP server and its micro-batcher (counts zeroed before it)")
     for row in record["kernels"][:2]:
         row["launches_text"] = text_launches[row["name"]]
-        row["basis"] += text_basis
+        row["launches_serve"] = serve_launches[row["name"]]
+        row["basis"] += text_basis + serve_basis
     wide_src = "bert_vits2_tpu_torch/csrc/banded_attn_wide.cu"
     ranged = ("per MultiHeadAttention call of the [attention-range] phase (launches: "
               "that phase's, counts zeroed before it)")

@@ -11,9 +11,13 @@ padding invariance within 1e-5, as tests/test_bert_jax.py holds the JAX
 encoder against transformers.
 """
 
+import collections
 import dataclasses
 import json
 import os
+import sys
+import threading
+import time
 import warnings
 
 import numpy as np
@@ -142,6 +146,67 @@ def test_auto_extractor_noise_rules(tmp_path):
     assert np.array_equal(a, b)
     with pytest.raises(FileNotFoundError, match="allow_noise=False"):
         port_bert.AutoBertExtractor(paths=paths, allow_noise=False, device="cpu")
+
+
+LANGS = ("ZH", "JP", "EN")
+
+
+@pytest.mark.parametrize("case", ["auto, no weights", "auto, weights", "encoder"])
+def test_lazy_loaders_load_each_language_once_under_threads(tmp_path, monkeypatch, case):
+    """Eight threads ask one extractor for the three languages at once (a
+    server's handler threads): `AutoBertExtractor._resolve` warns once per
+    language without weights and, with weights, has the encoder read each
+    language once; `BertEncoderExtractor._load` called directly reads each
+    once. The warning and the read are counting stubs that sleep, so the
+    threads overlap inside them."""
+    counts, count_lock = collections.Counter(), threading.Lock()
+
+    def count(key):
+        with count_lock:
+            counts[key] += 1
+        time.sleep(0.05)
+
+    def read(self, language):
+        count(language)
+        return ("tokenizer", "model")
+
+    paths = {lang: str(tmp_path / lang) for lang in LANGS}
+    monkeypatch.setattr(BertEncoderExtractor, "_read", read)
+    if case == "auto, no weights":
+        monkeypatch.setattr(port_bert.warnings, "warn",
+                            lambda msg, stacklevel: count(msg.split(" (")[0]))
+        want = {f"NO BERT WEIGHTS for language {lang}": 1 for lang in LANGS}
+    else:
+        monkeypatch.setattr(port_bert, "weights_present", lambda path: True)
+        want = {lang: 1 for lang in LANGS}
+    if case == "encoder":
+        ext = BertEncoderExtractor(paths=paths, device="cpu")
+        call = ext._load
+    else:
+        ext = port_bert.AutoBertExtractor(paths=paths, device="cpu")
+        call = ext._resolve
+    barrier, results = threading.Barrier(8), []
+
+    def worker(i):
+        barrier.wait()
+        for lang in LANGS[i % 3:] + LANGS[:i % 3]:
+            results.append(call(lang))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(30)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert dict(counts) == want and len(results) == 24
+    if case == "auto, weights":
+        assert ext.describe() == {lang: "torch" for lang in LANGS}
+        assert {id(r[1]) for r in results} == {id(ext._shared)}
 
 
 def test_shared_pieces_match_jax():

@@ -440,3 +440,74 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
                      lens * 2, lens)
     with pytest.raises(ValueError):  # lengths on another device
         maximum_path(torch.zeros(1, 8, 4, device=card), lens.cpu() * 2, lens)
+
+
+@pytest.mark.cuda
+def test_server_round_trip_launches_k1_and_k2(card):
+    """The HTTP server on the card at the default V2.3 width (random weights,
+    seeded-noise BERT): two concurrent /voice requests and one auto_split
+    paragraph reach TTSEngine.run_prepared through the micro-batcher, and
+    every device call that the batcher reports launches K1 28 times and K2
+    3 times; the responses are WAVs of finite, non-empty audio."""
+    import io
+    import json
+    import threading
+    import urllib.request
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    from bert_vits2_tpu_torch.config import ModelConfig
+    from bert_vits2_tpu_torch.infer import TTSEngine
+    from bert_vits2_tpu_torch.models import build_synthesizer
+    from bert_vits2_tpu_torch.serve import ModelRegistry
+    from bert_vits2_tpu_torch.serve.server import make_server
+    from bert_vits2_tpu_torch.text.bert import RandomBertExtractor
+
+    cfg = ModelConfig()
+    engine = TTSEngine(build_synthesizer(cfg, device=card, seed=0),
+                       spk2id={"spk0": 0}, bert_extractor=RandomBertExtractor(0),
+                       device=card)
+    registry = ModelRegistry()
+    registry.init_model("G_0.pth", "config.json", engine=engine)
+    srv = make_server(registry, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}/voice"
+    bodies = []
+
+    def post(text, **kw):
+        data = json.dumps(dict(text=text, speaker_name="spk0", language="EN", **kw))
+        req = urllib.request.Request(url, data=data.encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            bodies.append(r.read())
+
+    n_attn = 2 * cfg.n_layers + cfg.n_flow_layer * cfg.n_layers_trans_flow
+    n_mrf = sum(1 for w in engine.mrf_packed if w is not None)
+    try:
+        post("Warm up.")
+        torch.cuda.synchronize()
+        banded_rel_self_attention.launches = fused_mrf.launches = 0
+        clients = [threading.Thread(target=post, args=(t,)) for t in
+                   ("Hello world.", "The quick brown fox jumps over the lazy dog.")]
+        clients.append(threading.Thread(target=post, args=(
+            "One sentence.\nTwo sentences.\nThree sentences.",), kwargs={"auto_split": True}))
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(300)
+        torch.cuda.synchronize()
+        (batcher,) = srv.RequestHandlerClass.service._batchers.values()
+        calls = len(batcher.batch_sizes) - 1  # the warm-up's call first
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    assert len(bodies) == 4 and calls >= 1 and sum(batcher.batch_sizes[1:]) == 5
+    assert (n_attn, n_mrf) == (28, 3)
+    assert banded_rel_self_attention.launches == n_attn * calls
+    assert fused_mrf.launches == n_mrf * calls
+    for body in bodies:
+        sr, pcm = wavfile.read(io.BytesIO(body))
+        assert body[:4] == b"RIFF" and sr == engine.sampling_rate and len(pcm) > 0
+        assert np.isfinite(pcm.astype(np.float32)).all()

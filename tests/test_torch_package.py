@@ -114,7 +114,10 @@ from bert_vits2_tpu_torch.train.trainer import Trainer, build_models
 from bert_vits2_tpu_torch.train.__main__ import main as train_main
 from bert_vits2_tpu_torch.infer import load_tts_engine
 for name in ("text.cleaner", "text.mandarin", "text.japanese", "text.english",
-             "text.bert", "text.bert_encoder", "infer.loader", "utils.model_tools"):
+             "text.bert", "text.bert_encoder", "infer.loader", "utils.model_tools",
+             "serve", "serve.server", "serve.batcher", "serve.registry",
+             "serve.textseg", "serve.markup", "serve.translate", "serve.webui",
+             "utils.audio"):
     assert "bert_vits2_tpu_torch." + name in sys.modules, name
 from bert_vits2_tpu_torch.text import clean_text
 for text, lang in (("こんにちは", "JP"), ("Hello world.", "EN")):
@@ -153,6 +156,19 @@ try:
     BertEncoderExtractor()
 except RuntimeError:
     raised.append("BertEncoderExtractor")
+from bert_vits2_tpu_torch.serve import server
+
+
+def serve_from_the_cpu(*a, **k):
+    raise SystemExit("the server CLI went on to serve without a card")
+
+
+server.make_server = serve_from_the_cpu
+sys.argv = ["server", "--host", "127.0.0.1", "--port", "0"]
+try:
+    server.main()
+except RuntimeError:
+    raised.append("server CLI")
 assert "bert_vits2_tpu_torch.train.step" in sys.modules
 assert "bert_vits2_tpu_torch.ops.align" in sys.modules
 print(json.dumps({"loaded": loaded, "raised": raised}))
@@ -165,8 +181,10 @@ def test_import_boundary_and_default_device():
     frontend, the BERT encoder, the loader and the release reader included)
     and cleaning a JP and an EN sentence loads neither JAX, flax, optax nor
     the JAX package, and the entry points (the Trainer, the training CLI,
-    the loader and the BERT encoder's extractor included) default to CUDA
-    and raise instead of falling back to the CPU."""
+    the loader, the BERT encoder's extractor and the HTTP server's CLI
+    included) default to CUDA and raise instead of falling back to the CPU.
+    The serving layer (`serve.*`, `utils.audio`) is among the modules
+    imported."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120, check=True)
@@ -174,7 +192,7 @@ def test_import_boundary_and_default_device():
     assert res == {"loaded": [], "raised": ["build_synthesizer", "TTSEngine",
                                             "build_models", "Trainer",
                                             "train CLI", "load_tts_engine",
-                                            "BertEncoderExtractor"]}
+                                            "BertEncoderExtractor", "server CLI"]}
 
 
 @pytest.mark.parametrize("path", ["bert_vits2_tpu_torch", "chip_smoke.py"])
