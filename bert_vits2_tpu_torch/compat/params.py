@@ -2,9 +2,11 @@
 
 The inverse of the JAX package's reference import (compat/torch_import.py:
 `synthesizer_rename`, `mpd_rename`, `dur_disc_rename` +
-`convert_state_dict`), written against the trees' structure alone: nested
-dicts of numpy arrays as the JAX package's `Synthesizer`,
-`MultiPeriodDiscriminator` and `DurationDiscriminator` hold them. Layouts:
+`convert_state_dict`; `models/slm.py:import_torch_wavlm`), written
+against the trees' structure alone: nested dicts of numpy arrays as the JAX
+package's `Synthesizer`, `MultiPeriodDiscriminator`,
+`DurationDiscriminator`, `WavLMDiscriminator` and `WavLMJax` hold them.
+Layouts:
 
 - conv `kernel` / weight-norm `v` [k, in, out] -> [out, in, k] (grouped
   convs alike, `in` being the group's share); a transposed conv's
@@ -21,6 +23,14 @@ dicts of numpy arrays as the JAX package's `Synthesizer`,
 - the duration discriminator's two LSTM cells -> one bidirectional
   `nn.LSTM`: per-gate kernels stacked in torch's gate order (i, f, g, o);
   the cell's one bias goes to `bias_hh`, and `bias_ih` is zero
+- the reference encoder's flax `GRUCell` -> `nn.GRU`: gates stacked in
+  torch's order (r, z, n); the input gates' biases go to `bias_ih`, the
+  `hn` bias to the n block of `bias_hh` and its r and z blocks are zero
+  (both cells compute n = tanh(W_in x + b_in + r * (W_hn h + b_hn)))
+- WavLM: the scanned layers 1..N-1 unstacked, `layer_0_*` back under
+  `encoder.layers.0`, Dense kernels transposed, and the positional conv's
+  resolved kernel split into `weight_v` (itself) and `weight_g` (its norm
+  over dims 0 and 1, torch's weight norm at dim=2)
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ _LISTS = ("attn_layers", "norm_layers_1", "norm_layers_2", "ffn_layers",
 _LIST_RE = re.compile(rf"^({'|'.join(_LISTS)})_(\d+)$")
 _LINEAR = ("spk_emb_linear", "output_layer")  # Dense layers kept as nn.Linear
 _LSTM_GATES = ("i", "f", "g", "o")
+_GRU_GATES = ("r", "z", "n")
 
 
 def _flatten(tree, prefix=()):
@@ -107,10 +118,43 @@ def _state_dict(tree: dict, rename=lambda path: path) -> dict[str, torch.Tensor]
     return sd
 
 
+def _unwrap(tree: dict) -> dict:
+    return tree["params"] if set(tree) == {"params"} else tree
+
+
+def _dense(sd: dict, name: str, tree: dict) -> None:
+    """A Dense layer -> nn.Linear `name.weight` [out, in] and `name.bias`."""
+    sd[f"{name}.weight"] = _tensor(np.asarray(tree["kernel"]).T)
+    if "bias" in tree:
+        sd[f"{name}.bias"] = _tensor(tree["bias"])
+
+
+def _ref_enc_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    convs = {k: v for k, v in tree.items() if k.startswith("convs_")}
+    sd = _state_dict(convs, lambda path: ["ref_enc"] + path)
+    _dense(sd, "ref_enc.proj", tree["proj"])
+    cell = tree["GRUCell_0"]
+    units = np.asarray(cell["hn"]["bias"]).shape[0]
+    sd["ref_enc.gru.weight_ih_l0"] = _tensor(np.concatenate(
+        [np.asarray(cell["i" + g]["kernel"]).T for g in _GRU_GATES]))
+    sd["ref_enc.gru.weight_hh_l0"] = _tensor(np.concatenate(
+        [np.asarray(cell["h" + g]["kernel"]).T for g in _GRU_GATES]))
+    sd["ref_enc.gru.bias_ih_l0"] = _tensor(np.concatenate(
+        [np.asarray(cell["i" + g]["bias"]) for g in _GRU_GATES]))
+    sd["ref_enc.gru.bias_hh_l0"] = _tensor(np.concatenate(
+        [np.zeros(2 * units, np.float32), np.asarray(cell["hn"]["bias"])]))
+    return sd
+
+
 def from_jax_params(tree: dict) -> dict[str, torch.Tensor]:
     """JAX `Synthesizer` params (nested dicts of arrays, with or without the
     top-level "params" key) -> the port's state_dict (float32 CPU tensors)."""
-    return _state_dict(tree)
+    tree = _unwrap(tree)
+    rest = {k: v for k, v in tree.items() if k != "ref_enc"}
+    sd = _state_dict(rest)
+    if "ref_enc" in tree:
+        sd.update(_ref_enc_state_dict(tree["ref_enc"]))
+    return sd
 
 
 def from_jax_mpd_params(tree: dict, periods=(2, 3, 5, 7, 11)) -> dict[str, torch.Tensor]:
@@ -137,3 +181,63 @@ def from_jax_dur_disc_params(tree: dict) -> dict[str, torch.Tensor]:
         sd[f"LSTM.bias_hh_l0{suffix}"] = _tensor(np.concatenate(bias))
         sd[f"LSTM.bias_ih_l0{suffix}"] = torch.zeros(4 * len(bias[0]))
     return sd
+
+
+def from_jax_wavlm_disc_params(tree: dict) -> dict[str, torch.Tensor]:
+    """JAX `WavLMDiscriminator` params -> the port's state_dict (`pre`,
+    `convs.{0,1,2}`, `conv_post`, each weight-normed)."""
+    return _state_dict(tree)
+
+
+def from_jax_wavlm_params(tree: dict, cfg) -> dict[str, torch.Tensor]:
+    """JAX `WavLMJax` params (`import_torch_wavlm`'s layout) -> the port's
+    `WavLM` state_dict (HF `WavLMModel` names). `cfg`: its WavLMConfig."""
+    p = _unwrap(tree)
+    sd: dict[str, torch.Tensor] = {}
+    for i in range(len(cfg.conv_dim)):
+        conv = p[f"conv_{i}"]
+        pre = f"feature_extractor.conv_layers.{i}."
+        sd[pre + "conv.weight"] = _tensor(np.transpose(conv["kernel"], (2, 1, 0)))
+        if "bias" in conv:
+            sd[pre + "conv.bias"] = _tensor(conv["bias"])
+        if f"conv_norm_{i}" in p:  # group norm: conv 0 only; layer norm: each
+            sd[pre + "layer_norm.weight"] = _tensor(p[f"conv_norm_{i}"]["scale"])
+            sd[pre + "layer_norm.bias"] = _tensor(p[f"conv_norm_{i}"]["bias"])
+
+    def norm(name, tree):
+        sd[f"{name}.weight"] = _tensor(tree["scale"])
+        sd[f"{name}.bias"] = _tensor(tree["bias"])
+
+    norm("feature_projection.layer_norm", p["proj_norm"])
+    _dense(sd, "feature_projection.projection", p["projection"])
+    w = np.transpose(np.asarray(p["pos_conv"]["kernel"], np.float32), (2, 1, 0))
+    pre = "encoder.pos_conv_embed.conv."
+    sd[pre + "weight_v"] = _tensor(w)
+    sd[pre + "weight_g"] = _tensor(np.sqrt((w ** 2).sum(axis=(0, 1), keepdims=True)))
+    sd[pre + "bias"] = _tensor(p["pos_conv"]["bias"])
+    norm("encoder.layer_norm", p["encoder_norm"])
+
+    def layer(i, tree):
+        L = f"encoder.layers.{i}."
+        att = tree["attention"]
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj", "gru_rel_pos_linear"):
+            _dense(sd, L + "attention." + name, att[name])
+        sd[L + "attention.gru_rel_pos_const"] = _tensor(att["gru_rel_pos_const"])
+        if "rel_attn_embed" in att:
+            sd[L + "attention.rel_attn_embed.weight"] = _tensor(
+                att["rel_attn_embed"]["embedding"])
+        norm(L + "layer_norm", tree["norm"])
+        _dense(sd, L + "feed_forward.intermediate_dense", tree["intermediate"])
+        _dense(sd, L + "feed_forward.output_dense", tree["output"])
+        norm(L + "final_layer_norm", tree["final_norm"])
+
+    layer(0, {k[len("layer_0_"):]: v for k, v in p.items() if k.startswith("layer_0_")})
+    for i in range(1, cfg.num_layers):  # the scanned layers, stacked on axis 0
+        layer(i, _index(p["layers"], i - 1))
+    return sd
+
+
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]

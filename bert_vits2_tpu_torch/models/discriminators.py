@@ -13,9 +13,11 @@ discriminator, `discriminators.1..` the period ones; `LSTM`,
   vectors per direction where the JAX cell keeps one; their sum is the
   JAX bias.
 
+- WavLMDiscriminator (the SLM losses): a conv head over the stacked
+  WavLM hidden states.
+
 All convs are weight-normed. Waves are [b, t]; the period discriminators
-view them as [b, 1, t / p, p] images. `WavLMDiscriminator` comes with the
-SLM branch.
+view them as [b, 1, t / p, p] images.
 """
 
 from __future__ import annotations
@@ -156,3 +158,25 @@ class DurationDiscriminator(nn.Module):
         x = self.drop(self.norm_1(torch.relu(self.conv_1(x * x_mask))))
         x = self.drop(self.norm_2(torch.relu(self.conv_2(x * x_mask))))
         return [self._probability(x, d) for d in (dur_r, dur_hat)]
+
+
+class WavLMDiscriminator(nn.Module):
+    """Conv head over the stacked SLM hidden states (models.py:703-749):
+    x [b, slm_hidden * slm_layers, frames], layer-major (`SLM.embed`) ->
+    logits [b, frames]."""
+
+    def __init__(self, slm_hidden: int = 768, slm_layers: int = 13,
+                 initial_channel: int = 64):
+        super().__init__()
+        ic = initial_channel
+        self.pre = conv1d(slm_hidden * slm_layers, ic, 1, weight_norm=True)
+        self.convs = nn.ModuleList(
+            conv1d(c_in, c_out, 5, padding=2, weight_norm=True)
+            for c_in, c_out in ((ic, 2 * ic), (2 * ic, 4 * ic), (4 * ic, 4 * ic)))
+        self.conv_post = conv1d(4 * ic, 1, 3, padding=1, weight_norm=True)
+
+    def forward(self, x):
+        x = self.pre(x)
+        for conv in self.convs:
+            x = F.leaky_relu(conv(x), LRELU_SLOPE)
+        return self.conv_post(x).flatten(1)

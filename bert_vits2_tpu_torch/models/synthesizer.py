@@ -3,7 +3,9 @@
 Counterpart of `bert_vits2_tpu/models/synthesizer.py`: `forward` is the
 training forward, `predict_durations` and `infer` the inference half. The
 submodules carry the reference's state_dict names (enc_p, enc_q, dec, flow,
-sdp, dp, emb_g).
+sdp, dp, and emb_g, or ref_enc when n_speakers == 0: the speaker embedding
+then comes from a reference spectrogram, the training spectrogram in
+`forward` and the caller's `y` in `infer`).
 
 The training forward runs monotonic alignment search on the device (kernel
 K3, `ops/align.py`) with no gradient, then the duration losses, the prior
@@ -38,6 +40,7 @@ from bert_vits2_tpu_torch.models.duration import (
 from bert_vits2_tpu_torch.models.flow import TransformerCouplingBlock
 from bert_vits2_tpu_torch.models.generator import Generator
 from bert_vits2_tpu_torch.models.posterior import PosteriorEncoder
+from bert_vits2_tpu_torch.models.reference_encoder import ReferenceEncoder
 from bert_vits2_tpu_torch.models.text_encoder import TextEncoder
 from bert_vits2_tpu_torch.ops import noise
 from bert_vits2_tpu_torch.ops.align import maximum_path
@@ -61,14 +64,12 @@ class Synthesizer(nn.Module):
             raise NotImplementedError("only the V2.3 family (emotion='none')")
         if not cfg.use_transformer_flow:
             raise NotImplementedError("only the transformer flow")
-        if cfg.n_speakers < 1:
-            raise NotImplementedError("only multi-speaker configs (emb_g)")
         if cfg.infer_compute_dtype != "float32":
             raise NotImplementedError("only float32 synthesis")
         if cfg.train_compute_dtype != "float32":
             raise NotImplementedError(
                 "only float32 training: the bf16 policy of train_compute_dtype "
-                "is not ported yet (ROADMAP item A.15, bf16 policy)")
+                "is not ported yet (ROADMAP §A.7)")
         self.cfg = cfg
         c = cfg
         gin = (c.gin_channels
@@ -93,13 +94,26 @@ class Synthesizer(nn.Module):
             c.hidden_channels, 3, 0.5, 4, gin_channels=c.gin_channels)
         self.dp = DurationPredictor(c.hidden_channels, 256, 3, 0.5,
                                     gin_channels=c.gin_channels)
-        self.emb_g = nn.Embedding(c.n_speakers, c.gin_channels)
+        if c.n_speakers >= 1:
+            self.emb_g = nn.Embedding(c.n_speakers, c.gin_channels)
+        else:
+            self.ref_enc = ReferenceEncoder(c.spec_channels, c.gin_channels)
         # built last, so that the seeded init of the modules above (all that
         # inference uses) does not depend on the training-only encoder
         self.enc_q = PosteriorEncoder(
             c.spec_channels, c.inter_channels, c.hidden_channels,
             kernel_size=5, dilation_rate=1, n_layers=16,
             gin_channels=c.gin_channels)
+
+    def _speaker(self, sid, y):
+        """The speaker embedding [b, gin]: emb_g(sid), or with
+        n_speakers == 0 the reference encoder of y [b, t, spec_channels]."""
+        if self.cfg.n_speakers >= 1:
+            return self.emb_g(sid)
+        if y is None:
+            raise ValueError("n_speakers == 0: the speaker embedding comes from "
+                             "a reference spectrogram; pass y [b, t, spec_channels]")
+        return self.ref_enc(y)
 
     def forward(self, x, x_lengths, y, y_lengths, sid, tone, language, bert,
                 ja_bert, en_bert, mas_noise_scale=0.01, generator=None):
@@ -110,7 +124,7 @@ class Synthesizer(nn.Module):
         [b, t_x, dim]. Returns the JAX package's dictionary of outputs, in
         the layout [b, c, t] (attn [b, t_y, t_x], masks [b, 1, t], l_length
         [b], wave_slice [b, segment_samples], ids_slice [b])."""
-        g = self.emb_g(sid)
+        g = self._speaker(sid, y)
         x_h, m_p, logs_p, x_mask = self.enc_p(
             x, x_lengths, tone, language, bert.transpose(1, 2),
             ja_bert.transpose(1, 2), en_bert.transpose(1, 2), g=g)
@@ -174,10 +188,10 @@ class Synthesizer(nn.Module):
 
     def _durations(self, x, x_lengths, sid, tone, language, bert, ja_bert,
                    en_bert, length_scale, noise_scale_w, sdp_ratio, generator,
-                   z_in):
+                   z_in, y=None):
         """Shared prefix of predict_durations and infer -> (w [b, t_x],
         m_p, logs_p [b, c, t_x], x_mask [b, 1, t_x], g [b, gin])."""
-        g = self.emb_g(sid)
+        g = self._speaker(sid, y)
         x_h, m_p, logs_p, x_mask = self.enc_p(
             x, x_lengths, tone, language, bert.transpose(1, 2),
             ja_bert.transpose(1, 2), en_bert.transpose(1, 2), g=g)
@@ -197,29 +211,31 @@ class Synthesizer(nn.Module):
     def predict_durations(self, x, x_lengths, sid, tone, language, bert,
                           ja_bert, en_bert, length_scale=1.0,
                           noise_scale_w=0.8, sdp_ratio=0.0, generator=None,
-                          z_in=None):
+                          z_in=None, y=None):
         """Predicted frame counts [b] without synthesis: the literal prefix of
         `infer`, so the same generator state gives infer's y_lengths."""
         w, *_ = self._durations(x, x_lengths, sid, tone, language, bert,
                                 ja_bert, en_bert, length_scale, noise_scale_w,
-                                sdp_ratio, generator, z_in)
+                                sdp_ratio, generator, z_in, y)
         return torch.sum(torch.ceil(w), dim=-1).clamp(min=1.0).to(torch.int32)
 
     def infer(self, x, x_lengths, sid, tone, language, bert, ja_bert, en_bert,
               max_frames: int, noise_scale=0.667, length_scale=1.0,
               noise_scale_w=0.8, sdp_ratio=0.0, generator=None, z_in=None,
-              eps=None, mrf_packed=None):
+              eps=None, mrf_packed=None, y=None):
         """Statically shaped synthesis (models.py:1026-1074).
 
         x, tone, language: [b, t_x] int; x_lengths, sid: [b]; bert, ja_bert,
         en_bert: [b, t_x, dim]. z_in [b, t_x, 2]: SDP noise, already scaled
         (noise_scale_w is then ignored); eps [b, max_frames, inter]: prior
         noise before noise_scale. mrf_packed: `dec.pack_mrf()`, resolved once.
+        y [b, t, spec_channels]: the reference spectrogram of a model with
+        n_speakers == 0 (sid is then unused).
         Returns (wave [b, max_frames * hop], attn [b, t_y, t_x],
         y_mask [b, t_y], y_lengths [b] int32)."""
         w, m_p, logs_p, x_mask, g = self._durations(
             x, x_lengths, sid, tone, language, bert, ja_bert, en_bert,
-            length_scale, noise_scale_w, sdp_ratio, generator, z_in)
+            length_scale, noise_scale_w, sdp_ratio, generator, z_in, y)
         w_ceil = torch.ceil(w)
         y_lengths = torch.sum(w_ceil, dim=-1).clamp(min=1.0)
         y_lengths = torch.clamp(y_lengths, max=max_frames).to(torch.int32)

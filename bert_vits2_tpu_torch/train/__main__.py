@@ -26,7 +26,7 @@ def main(argv: list[str] | None = None):
     p.add_argument("--slm-path", default="auto",
                    help="WavLM weights dir for the SLM adversarial losses "
                         "(train_ms.py:344-356); default resolves config.json "
-                        "model.slm.model (not ported: a present dir raises)")
+                        "model.slm.model")
     p.add_argument("--no-slm", action="store_true",
                    help="train WITHOUT the SLM/WavLM losses (diverges from "
                         "reference v2.3 training)")
@@ -37,7 +37,7 @@ def main(argv: list[str] | None = None):
 
     if args.multihost:
         raise NotImplementedError(
-            "multi-host training is not ported (ROADMAP item A.17)")
+            "multi-host training is not ported (multi-GPU: ROADMAP §A.9)")
 
     from bert_vits2_tpu_torch.train.trainer import Trainer
 

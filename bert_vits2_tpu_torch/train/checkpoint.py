@@ -5,12 +5,14 @@ clean_checkpoints).
 
 Counterpart of `bert_vits2_tpu/train/checkpoint.py`. The JAX package keeps
 its own training state in orbax directories; the port writes what the
-reference's train_ms.py writes instead: `G_{step}.pth`, `D_{step}.pth` and
-`DUR_{step}.pth`, each `{"model", "iteration", "optimizer",
-"learning_rate"}` with the module's state_dict under the reference's names
-and the torch AdamW state. A reference tool, or the JAX package's importer,
-reads them as it reads the reference's own files. The port does not read
-the JAX package's orbax directories.
+reference's train_ms.py writes instead: `G_{step}.pth`, `D_{step}.pth`,
+`DUR_{step}.pth` and, with the SLM losses, `WD_{step}.pth`, each
+`{"model", "iteration", "optimizer", "learning_rate"}` with the module's
+state_dict under the reference's names and the torch AdamW state. A
+reference tool, or the JAX package's importer, reads them as it reads the
+reference's own files. The frozen WavLM is never stored: it is an input,
+read again from its own directory. The port does not read the JAX
+package's orbax directories.
 """
 
 from __future__ import annotations
@@ -22,15 +24,15 @@ import torch
 
 from bert_vits2_tpu_torch.train.step import Models, TrainState
 
-_PREFIXES = ("G", "D", "DUR")
+_PREFIXES = ("G", "D", "DUR", "WD")
 _STRIP = ("module.", "_orig_mod.")
 
 
 def _pairs(models: Models, state: TrainState | None):
     """(file prefix, module, optimizer) of each present model."""
-    opts = (None, None, None) if state is None else (
-        state.opt_g, state.opt_d, state.opt_dd)
-    for prefix, module, opt in zip(_PREFIXES, models[:3], opts):
+    opts = (None,) * 4 if state is None else (
+        state.opt_g, state.opt_d, state.opt_dd, state.opt_wd)
+    for prefix, module, opt in zip(_PREFIXES, models, opts):
         if module is not None:
             yield prefix, module, opt
 
@@ -66,7 +68,7 @@ def latest_step(directory: str) -> int | None:
 def save_train_state(directory: str, step: int, models: Models,
                      state: TrainState, learning_rate: float,
                      keep: int = 8) -> None:
-    """Write G_/D_/DUR_{step}.pth and keep the newest `keep` of each."""
+    """Write G_/D_/DUR_/WD_{step}.pth and keep the newest `keep` of each."""
     os.makedirs(directory, exist_ok=True)
     for prefix, module, opt in _pairs(models, state):
         path = _path(directory, prefix, step)
@@ -97,7 +99,7 @@ def restore_train_state(directory: str, models: Models, state: TrainState,
 
 
 def bootstrap_from_reference(directory: str, models: Models) -> tuple[int, dict]:
-    """Load the newest reference G_/D_/DUR_*.pth found in directory into the
+    """Load the newest reference G_/D_/DUR_/WD_*.pth found in directory into the
     models (the reference's resume glob, utils.py:163-167): the parameters
     only, after stripping the `module.` (DDP) and `_orig_mod.`
     (torch.compile) prefixes, with load_state_dict(strict=False) as the

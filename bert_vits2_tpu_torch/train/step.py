@@ -2,11 +2,14 @@
 
 Counterpart of `bert_vits2_tpu/train/step.py`. The order of the updates is
 the reference's: the waveform discriminators, the duration discriminator,
-then the generator against the UPDATED discriminators. The JAX step runs
-the generator forward twice with the same random numbers (once without
-gradients for the discriminator updates, once under `grad`); here one
-forward with its graph serves both, and the discriminator losses see its
-outputs detached, which is the same mathematics.
+the WavLM discriminator of the SLM losses, then the generator against the
+UPDATED discriminators. The JAX step runs the generator forward twice with
+the same random numbers (once without gradients for the discriminator
+updates, once under `grad`); here one forward with its graph serves both,
+and the discriminator losses see its outputs detached, which is the same
+mathematics. The frozen WavLM runs once on the real slice (no graph) and
+once on the fake one (with its graph, detached for the WavLM
+discriminator's update), where the JAX step runs it on each twice.
 
 PyTorch's idiom replaces the functional state: the parameters live in the
 modules of `Models` and are updated in place, the optimizers are
@@ -15,8 +18,7 @@ state it was given with its counter advanced. Metrics are 0-d tensors on
 the device, so the step itself never waits for the card.
 
 Only float32 training is ported: `bf16_run` and a bfloat16
-`train_compute_dtype` raise. The SLM (WavLM) losses come with a later
-slice.
+`train_compute_dtype` raise (bf16 policy: ROADMAP §A.7).
 """
 
 from __future__ import annotations
@@ -97,7 +99,7 @@ class Models(NamedTuple):
     synthesizer: nn.Module  # Synthesizer
     mpd: nn.Module  # MultiPeriodDiscriminator
     dur_disc: nn.Module | None  # DurationDiscriminator
-    wavlm_disc: nn.Module | None  # WavLMDiscriminator (not ported: None)
+    wavlm_disc: nn.Module | None  # WavLMDiscriminator (the SLM losses)
 
 
 @dataclasses.dataclass
@@ -108,14 +110,15 @@ class TrainState:
     opt_g: torch.optim.Optimizer
     opt_d: torch.optim.Optimizer
     opt_dd: torch.optim.Optimizer | None
+    opt_wd: torch.optim.Optimizer | None = None
 
 
 def _check_fp32(cfg: TrainConfig) -> None:
     if cfg.bf16_run:
         raise NotImplementedError(
             "bf16_run is not ported yet: the bf16 training policy (autocast "
-            "of the hot stages, global-norm clipping) is ROADMAP item A.15, "
-            "bf16 policy; this step trains in float32 only")
+            "of the hot stages, global-norm clipping) is ROADMAP §A.7; this "
+            "step trains in float32 only")
 
 
 def make_optimizer(cfg: TrainConfig, module: nn.Module,
@@ -139,14 +142,16 @@ def make_optimizer(cfg: TrainConfig, module: nn.Module,
 
 
 def init_train_state(models: Models, cfg: TrainConfig) -> TrainState:
-    if models.wavlm_disc is not None:
-        raise NotImplementedError("the SLM (WavLM) branch is not ported yet")
+    """The duration and WavLM discriminators take the discriminator's
+    optimizer (grad_clip_d), as in the JAX step."""
     return TrainState(
         step=0,
         opt_g=make_optimizer(cfg, models.synthesizer, cfg.frozen_subtrees),
         opt_d=make_optimizer(cfg, models.mpd),
         opt_dd=(make_optimizer(cfg, models.dur_disc)
                 if models.dur_disc is not None else None),
+        opt_wd=(make_optimizer(cfg, models.wavlm_disc)
+                if models.wavlm_disc is not None else None),
     )
 
 
@@ -206,7 +211,8 @@ def expand_bert(batch: dict, generator: torch.Generator | None) -> dict:
 def make_train_step(models: Models, train_cfg: TrainConfig,
                     data_cfg: DataConfig, segment_size_frames: int,
                     mas_noise_initial: float = 0.01,
-                    mas_noise_delta: float = 2e-6) -> Callable:
+                    mas_noise_delta: float = 2e-6,
+                    slm: nn.Module | None = None) -> Callable:
     """Build the train step: (state, batch, generator, lr) -> (state, metrics).
 
     batch keys (tensors on the models' device): x, x_lengths, spec
@@ -214,11 +220,16 @@ def make_train_step(models: Models, train_cfg: TrainConfig,
     bert, ja_bert, en_bert [b, t_x, dim], or in place of the last two
     utt_lang [b] (see `expand_bert`). `generator` is the
     `torch.Generator` of the step's noise; `lr` the learning rate of this
-    step. The modules are put in train() mode."""
+    step. The modules are put in train() mode.
+
+    slm: the frozen `models.slm.SLM` (wave at the data's rate -> WavLM
+    hidden states) of the SLM losses. It comes with `models.wavlm_disc`:
+    each needs the other."""
     _check_fp32(train_cfg)
     synth, mpd, dur_disc, wavlm_disc = models
-    if wavlm_disc is not None:
-        raise NotImplementedError("the SLM (WavLM) branch is not ported yet")
+    if (slm is None) != (wavlm_disc is None):
+        raise ValueError("the SLM losses need both the frozen SLM and the WavLM "
+                         "discriminator (Models.wavlm_disc), or neither")
     dc = data_cfg
     hop, seg = dc.hop_length, segment_size_frames
     mel_args = (dc.filter_length, dc.n_mel_channels, dc.sampling_rate)
@@ -232,7 +243,7 @@ def make_train_step(models: Models, train_cfg: TrainConfig,
 
     def step(state: TrainState, batch: dict, generator: torch.Generator | None,
              lr: float):
-        for m in (synth, mpd, dur_disc):
+        for m in (synth, mpd, dur_disc, wavlm_disc):
             if m is not None:
                 m.train()
         metrics = {}
@@ -263,8 +274,20 @@ def make_train_step(models: Models, train_cfg: TrainConfig,
             metrics["loss/dur_disc/total"] = loss_dur_disc.detach()
             metrics["grad_norm_dur"] = _update(state.opt_dd, loss_dur_disc, lr)
 
+        # ---- 2c. WavLM discriminator (train_ms.py:558-568) ----
+        if slm is not None:
+            with torch.no_grad():
+                hs_real = slm(y)
+            hs_fake = slm(y_hat)  # with its graph: the generator's SLM losses
+            emb_fake = slm.embed(hs_fake)
+            d_r = wavlm_disc(slm.embed(hs_real))
+            d_g = wavlm_disc(emb_fake.detach())
+            loss_wd = torch.mean((1.0 - d_r) ** 2) + torch.mean(d_g ** 2)
+            metrics["loss/wd/total"] = loss_wd.detach()
+            metrics["grad_norm_wd"] = _update(state.opt_wd, loss_wd, lr)
+
         # ---- 3. generator, against the updated discriminators ----
-        with _no_param_grads(mpd, dur_disc):
+        with _no_param_grads(mpd, dur_disc, wavlm_disc):
             y_hat_mel = mel_spectrogram(y_hat.float(), *mel_args, hop,
                                         dc.win_length, dc.mel_fmin, dc.mel_fmax)
             _, y_d_g, fmap_r, fmap_g = mpd(y, y_hat)
@@ -282,6 +305,13 @@ def make_train_step(models: Models, train_cfg: TrainConfig,
                 loss_dur_gen, _ = generator_loss(dur_disc_pairs(out, False)[1])
                 loss_all = loss_all + loss_dur_gen
                 aux["loss/g/dur_gen"] = loss_dur_gen
+            if slm is not None:
+                loss_lm = sum(torch.mean(torch.abs(r - f))
+                              for r, f in zip(hs_real, hs_fake))
+                loss_lm_gen = torch.mean((1.0 - wavlm_disc(emb_fake)) ** 2)
+                loss_all = loss_all + loss_lm + loss_lm_gen
+                aux["loss/g/lm"] = loss_lm
+                aux["loss/g/lm_gen"] = loss_lm_gen
             grad_norm_g = _update(state.opt_g, loss_all, lr)
         metrics.update({k: v.detach() for k, v in aux.items()})
         metrics["loss/g/total"] = loss_all.detach()

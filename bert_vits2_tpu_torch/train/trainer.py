@@ -8,11 +8,15 @@ bucket sampler, runs one GAN step per batch (`train/step.py`), decays the
 learning rate per epoch (gamma^epoch, train_ms.py:334-345), logs scalars
 and eval clips to TensorBoard when it is installed, and keeps reference-
 layout checkpoints with retention (`train/checkpoint.py`), resuming from
-the newest or bootstrapping from reference G_/D_/DUR_*.pth files.
+the newest or bootstrapping from reference G_/D_/DUR_/WD_*.pth files.
 
-One device, float32. Left for later slices, each of which raises: data or
-model parallelism (ROADMAP item A.17), the SLM (WavLM) losses (A.14) and
-bf16 training (A.15).
+V2.3 trains with the SLM losses whenever config.json declares
+`model.slm`: the frozen WavLM is read from `model.slm.model` (an HF
+checkpoint directory) and the WavLM discriminator trains beside the
+others. `slm_path=None` (the CLI's --no-slm) trains without them.
+
+One device, float32. Left for later slices, each of which raises: bf16
+training (ROADMAP §A.7) and data or model parallelism (§A.9).
 """
 
 from __future__ import annotations
@@ -38,7 +42,9 @@ from bert_vits2_tpu_torch.device import resolve_device
 from bert_vits2_tpu_torch.models.discriminators import (
     DurationDiscriminator,
     MultiPeriodDiscriminator,
+    WavLMDiscriminator,
 )
+from bert_vits2_tpu_torch.models.slm import SLM, WavLMConfig, load_wavlm
 from bert_vits2_tpu_torch.models.synthesizer import Synthesizer
 from bert_vits2_tpu_torch.train import checkpoint as ckpt
 from bert_vits2_tpu_torch.train.step import (
@@ -73,17 +79,31 @@ def train_config_from_hparams(hps: HParams) -> TrainConfig:
 
 def build_models(mcfg: ModelConfig, use_dur_disc: bool = True,
                  use_wavlm_disc: bool = False,
-                 device: str | torch.device = "cuda") -> Models:
+                 device: str | torch.device = "cuda",
+                 wavlm: WavLMConfig | None = None) -> Models:
     """The full-size models per configs/config.json, on `device`, in
-    train() mode. Draw their parameters from a seed with `init_params`."""
-    if use_wavlm_disc:
-        raise NotImplementedError("the SLM (WavLM) branch is not ported yet "
-                                  "(ROADMAP item A.14)")
+    train() mode. Draw their parameters from a seed with `init_params`.
+
+    The WavLM discriminator takes model.slm's hidden, nlayers and
+    initial_channel; `wavlm`, the loaded WavLM's config, must give it that
+    input width (hidden_size x (num_layers + 1))."""
     dev = resolve_device(device)
+    if use_wavlm_disc and wavlm is not None and (
+            mcfg.slm_hidden * mcfg.slm_layers
+            != wavlm.hidden_size * (wavlm.num_layers + 1)):
+        raise ValueError(
+            f"model.slm declares hidden {mcfg.slm_hidden} x nlayers "
+            f"{mcfg.slm_layers}, but the WavLM gives {wavlm.num_layers + 1} "
+            f"hidden states of {wavlm.hidden_size}")
     dd = (DurationDiscriminator(mcfg.hidden_channels, 256, 3, 0.1,
                                 gin_channels=mcfg.gin_channels)
           if use_dur_disc else None)
-    models = Models(Synthesizer(mcfg), MultiPeriodDiscriminator(), dd, None)
+    synth, mpd = Synthesizer(mcfg), MultiPeriodDiscriminator()
+    # built last, so that the seeded init of the others does not depend on it
+    wd = (WavLMDiscriminator(mcfg.slm_hidden, mcfg.slm_layers,
+                             mcfg.slm_initial_channel)
+          if use_wavlm_disc else None)
+    models = Models(synth, mpd, dd, wd)
     return Models(*(m if m is None else m.to(dev).train() for m in models))
 
 
@@ -94,6 +114,7 @@ def init_params(models: Models, mcfg: ModelConfig, seed: int = 1234) -> Models:
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         fresh = build_models(mcfg, use_dur_disc=models.dur_disc is not None,
+                             use_wavlm_disc=models.wavlm_disc is not None,
                              device="cpu")
     for module, new in zip(models, fresh):
         if module is not None:
@@ -109,7 +130,10 @@ class Trainer:
         t.run(epochs=100)
 
     `models` replaces the full-size models of config.json (the caller has
-    drawn their parameters); `device` defaults to the card.
+    drawn their parameters); `device` defaults to the card. `slm_path`:
+    "auto" resolves config.json's model.slm.model, a directory loads that
+    WavLM, None trains without the SLM losses. `use_wavlm_disc` asks for
+    them too, and then needs a WavLM.
     """
 
     def __init__(
@@ -139,14 +163,13 @@ class Trainer:
                         "weights found there; pass slm_path=<dir>, or disable "
                         "the SLM losses explicitly with --no-slm / slm_path=None")
                 slm_path = cand
-        if slm_path is not None or use_wavlm_disc:
-            raise NotImplementedError(
-                "the SLM (WavLM) losses are not ported yet (ROADMAP item "
-                "A.14); train without them with --no-slm / slm_path=None")
+        if use_wavlm_disc and slm_path is None:
+            raise ValueError("the WavLM discriminator needs the frozen WavLM: "
+                             "pass slm_path=<dir> or declare model.slm")
         if n_model != 1:
             raise NotImplementedError(
                 "the port trains on one device: model parallelism is ROADMAP "
-                "item A.17 (n_model must be 1)")
+                "§A.9, multi-GPU (n_model must be 1)")
         self.model_dir = model_dir
         os.makedirs(model_dir, exist_ok=True)
         self.logger = get_logger(model_dir)
@@ -158,10 +181,21 @@ class Trainer:
         self.mcfg = model_config_from_hparams(self.hps, **mcfg_kw)
         self.dcfg = data_config_from_hparams(self.hps)
         self.tcfg = train_config_from_hparams(self.hps)
+        self.slm, wavlm_cfg = None, None
+        if slm_path is not None:
+            wavlm, wavlm_cfg = load_wavlm(slm_path, device=self.device)
+            self.slm = SLM(wavlm, self.dcfg.sampling_rate,
+                           self.mcfg.slm_sr).to(self.device)
+            self.logger.info("SLM losses on: WavLM from %s (%d layers of %d)",
+                             slm_path, wavlm_cfg.num_layers, wavlm_cfg.hidden_size)
         if models is None:
-            models = init_params(build_models(self.mcfg, use_dur_disc,
-                                              device=self.device),
-                                 self.mcfg, self.tcfg.seed)
+            models = init_params(
+                build_models(self.mcfg, use_dur_disc, self.slm is not None,
+                             device=self.device, wavlm=wavlm_cfg),
+                self.mcfg, self.tcfg.seed)
+        elif (models.wavlm_disc is None) != (self.slm is None):
+            raise ValueError("models.wavlm_disc must be given exactly when the "
+                             "SLM losses are on")
         self.models = Models(*(m if m is None else m.to(self.device).train()
                                for m in models))
 
@@ -206,7 +240,7 @@ class Trainer:
         self.step_fn = make_train_step(
             self.models, self.tcfg, self.dcfg, self.mcfg.segment_size,
             mas_noise_initial=self.mcfg.mas_noise_scale_initial,
-            mas_noise_delta=self.mcfg.noise_scale_delta)
+            mas_noise_delta=self.mcfg.noise_scale_delta, slm=self.slm)
         self.generator = torch.Generator(device=self.device)
 
     # ---- data ----
@@ -372,7 +406,9 @@ class Trainer:
     @torch.no_grad()
     def evaluate(self, max_items: int = 2, max_frames: int = 1024) -> None:
         """Synthesize the first validation items with the SDP and with the
-        DP (`Synthesizer.infer`, eval mode) and log clips and alignments."""
+        DP (`Synthesizer.infer`, eval mode; the item's spectrogram is the
+        reference of an n_speakers == 0 model) and log clips and
+        alignments."""
         if self.val_ds is None or len(self.val_ds) == 0:
             return
         synth = self.models.synthesizer
@@ -395,7 +431,7 @@ class Trainer:
                         dev(it["sid"], torch.int64), dev(it["tones"], torch.int64),
                         dev(it["lang"], torch.int64), dev(it["bert"]),
                         dev(it["ja_bert"]), dev(it["en_bert"]), max_frames,
-                        sdp_ratio=sdp_ratio,
+                        sdp_ratio=sdp_ratio, y=dev(it["spec"]),
                         generator=torch.Generator(device=self.device).manual_seed(i))
                     n = int(y_len[0])
                     audios[f"gen/audio_{i}_{tag}"] = wave[0, :n * hop].cpu().numpy()

@@ -81,6 +81,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    step, peak memory, a profiler breakdown of one step; then the same
    batch and weights with the fused attention (BV2_FUSED_ATTENTION_TRAIN=1)
    and the dense one in turns: both medians and peak memories.
+7b. the training step with the SLM losses ([train-slm]): a random WavLM at
+   the wavlm-base-plus widths (frozen, behind the 44.1 -> 16 kHz
+   resampler) and WavLMDiscriminator(768, 13, 64) beside the same
+   models, fused attention; the step with the SLM and the step without it
+   in turns on the same batch: ms per step and peak memory of each, the
+   K1-train/B5/B6/K3 launches of every step (22/22/22/1 with and without
+   the SLM), finite loss/wd/total, loss/g/lm and loss/g/lm_gen, the WavLM
+   discriminator moved and the WavLM did not; the SLM forward's time at
+   [16, 16384] samples; the SLM terms (hidden states, the three losses,
+   the discriminator's and the fake wave's gradients) card against CPU
+   from the same weights at batch 2.
 8. the training forward at a cut depth, dropout off, the same noise, on the
    card and on the CPU: equal alignments, losses and waves within bounds.
 9. the training entry point: the Trainer (the CLI's) on a synthetic 44.1
@@ -88,6 +99,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    attention, no SLM: K1-train/B5/B6 and MAS launches per step, finite
    metrics, moved parameters, a checkpoint; step time, peak memory, a
    profile of one step; then the CLI resumes on the same directory.
+9b. the Trainer with the SLM losses ([trainer-slm]): a random WavLM at the
+   published widths written as an HF checkpoint directory (config.json in
+   HF keys, pytorch_model.bin), the corpus config's model.slm.model
+   pointing at it, Trainer(slm_path="auto") loading it: 3 steps with the
+   kernels' launches per step, finite SLM metrics, WD_3.pth beside
+   G_/D_/DUR_3.pth, and a second Trainer that resumes (the WavLM
+   discriminator as saved) and runs a fourth step.
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -144,6 +162,16 @@ WIDE_KEYS = ("banded_attn_wide_fwd_train", "banded_attn_wide_bwd_q",
 TC_KEYS = ("banded_attn_fwd_train", "banded_attn_bwd_q", "banded_attn_bwd_k")
 AB_ROUNDS = 3  # fused vs dense: D F F D per round
 TRAINER_UTTS, TRAINER_WARMUP, TRAINER_TIMED = 32, 2, 6
+SLM_ROUNDS = 2  # SLM vs no-SLM steps in turns: S N N S per round, after one warm-up each
+SLM_CHECK_BATCH = 2  # the card-vs-CPU check of the SLM pieces
+# card vs CPU, fp32, TF32 off: the WavLM's hidden states (post-LN, O(1); 12
+# layers of 768- and 3072-term sums and 7 convs of up to 1536-term sums in
+# another order), absolute; the SLM losses and the gradients (of the WavLM
+# discriminator's parameters and of the fake wave), relative to the value
+# and to each gradient's norm
+WAVLM_BOUND = 1e-3
+SLM_REL_BOUND = 1e-3
+TRAINER_SLM_WARMUP, TRAINER_SLM_TIMED = 1, 2
 
 
 def log(*a):
@@ -806,12 +834,13 @@ V23_MODEL_JSON = dict(  # the model section of the reference's V2.3 config.json
 )
 
 
-def write_corpus(root, n_utts, seed=0):
+def write_corpus(root, n_utts, seed=0, slm_dir=None):
     """A synthetic corpus for the Trainer: 44.1 kHz int16 wavs of 401-500
     frames (one bucket of the sampler), 40-63 phones each (128 text slots
     after the blanks), cached BERT features, a cleaned filelist in three
     languages and four speakers, and a config.json with the V2.3 model
-    section. Returns the config path."""
+    section (its model.slm.model set to `slm_dir` when given). Returns the
+    config path."""
     from scipy.io import wavfile
 
     from bert_vits2_tpu_torch.text.symbols import SYMBOLS
@@ -847,7 +876,8 @@ def write_corpus(root, n_utts, seed=0):
                   win_length=2048, n_mel_channels=128, mel_fmin=0.0,
                   mel_fmax=None, add_blank=True, n_speakers=256,
                   spk2id={f"spk{i}": i for i in range(4)}),
-        model=V23_MODEL_JSON,
+        model=(V23_MODEL_JSON if slm_dir is None else dict(
+            V23_MODEL_JSON, slm=dict(V23_MODEL_JSON["slm"], model=slm_dir))),
     )
     cfg_path = os.path.join(root, "config.json")
     with open(cfg_path, "w", encoding="utf-8") as f:
@@ -1508,6 +1538,316 @@ def run_trainer(dev, smi, counters):
     return launches
 
 
+def make_wavlm(seed):
+    """A WavLM at the published microsoft/wavlm-base-plus widths, random
+    weights drawn from a seed (torch's default initializers)."""
+    from bert_vits2_tpu_torch.models.slm import WavLM, WavLMConfig
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return WavLM(WavLMConfig()).eval()
+
+
+def slm_pieces(slm, wd, y, y_hat):
+    """The SLM terms of the training step (train/step.py, 2c and 3) on one
+    real and one fake wave: (hidden states of y, loss_wd, lm, lm_gen, the
+    WavLM discriminator's gradient, d(lm + lm_gen)/d y_hat)."""
+    y_hat = y_hat.detach().requires_grad_(True)
+    with torch.no_grad():
+        hs_real = slm(y)
+    hs_fake = slm(y_hat)
+    emb_fake = slm.embed(hs_fake)
+    wd.zero_grad(set_to_none=True)
+    loss_wd = (torch.mean((1.0 - wd(slm.embed(hs_real))) ** 2)
+               + torch.mean(wd(emb_fake.detach()) ** 2))
+    loss_wd.backward()
+    grads = {n: p.grad.detach().clone() for n, p in wd.named_parameters()}
+    for p in wd.parameters():
+        p.requires_grad_(False)
+    try:
+        lm = sum(torch.mean(torch.abs(r - f)) for r, f in zip(hs_real, hs_fake))
+        lm_gen = torch.mean((1.0 - wd(emb_fake)) ** 2)
+        (lm + lm_gen).backward()
+    finally:
+        for p in wd.parameters():
+            p.requires_grad_(True)
+    return (hs_real, loss_wd.detach(), lm.detach(), lm_gen.detach(), grads,
+            y_hat.grad)
+
+
+def check_slm_on_cpu(slm, wd, cfg, data_cfg, dev):
+    """The SLM pieces, card against CPU, from the same weights at a small
+    batch."""
+    from bert_vits2_tpu_torch.models.discriminators import WavLMDiscriminator
+    from bert_vits2_tpu_torch.models.slm import SLM, WavLM
+
+    rng = np.random.default_rng(11)
+    seg = cfg.segment_samples
+    y, y_hat = (torch.from_numpy(rng.uniform(-0.5, 0.5, (SLM_CHECK_BATCH, seg))
+                                 .astype(np.float32)) for _ in range(2))
+    cpu_wavlm = WavLM(slm.wavlm.cfg)
+    cpu_wavlm.load_state_dict({k: v.cpu() for k, v in slm.wavlm.state_dict().items()})
+    cpu_slm = SLM(cpu_wavlm, data_cfg.sampling_rate, cfg.slm_sr)
+    cpu_wd = WavLMDiscriminator(cfg.slm_hidden, cfg.slm_layers,
+                                cfg.slm_initial_channel)
+    cpu_wd.load_state_dict({k: v.cpu() for k, v in wd.state_dict().items()})
+    t0 = time.perf_counter()
+    want = slm_pieces(cpu_slm, cpu_wd, y, y_hat)
+    cpu_s = time.perf_counter() - t0
+    got = slm_pieces(slm, wd, y.to(dev), y_hat.to(dev))
+    hs_err = max((g.cpu() - w).abs().max().item() for g, w in zip(got[0], want[0]))
+    names = ("loss/wd/total", "loss/g/lm", "loss/g/lm_gen")
+    loss_abs = {k: abs(float(g) - float(w)) for k, g, w in zip(names, got[1:4], want[1:4])}
+    loss_err = {k: loss_abs[k] / abs(float(w)) for k, w in zip(names, want[1:4])}
+    grad_abs = {n: (got[4][n].cpu() - w).abs().max().item() for n, w in want[4].items()}
+    grad_err = max(grad_abs[n] / w.norm().item() for n, w in want[4].items())
+    wave_abs = (got[5].cpu() - want[5]).abs().max().item()
+    wave_err = wave_abs / want[5].norm().item()
+    log(f"[train-slm] card vs CPU, batch {SLM_CHECK_BATCH} of {seg} samples at "
+        f"44.1 kHz, the same weights: WavLM hidden states ({len(want[0])} of "
+        f"{list(want[0][0].shape)}) max_abs_err {hs_err:.3e} (bound {WAVLM_BOUND:g}); "
+        "losses max_abs_err / relative " + ", ".join(
+            f"{k} {loss_abs[k]:.3e} / {loss_err[k]:.3e}" for k in names)
+        + f"; WavLM discriminator gradient max_abs_err {max(grad_abs.values()):.3e}, "
+        f"max error / norm {grad_err:.3e}; d(lm + lm_gen)/d y_hat max_abs_err "
+        f"{wave_abs:.3e}, / norm {wave_err:.3e} (relative bound {SLM_REL_BOUND:g}); "
+        f"CPU run {cpu_s:.1f} s")
+    if not (hs_err <= WAVLM_BOUND and max(loss_err.values()) <= SLM_REL_BOUND
+            and grad_err <= SLM_REL_BOUND and wave_err <= SLM_REL_BOUND):
+        raise AssertionError("card and CPU disagree on the SLM losses")
+    return hs_err
+
+
+def run_training_slm(dev, smi, counters):
+    """Phase 7b: the GAN step with the SLM losses at the default V2.3 config,
+    full width, fp32, fused attention, against the same step without them,
+    in turns, on one batch and one set of modules."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bert_vits2_tpu_torch.config import ModelConfig
+    from bert_vits2_tpu_torch.models.slm import SLM
+    from bert_vits2_tpu_torch.nn.attention import MultiHeadAttention
+    from bert_vits2_tpu_torch.train import (
+        DataConfig, TrainConfig, init_train_state, make_train_step)
+    from bert_vits2_tpu_torch.train.trainer import build_models, init_params
+
+    cfg, data_cfg, train_cfg = ModelConfig(), DataConfig(), TrainConfig()
+    t0 = time.perf_counter()
+    wavlm = make_wavlm(seed=5)
+    slm = SLM(wavlm, data_cfg.sampling_rate, cfg.slm_sr).to(dev)
+    models = init_params(build_models(cfg, use_wavlm_disc=True, device="cuda",
+                                      wavlm=wavlm.cfg), cfg, seed=1234)
+    plain = models._replace(wavlm_disc=None)
+    steps = {"slm": make_train_step(models, train_cfg, data_cfg, cfg.segment_size,
+                                    slm=slm),
+             "plain": make_train_step(plain, train_cfg, data_cfg, cfg.segment_size)}
+    states = {"slm": init_train_state(models, train_cfg),
+              "plain": init_train_state(plain, train_cfg)}
+    batch = make_train_batch(cfg, data_cfg.hop_length, TRAIN_BATCH, TRAIN_TX,
+                             TRAIN_TY, seed=0, dev=dev)
+    n_attn = sum(isinstance(m, MultiHeadAttention)
+                 for m in models.synthesizer.modules())
+    n_wavlm = sum(p.numel() for p in wavlm.parameters())
+    n_wd = sum(p.numel() for p in models.wavlm_disc.parameters())
+    log(f"[train-slm] default V2.3 config, fp32, TF32 off, fused attention: a "
+        f"random WavLM at the wavlm-base-plus widths ({wavlm.cfg.num_layers} layers "
+        f"of {wavlm.cfg.hidden_size}, {n_wavlm} parameters, frozen) and a "
+        f"WavLMDiscriminator({cfg.slm_hidden}, {cfg.slm_layers}, "
+        f"{cfg.slm_initial_channel}) of {n_wd} parameters; batch {TRAIN_BATCH}; "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    wd_before = [p.detach().clone() for p in models.wavlm_disc.parameters()]
+    wavlm_before = [p.detach().clone() for p in wavlm.parameters()]
+    gen = torch.Generator(device=dev).manual_seed(train_cfg.seed)
+    fused = ("banded_attn_fwd_train", "banded_attn_bwd_q", "banded_attn_bwd_k",
+             "mas_fwd")
+    want = {k: n_attn for k in fused[:3]}
+    want["mas_fwd"] = 1
+    times, peaks = {"slm": [], "plain": []}, {"slm": 0.0, "plain": 0.0}
+    per_step, metrics = {}, None
+    order = ["slm", "plain"] + ["slm", "plain", "plain", "slm"] * SLM_ROUNDS
+    os.environ["BV2_FUSED_ATTENTION_TRAIN"] = "1"
+    try:
+        for i, mode in enumerate(order):  # the first two steps warm up
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[mode], out = steps[mode](states[mode], batch, gen,
+                                            train_cfg.learning_rate)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            got = {k: counters[k].launches for k in counters}
+            if {k: got[k] for k in fused} != want or sum(got.values()) != sum(want.values()):
+                raise AssertionError(f"a {mode} step launched {got}, not {want}")
+            bad = {k: float(v) for k, v in out.items() if not math.isfinite(float(v))}
+            if bad:
+                raise AssertionError(f"non-finite metrics in a {mode} step: {bad}")
+            if mode == "slm":
+                per_step, metrics = got, out
+            if i >= 2:
+                times[mode].append(sec)
+                peaks[mode] = max(peaks[mode], torch.cuda.max_memory_allocated() / 2**30)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            states["slm"], _ = steps["slm"](states["slm"], batch, gen,
+                                            train_cfg.learning_rate)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        profile_lines(prof, wall, "one training step with the SLM losses", top=12)
+    finally:
+        os.environ.pop("BV2_FUSED_ATTENTION_TRAIN", None)
+    names = ("loss/wd/total", "grad_norm_wd", "loss/g/lm", "loss/g/lm_gen")
+    if any(k not in metrics for k in names):
+        raise AssertionError(f"SLM metrics missing: {sorted(metrics)}")
+    log("[train-slm] last SLM step: " + ", ".join(
+        f"{k} {float(metrics[k]):.4g}" for k in names + ("loss/g/total",)))
+    moved = sum(not torch.equal(p.detach(), o)
+                for p, o in zip(models.wavlm_disc.parameters(), wd_before))
+    still = all(torch.equal(p, o) for p, o in zip(wavlm.parameters(), wavlm_before))
+    log(f"[train-slm] WavLM discriminator: {moved} of {len(wd_before)} parameter "
+        f"tensors changed; the frozen WavLM unchanged {still}, its parameters "
+        f"without gradients {all(p.grad is None for p in wavlm.parameters())}")
+    if moved < len(wd_before) or not still:
+        raise AssertionError("the WavLM discriminator did not move or the WavLM did")
+    del wd_before, wavlm_before
+    log(f"[train-slm] launches per SLM step {{K1-train/B5/B6: "
+        f"{[per_step[k] for k in fused[:3]]}, K3: {per_step['mas_fwd']}}} "
+        f"(expected {n_attn} each and 1, as without the SLM)")
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"[train-slm-timing] {smi}: {len(times['slm'])} steps each in turns "
+        f"(S N N S) after one warm-up each: with the SLM median "
+        f"{med['slm'] * 1e3:.1f} ms (max {max(times['slm']) * 1e3:.1f}), peak "
+        f"{peaks['slm']:.2f} GiB; without median {med['plain'] * 1e3:.1f} ms (max "
+        f"{max(times['plain']) * 1e3:.1f}), peak {peaks['plain']:.2f} GiB; "
+        f"slm/plain {med['slm'] / med['plain']:.3f}")
+    wave = batch["wave"][:, :cfg.segment_samples].contiguous()
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: slm(wave), iters=10)
+        frames = slm(wave)[0].shape[1]
+    log(f"[train-slm-timing] {smi}: SLM forward (resampler and WavLM, no grad) "
+        f"at [{TRAIN_BATCH}, {cfg.segment_samples}] samples at 44.1 kHz -> "
+        f"{frames} frames: {fwd_ms:.3f} ms (CUDA events, 10 calls)")
+    with torch.no_grad(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        slm(wave)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    profile_lines(prof, wall, "one SLM forward", top=8)
+    check_slm_on_cpu(slm, models.wavlm_disc, cfg, data_cfg, dev)
+    del models, plain, states, steps, slm, wavlm
+    torch.cuda.empty_cache()
+    return per_step
+
+
+def write_wavlm(path, seed):
+    """A random WavLM at the published widths as an HF checkpoint
+    directory: config.json in HF keys and pytorch_model.bin."""
+    wavlm = make_wavlm(seed)
+    os.makedirs(path)
+    with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as f:
+        json.dump(wavlm.cfg.to_hf(), f)
+    torch.save(wavlm.state_dict(), os.path.join(path, "pytorch_model.bin"))
+    return wavlm
+
+
+def run_trainer_slm(dev, smi, counters):
+    """Phase 9b: the Trainer with the SLM losses, as config.json declares
+    them: model.slm.model names a WavLM directory that the phase writes
+    (random weights, published widths), and the default slm_path="auto"
+    loads it. A few steps (K1-train/B5/B6 and K3 launches per step, finite
+    SLM metrics), WD_*.pth beside G_/D_/DUR_*.pth, and a second Trainer
+    that resumes from them."""
+    from bert_vits2_tpu_torch.models.discriminators import WavLMDiscriminator
+    from bert_vits2_tpu_torch.train.trainer import Trainer
+
+    n_steps = TRAINER_SLM_WARMUP + TRAINER_SLM_TIMED
+    os.environ["BV2_FUSED_ATTENTION_TRAIN"] = "1"
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            t0 = time.perf_counter()
+            wl_dir = os.path.join(root, "wavlm-base-plus")
+            written = write_wavlm(wl_dir, seed=6)
+            cfg_path = write_corpus(root, TRAINER_UTTS, slm_dir=wl_dir)
+            model_dir = os.path.join(root, "model")
+            trainer = Trainer(cfg_path, model_dir, device="cuda")
+            if trainer.slm is None or not isinstance(trainer.models.wavlm_disc,
+                                                     WavLMDiscriminator):
+                raise AssertionError("the Trainer did not turn the SLM losses on")
+            same = all(torch.equal(a.cpu(), b) for a, b in zip(
+                trainer.slm.wavlm.state_dict().values(), written.state_dict().values()))
+            log(f"[trainer-slm] a random WavLM written to {os.path.basename(wl_dir)}/ "
+                f"(config.json, pytorch_model.bin of "
+                f"{os.path.getsize(os.path.join(wl_dir, 'pytorch_model.bin')) / 2**20:.0f} "
+                f"MiB) and loaded by Trainer(slm_path='auto') equal to the written "
+                f"weights {same}; corpus and Trainer built in "
+                f"{time.perf_counter() - t0:.1f} s")
+            if not same:
+                raise AssertionError("the loaded WavLM differs from the written one")
+            step_fn, record = trainer.step_fn, {"times": [], "launches": []}
+
+            def counted_step(state, batch, generator, lr):
+                for fn in counters.values():
+                    fn.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step_fn(state, batch, generator, lr)
+                torch.cuda.synchronize()
+                record["times"].append(time.perf_counter() - t0)
+                record["launches"].append({k: fn.launches for k, fn in counters.items()})
+                record["metrics"] = out[1]
+                return out
+
+            trainer.step_fn = counted_step
+            trainer.run(max_steps=n_steps, keep_ckpts=2)
+            metrics = trainer._assert_finite(record["metrics"])
+            log(f"[trainer-slm] step {trainer.global_step}: " + ", ".join(
+                f"{k} {metrics[k]:.4g}" for k in ("loss/wd/total", "grad_norm_wd",
+                                                  "loss/g/lm", "loss/g/lm_gen",
+                                                  "loss/g/total")))
+            n_attn = trainer.mcfg.n_layers + (trainer.mcfg.n_flow_layer
+                                              * trainer.mcfg.n_layers_trans_flow)
+            want = {k: 0 for k in counters}
+            want.update({k: n_attn for k in TC_KEYS}, mas_fwd=1)
+            if any(got != want for got in record["launches"]):
+                raise AssertionError(f"Trainer SLM step launches {record['launches']}")
+            saved = sorted(os.listdir(trainer.ckpt_dir))
+            expect = [f"{p}_{n_steps}.pth" for p in ("DUR", "D", "G", "WD")]
+            timed = record["times"][TRAINER_SLM_WARMUP:]
+            wd_mib = os.path.getsize(os.path.join(trainer.ckpt_dir,
+                                                  f"WD_{n_steps}.pth")) / 2**20
+            log(f"[trainer-slm] launches per step K1-train/B5/B6 {n_attn}, K3 1 in "
+                f"each of {n_steps} steps; checkpoints {saved} (WD_{n_steps}.pth "
+                f"{wd_mib:.1f} MiB)")
+            log(f"[trainer-slm-timing] {smi}: {len(timed)} steps after "
+                f"{TRAINER_SLM_WARMUP} warm-up: median {np.median(timed) * 1e3:.1f} ms, "
+                f"max {max(timed) * 1e3:.1f} ms per step")
+            if saved != expect:
+                raise AssertionError(f"checkpoints {saved}, not {expect}")
+            wd_saved = {k: v.detach().cpu().clone()
+                        for k, v in trainer.models.wavlm_disc.state_dict().items()}
+            del trainer
+            torch.cuda.empty_cache()
+
+            resumed = Trainer(cfg_path, model_dir, device="cuda")
+            if resumed.global_step != n_steps or not all(
+                    torch.equal(v.cpu(), wd_saved[k]) for k, v in
+                    resumed.models.wavlm_disc.state_dict().items()):
+                raise AssertionError("the second Trainer did not resume the WavLM "
+                                     "discriminator")
+            resumed.run(max_steps=n_steps + 1, keep_ckpts=1)
+            saved = sorted(os.listdir(resumed.ckpt_dir))
+            log(f"[trainer-slm] a second Trainer resumed at step {n_steps} (the "
+                f"WavLM discriminator as saved) and ran to {resumed.global_step}; "
+                f"checkpoints kept {saved}")
+            if saved != [f"{p}_{n_steps + 1}.pth" for p in ("DUR", "D", "G", "WD")]:
+                raise AssertionError(f"checkpoints {saved}")
+            del resumed
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("BV2_FUSED_ATTENTION_TRAIN", None)
+
+
 def check_training_forward_on_cpu(dev):
     """Phase 8: the training forward at full width and a cut depth, eval()
     mode, on the card and on the CPU with the same noise (a CPU generator
@@ -1678,9 +2018,11 @@ def main(argv=None) -> int:
 
     run_training(dev, smi, counters)
     check_training_forward_on_cpu(dev)
+    slm_launches = run_training_slm(dev, smi, counters)
     # the training entry point: its kernels' launches replace the serving
     # path's zeros
     trained = run_trainer(dev, smi, counters)
+    run_trainer_slm(dev, smi, counters)
     launches.update({k: v for k, v in trained.items() if k not in ("banded_attn_fwd",
                                                                     "mrf_fwd")})
     # the wide kernels' path is the [attention-range] phase
@@ -1738,6 +2080,11 @@ def main(argv=None) -> int:
     ]}
     serve_basis = ("; launches_serve: over the [serve] phase's traffic through the "
                    "HTTP server and its micro-batcher (counts zeroed before it)")
+    slm_basis = ("; launches_train_slm: per training step with the SLM losses in "
+                 "the [train-slm] phase (counts zeroed before each step)")
+    for row in record["kernels"][2:]:
+        row["launches_train_slm"] = slm_launches[row["name"]]
+        row["basis"] += slm_basis
     for row in record["kernels"][:2]:
         row["launches_text"] = text_launches[row["name"]]
         row["launches_serve"] = serve_launches[row["name"]]

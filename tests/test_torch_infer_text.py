@@ -57,6 +57,17 @@ ZERO = dict(noise_scale=0.0, noise_scale_w=0.0)
 
 
 @pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tiny models gain nothing from intra-op threads, and beside the
+    test runner's other workers their spinning slows every process. One
+    thread here, restored after the file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def _dense_jax_attention():
     with force_lax_attention():
         yield

@@ -511,3 +511,106 @@ def test_server_round_trip_launches_k1_and_k2(card):
         sr, pcm = wavfile.read(io.BytesIO(body))
         assert body[:4] == b"RIFF" and sr == engine.sampling_rate and len(pcm) > 0
         assert np.isfinite(pcm.astype(np.float32)).all()
+
+
+# the SLM slice at a small width: the training config of
+# tests/test_torch_train_modules.py (hidden 8, two heads of 4 channels) and
+# a WavLM on the geometry of tests/test_slm.py
+SLM_TINY = dict(
+    n_vocab=20, bert_dim=16, ja_bert_dim=16, spec_channels=33, segment_size=8,
+    inter_channels=8, hidden_channels=8, filter_channels=16, n_heads=2,
+    n_layers=3, kernel_size=3, p_dropout=0.1, resblock_kernel_sizes=(3,),
+    resblock_dilation_sizes=((1, 3),), upsample_rates=(4, 4),
+    upsample_initial_channel=16, upsample_kernel_sizes=(8, 8), n_speakers=4,
+    gin_channels=8, n_flow_layer=2, n_layers_trans_flow=3,
+    slm_hidden=32, slm_layers=4, slm_initial_channel=8,
+)
+SLM_WAVLM = dict(hidden_size=32, num_layers=3, num_heads=4, intermediate_size=64,
+                 conv_dim=(16, 16), conv_kernel=(10, 3), conv_stride=(5, 2),
+                 num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4,
+                 num_buckets=32, max_bucket_distance=50)
+
+
+@pytest.mark.cuda
+def test_wavlm_card_against_cpu(card):
+    """The frozen SLM (the sinc resampler and a WavLM at the wavlm-base-plus
+    widths, random weights from a seed) on the card: every hidden state
+    within 1e-3 of the CPU's (post-LN states of O(1), 12 layers of 768- and
+    3072-term fp32 sums in another order, TF32 off), on two 44.1 kHz
+    segments of 16384 samples."""
+    from bert_vits2_tpu_torch.models.slm import SLM, WavLM, WavLMConfig
+
+    torch.manual_seed(0)
+    cpu = SLM(WavLM(WavLMConfig()))
+    gpu = SLM(WavLM(WavLMConfig())).to(card)
+    gpu.load_state_dict(cpu.state_dict())
+    wave = torch.rand(2, 16384, generator=torch.Generator().manual_seed(1)) - 0.5
+    with torch.no_grad():
+        want, got = cpu(wave), gpu(wave.to(card))
+    assert len(got) == 13 and got[0].shape == (2, 18, 768)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert (g.cpu() - w).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_slm_train_step_card_against_cpu(card, monkeypatch):
+    """One training step with the SLM losses at a small width, dropout off,
+    the same weights and one CPU generator's noise, on the card (the
+    attention on K1-train/B5/B6, MAS on K3) and on the CPU: every metric
+    within 1e-3 relative (fp32 sums in another order, compounded through
+    the posterior, the flow, the vocoder and the WavLM), and the kernels
+    launched once per attention layer (K3 once)."""
+    from bert_vits2_tpu_torch.config import ModelConfig
+    from bert_vits2_tpu_torch.models.slm import SLM, WavLM, WavLMConfig
+    from bert_vits2_tpu_torch.train import (DataConfig, TrainConfig,
+                                            init_train_state, make_train_step)
+    from bert_vits2_tpu_torch.train.trainer import build_models, init_params
+
+    monkeypatch.setenv("BV2_FUSED_ATTENTION_TRAIN", "1")
+    cfg = ModelConfig(**SLM_TINY)
+    data = DataConfig(sampling_rate=1600, filter_length=64, hop_length=16,
+                      win_length=64, n_mel_channels=16)
+    wl_cfg = WavLMConfig(**SLM_WAVLM)
+    torch.manual_seed(0)
+    wavlm = WavLM(wl_cfg)
+    g = torch.Generator().manual_seed(2)
+    b, t_x, t_y = 3, 9, 24
+    batch = dict(x=torch.randint(1, 20, (b, t_x), generator=g),
+                 x_lengths=torch.tensor([9, 9, 6]),
+                 spec=0.3 * torch.randn(b, t_y, 33, generator=g),
+                 spec_lengths=torch.tensor([24, 24, 16]),
+                 wave=torch.rand(b, t_y * 16, generator=g) - 0.5,
+                 sid=torch.tensor([0, 1, 3]),
+                 tone=torch.randint(0, 12, (b, t_x), generator=g),
+                 language=torch.randint(0, 3, (b, t_x), generator=g),
+                 bert=0.3 * torch.randn(b, t_x, 16, generator=g),
+                 ja_bert=0.3 * torch.randn(b, t_x, 16, generator=g),
+                 en_bert=0.3 * torch.randn(b, t_x, 16, generator=g))
+    runs = []
+    for dev in ("cpu", card):
+        models = init_params(build_models(cfg, use_wavlm_disc=True, device=dev,
+                                          wavlm=wl_cfg), cfg, seed=3)
+        for m in models:
+            for mod in m.modules():
+                if isinstance(mod, torch.nn.Dropout):
+                    mod.p = 0.0
+                if hasattr(mod, "p_dropout"):
+                    mod.p_dropout = 0.0
+        slm = SLM(WavLM(wl_cfg), data.sampling_rate, 16000)
+        slm.wavlm.load_state_dict(wavlm.state_dict())
+        step = make_train_step(models, TrainConfig(), data, cfg.segment_size,
+                               slm=slm.to(dev))
+        before = [fn.launches for fn in TC_COUNTERS[1:]] + [maximum_path.launches]
+        _, metrics = step(init_train_state(models, TrainConfig()),
+                          {k: v.to(dev) for k, v in batch.items()},
+                          torch.Generator().manual_seed(4), 2e-4)
+        after = [fn.launches for fn in TC_COUNTERS[1:]] + [maximum_path.launches]
+        runs.append(({k: float(v) for k, v in metrics.items()},
+                     [a - c for a, c in zip(after, before)]))
+    (want, cpu_launches), (got, card_launches) = runs
+    assert cpu_launches == [0, 0, 0, 0]
+    assert card_launches == [9, 9, 9, 1]  # 3 encoder layers, 2 couplings of 3
+    assert {"loss/wd/total", "loss/g/lm", "loss/g/lm_gen"} <= set(got)
+    for k, w in want.items():
+        assert abs(got[k] - w) <= 1e-3 * abs(w), (k, got[k], w)

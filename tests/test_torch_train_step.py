@@ -43,7 +43,9 @@ from bert_vits2_tpu_torch.config import ModelConfig
 from bert_vits2_tpu_torch.models.discriminators import (
     DurationDiscriminator,
     MultiPeriodDiscriminator,
+    WavLMDiscriminator,
 )
+from bert_vits2_tpu_torch.models.slm import WavLMConfig
 from bert_vits2_tpu_torch.models.synthesizer import Synthesizer
 from bert_vits2_tpu_torch.train import (
     DataConfig,
@@ -363,8 +365,20 @@ def test_build_models_and_init_params():
                            other.synthesizer.emb_g.weight)
     assert models.wavlm_disc is None and models.dur_disc is not None
     assert build_models(cfg, use_dur_disc=False, device="cpu").dur_disc is None
-    with pytest.raises(NotImplementedError):
-        build_models(cfg, use_wavlm_disc=True, device="cpu")
+    # the WavLM discriminator of the SLM losses, at model.slm's widths (the
+    # default V2.3 ones here), drawn from the seed with the rest
+    with_wd = init_params(build_models(cfg, use_wavlm_disc=True, device="cpu",
+                                       wavlm=WavLMConfig()), cfg, seed=7)
+    wd = with_wd.wavlm_disc
+    assert isinstance(wd, WavLMDiscriminator) and wd.training
+    assert wd.pre.weight_v.shape == (cfg.slm_initial_channel,
+                                     cfg.slm_hidden * cfg.slm_layers, 1)
+    for m, a in zip(models[:3], with_wd[:3]):  # built last: the rest unchanged
+        assert all(torch.equal(p, q) for p, q in
+                   zip(m.state_dict().values(), a.state_dict().values()))
+    with pytest.raises(ValueError, match="nlayers 12"):
+        build_models(dataclasses.replace(cfg, slm_layers=12),
+                     use_wavlm_disc=True, device="cpu", wavlm=WavLMConfig())
     with pytest.raises(RuntimeError):
         build_models(cfg)  # the default device is the card
     assert dataclasses.asdict(TrainConfig()) == dataclasses.asdict(

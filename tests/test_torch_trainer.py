@@ -54,7 +54,9 @@ from bert_vits2_tpu_torch.data import (
 from bert_vits2_tpu_torch.models.discriminators import (
     DurationDiscriminator,
     MultiPeriodDiscriminator,
+    WavLMDiscriminator,
 )
+from bert_vits2_tpu_torch.models.slm import WavLM, WavLMConfig
 from bert_vits2_tpu_torch.models.synthesizer import Synthesizer
 from bert_vits2_tpu_torch.text import cleaned_text_to_sequence
 from bert_vits2_tpu_torch.text import symbols
@@ -91,6 +93,17 @@ class _Writer:
 
     def add_audio(self, tag, audio, step, sampling_rate):
         self.logged.append(("audio", tag, step))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tiny corpus and models gain nothing from intra-op threads, and
+    beside the test runner's other workers their spinning slows every
+    process. One thread here, restored after the file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -360,27 +373,82 @@ def test_non_finite_metric_raises_before_any_save(corpus, tmp_path):
     assert not os.path.isdir(trainer.ckpt_dir)
 
 
+def _slm_config(corpus, tmp_path, write_wavlm=True):
+    """The corpus config with a model.slm section whose model directory
+    holds a tiny random WavLM in the HF layout (config.json in HF keys,
+    pytorch_model.bin), written by the port's own WavLM."""
+    _, cfg_path = corpus
+    cfg = json.loads(open(cfg_path, encoding="utf-8").read())
+    wavlm_dir = tmp_path / "wavlm"
+    wl_cfg = WavLMConfig(hidden_size=16, num_layers=2, num_heads=2,
+                         intermediate_size=32, conv_dim=(8, 8),
+                         conv_kernel=(10, 3), conv_stride=(5, 2),
+                         num_conv_pos_embeddings=8,
+                         num_conv_pos_embedding_groups=2, num_buckets=16,
+                         max_bucket_distance=40)
+    cfg["model"]["slm"] = dict(model=str(wavlm_dir), sr=16000, hidden=16,
+                               nlayers=3, initial_channel=4)
+    if write_wavlm:
+        wavlm_dir.mkdir()
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            wavlm = WavLM(wl_cfg)
+        (wavlm_dir / "config.json").write_text(json.dumps(wl_cfg.to_hf()))
+        torch.save(wavlm.state_dict(), wavlm_dir / "pytorch_model.bin")
+    path = tmp_path / "config_slm.json"
+    path.write_text(json.dumps(cfg), encoding="utf-8")
+    return str(path)
+
+
 def test_slm_and_parallel_rules(corpus, tmp_path):
     """A declared but missing WavLM dir raises FileNotFoundError, a present
-    one NotImplementedError (not ported: ROADMAP A.14), as do model
-    parallelism and multi-host training (A.17)."""
-    root, cfg_path = corpus
-    cfg = json.loads(open(cfg_path, encoding="utf-8").read())
-    wavlm = tmp_path / "wavlm"
-    cfg["model"]["slm"] = dict(model=str(wavlm), sr=16000, hidden=768,
-                               nlayers=13, initial_channel=64)
-    cfg_slm = tmp_path / "config_slm.json"
-    cfg_slm.write_text(json.dumps(cfg), encoding="utf-8")
+    one loads and turns the SLM losses on (the WavLM discriminator at
+    model.slm's widths beside the other models, the frozen WavLM on the
+    Trainer); model parallelism and multi-host training raise (multi-GPU:
+    ROADMAP §A.9)."""
+    _, cfg_path = corpus
+    cfg_slm = _slm_config(corpus, tmp_path, write_wavlm=False)
     with pytest.raises(FileNotFoundError, match="slm"):
-        Trainer(str(cfg_slm), str(tmp_path / "a"), device="cpu")
-    wavlm.mkdir()
-    with pytest.raises(NotImplementedError, match="A.14"):
-        Trainer(str(cfg_slm), str(tmp_path / "b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.17"):
-        Trainer(cfg_path, str(tmp_path / "c"), n_model=2, slm_path=None,
+        Trainer(cfg_slm, str(tmp_path / "a"), device="cpu")
+    cfg_slm = _slm_config(corpus, tmp_path)
+    trainer = Trainer(cfg_slm, str(tmp_path / "b"), device="cpu")
+    assert isinstance(trainer.models.wavlm_disc, WavLMDiscriminator)
+    assert trainer.slm.wavlm.cfg.num_layers == 2 and not trainer.slm.training
+    assert trainer.state.opt_wd is not None
+    assert Trainer(cfg_slm, str(tmp_path / "c"), slm_path=None,
+                   device="cpu").models.wavlm_disc is None
+    with pytest.raises(ValueError, match="WavLM"):
+        Trainer(cfg_path, str(tmp_path / "d"), use_wavlm_disc=True,
+                slm_path=None, device="cpu")
+    with pytest.raises(NotImplementedError, match="A.9"):
+        Trainer(cfg_path, str(tmp_path / "e"), n_model=2, slm_path=None,
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="A.17"):
-        main(["-c", cfg_path, "-m", str(tmp_path / "d"), "--multihost"])
+    with pytest.raises(NotImplementedError, match="A.9"):
+        main(["-c", cfg_path, "-m", str(tmp_path / "f"), "--multihost"])
+
+
+def test_cli_trains_with_the_slm_and_resumes(corpus, tmp_path):
+    """`python -m bert_vits2_tpu_torch.train` on a config that declares
+    model.slm, with no flag: one step with the SLM losses writes WD_1.pth
+    beside G_/D_/DUR_1.pth (never the frozen WavLM), and a second run
+    resumes from it, the WavLM discriminator and its optimizer included."""
+    cfg_slm = _slm_config(corpus, tmp_path)
+    model_dir = str(tmp_path / "cli_slm")
+    trainer = main(["-c", cfg_slm, "-m", model_dir, "--max-steps", "1",
+                    "--device", "cpu"])
+    assert trainer.global_step == 1
+    assert sorted(os.listdir(trainer.ckpt_dir)) == [
+        "DUR_1.pth", "D_1.pth", "G_1.pth", "WD_1.pth"]
+    wd = torch.load(os.path.join(trainer.ckpt_dir, "WD_1.pth"), weights_only=True)
+    assert set(wd) == {"model", "iteration", "optimizer", "learning_rate"}
+    assert wd["model"].keys() == trainer.models.wavlm_disc.state_dict().keys()
+    again = main(["-c", cfg_slm, "-m", model_dir, "--max-steps", "2",
+                  "--keep-ckpts", "1", "--device", "cpu"])
+    assert again.global_step == 2
+    assert sorted(os.listdir(again.ckpt_dir)) == [
+        "DUR_2.pth", "D_2.pth", "G_2.pth", "WD_2.pth"]
+    for k, v in wd["optimizer"]["state"].items():  # resumed, then stepped
+        assert again.state.opt_wd.state_dict()["state"][k]["step"] == v["step"] + 1
 
 
 def test_cli_trains_the_config_models(corpus, tmp_path):
