@@ -14,9 +14,16 @@ Layouts:
   [out, in, kh, kw]
 - weight-norm `g` [c] -> [c, 1, 1] ([c, 1, 1, 1] for a 2-D conv)
 - Dense `kernel` [in, out] -> nn.Linear [out, in] (`spk_emb_linear`,
-  `output_layer`) or a k=1 conv [out, in, 1] (attention q/k/v/o)
-- `embedding` -> `weight`; `ElementwiseAffine` m/logs [2] -> [2, 1]
-- list modules `name_i` -> `name.i`; flow couplings k -> flow.flows.{2k};
+  `output_layer`, and the V2.1/V2.2 emotion branches' `emo_proj`,
+  `emo_q_proj`, `project_in`, `project_out`, `in_feature_net.{0,4}`,
+  `mlp.c_fc1/c_fc2/c_proj`, `out_feature_net`) or a k=1 conv [out, in, 1]
+  (attention q/k/v/o)
+- `embedding` -> `weight`; flax LayerNorm `scale` -> `weight`;
+  `ElementwiseAffine` m/logs [2] -> [2, 1]; a quantizer's `codebook` ->
+  `_codebook.embed` (vector_quantize_pytorch's name)
+- list modules `name_i` -> `name.i` (`in_feature_net_i` too, and the
+  residual MLP block's `mlp_c_fc1` -> `mlp.c_fc1`); flow couplings k ->
+  flow.flows.{2k}, transformer or vits1 WN couplings alike;
   SDP `flow_ea` -> sdp.flows.0 and ConvFlows k -> sdp.flows.{2k+1} (the
   same for the posterior `post_` chain)
 - MPD `disc_s` -> discriminators.0, `disc_p<period>` -> discriminators.{1+i}
@@ -44,9 +51,12 @@ import torch
 _LISTS = ("attn_layers", "norm_layers_1", "norm_layers_2", "ffn_layers",
           "flows", "post_flows", "convs_sep", "convs_1x1", "norms_1",
           "norms_2", "ups", "resblocks", "convs1", "convs2", "convs",
-          "in_layers", "res_skip_layers")
+          "in_layers", "res_skip_layers", "in_feature_net")
 _LIST_RE = re.compile(rf"^({'|'.join(_LISTS)})_(\d+)$")
-_LINEAR = ("spk_emb_linear", "output_layer")  # Dense layers kept as nn.Linear
+# Dense layers kept as nn.Linear (the others are k=1 convs)
+_LINEAR = ("spk_emb_linear", "output_layer", "emo_proj", "emo_q_proj",
+           "project_in", "project_out", "c_fc1", "c_fc2", "c_proj",
+           "out_feature_net")
 _LSTM_GATES = ("i", "f", "g", "o")
 _GRU_GATES = ("r", "z", "n")
 
@@ -66,6 +76,8 @@ def _module_path(parts: tuple[str, ...]) -> list[str]:
         if m is None:
             if p in ("flow_ea", "post_flow_ea"):  # SDP list entry 0
                 out += [p.replace("flow_ea", "flows"), "0"]
+            elif p.startswith("mlp_"):  # V2.2's residual MLP block
+                out += ["mlp", p[len("mlp_"):]]
             else:
                 out.append(p)
             continue
@@ -89,12 +101,14 @@ def _convert(path: list[str], leaf: str, w: np.ndarray, kernel_rank: int):
         if w.ndim == 3:
             return name, np.transpose(w, (1, 2, 0) if is_convt else (2, 1, 0))
         if w.ndim == 2:
-            if path[-1] in _LINEAR:
+            if path[-1] in _LINEAR or path[-2:-1] == ["in_feature_net"]:
                 return name, w.T
             return name, w.T[:, :, None]
         raise ValueError(f"unexpected kernel rank {w.shape} at {path}")
-    if leaf == "embedding":
+    if leaf in ("embedding", "scale"):
         return "weight", w
+    if leaf == "codebook":
+        return "_codebook.embed", w
     if leaf in ("m", "logs"):
         return leaf, w.reshape(-1, 1)
     return leaf, w  # bias, gamma, beta, emb_rel_k, emb_rel_v

@@ -15,8 +15,12 @@ Counterpart of `bert_vits2_tpu/infer/api.py`:
 - the entry points `infer`, `infer_multilang`, `infer_batch` (piles above
   `max_batch` go to the length-sorted `run_packed`) and `warmup`.
 
-Only the V2.3 family: emotion inputs (V2.1/V2.2) and other version specs
-raise. The JAX engine's `pack_requests` (its two-buffer device pool, which
+Every version family of `compat/versions.py`: the engine's `version_spec`
+picks the symbol table, tone offsets, languages and inactive-language fill
+of `get_text`, and the V2.1/V2.2 families take an emotion input per
+request (`_resolve_emotion`: a codebook index, a zero CLAP feature, or an
+extractor's vector from reference audio or a CLAP text prompt). The JAX
+engine's `pack_requests` (its two-buffer device pool, which
 its `predict_frames` and `run_packed` address by row) is not ported: here
 the request tensors are handed to the device directly for each call.
 """
@@ -24,6 +28,7 @@ the request tensors are handed to the device directly for each call.
 from __future__ import annotations
 
 import functools
+import threading
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -62,20 +67,27 @@ def get_text(
     spec=None,
 ):
     """text -> (phones, tones, lang_ids [t] int32, bert/ja_bert/en_bert
-    [t, 1024] float32).
+    [t, dim] float32).
 
     Ref: infer.py:107-149 (g2p, intersperse, BERT at phone level, randn
     placeholders for the two inactive languages, here from
-    `np.random.default_rng((noise_seed, t))`). `spec` must be None or a
-    V2.3-family `compat.versions.VersionSpec`.
+    `np.random.default_rng((noise_seed, t))`). `spec` (a
+    `compat.versions.VersionSpec`) switches to an old version family: its
+    symbol table and tone offsets, its languages (another raises
+    ValueError), zero fills instead of randn (oldVersion/V200/__init__.py:
+    29-37) and its ja_bert width (768 on 1.1: the active feature is cut).
     """
-    if spec is not None and spec.family != "2.3":
-        raise NotImplementedError(
-            f"version family {spec.family}: the port synthesizes the 2.3 family "
-            "only (old-version families: ROADMAP §A.6)")
     bert_extractor = bert_extractor or default_bert_extractor()
     norm_text, phones_s, tones, word2ph = clean_text(text, language)
-    phones, tones, lang_ids = cleaned_text_to_sequence(phones_s, tones, language)
+    if spec is not None and spec.family != "2.3":
+        if language not in spec.languages:
+            raise ValueError(
+                f"version {spec.family} checkpoints only synthesize "
+                f"{spec.languages}, not {language}")
+        phones, tones, lang_ids = spec.cleaned_text_to_sequence(
+            phones_s, tones, language)
+    else:
+        phones, tones, lang_ids = cleaned_text_to_sequence(phones_s, tones, language)
     if add_blank:
         phones = _intersperse(phones)
         tones = _intersperse(tones)
@@ -87,10 +99,17 @@ def get_text(
     bert = bert_extractor(norm_text, word2ph, language,
                           style_text=style_text, style_weight=style_weight)
     assert bert.shape == (t, BERT_DIM), (bert.shape, t)
-    rng = np.random.default_rng((noise_seed, t))
-    feats = {lang: rng.normal(size=(t, BERT_DIM)).astype(np.float32)
-             for lang in _LANGS if lang != language}
-    feats[language] = bert.astype(np.float32)
+    dims = {"ZH": BERT_DIM, "JP": BERT_DIM, "EN": BERT_DIM}
+    if spec is not None:
+        dims["JP"] = spec.ja_bert_dim
+    if spec is None or spec.inactive_fill == "randn":
+        rng = np.random.default_rng((noise_seed, t))
+        feats = {lang: rng.normal(size=(t, dims[lang])).astype(np.float32)
+                 for lang in _LANGS if lang != language}
+    else:
+        feats = {lang: np.zeros((t, dims[lang]), np.float32)
+                 for lang in _LANGS if lang != language}
+    feats[language] = bert.astype(np.float32)[:, :dims[language]]
     return (
         np.asarray(phones, np.int32),
         np.asarray(tones, np.int32),
@@ -103,8 +122,10 @@ def get_text(
 
 class PreparedRequest(NamedTuple):
     """One host-preprocessed utterance: `inputs` is (phones, tones,
-    lang_ids [t], bert, ja_bert, en_bert [t, dim]); the knobs ride along per
-    request and become [b] tensors of the batched call."""
+    lang_ids [t], bert, ja_bert, en_bert [t, dim]); `emo` is one emotion
+    row ([1] int codebook index or [1, d] float32 vector) for a V2.1/V2.2
+    engine, else None; the knobs ride along per request and become [b]
+    tensors of the batched call."""
 
     inputs: tuple
     sid: int
@@ -120,7 +141,10 @@ class TTSEngine:
     """Holds a Synthesizer on one device and runs batched synthesis.
 
     spk2id: speaker name -> id (config.json data.spk2id), for string
-    speakers; integer speakers pass through.
+    speakers; integer speakers pass through. emotion_extractor: the
+    V2.1/V2.2 feature extractor for reference audio or a CLAP prompt
+    (`text/emotion.py`; the default one for the model's branch is built on
+    first use).
 
     `stats` counts, across run_prepared calls: frames_capacity (padded batch
     x frame cap), frames_delivered (frames inside real requests' y_len) and
@@ -130,7 +154,8 @@ class TTSEngine:
                  sampling_rate: int = 44100, bert_extractor=None,
                  text_buckets: Sequence[int] = (32, 64, 128, 256, 384),
                  frames_per_token: int = 6, frame_multiple: int = 64,
-                 version_spec=None, device: str | torch.device = "cuda"):
+                 version_spec=None, emotion_extractor=None,
+                 device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.spk2id = spk2id or {}
@@ -139,6 +164,12 @@ class TTSEngine:
         # exist; loud-warned noise otherwise
         self.bert_extractor = bert_extractor or AutoBertExtractor(device=self.device)
         self.version_spec = version_spec
+        self.emotion_extractor = emotion_extractor
+        # the server prepares on its handler threads: one lock builds the
+        # default extractor once and loads its weights (text/emotion.py, a
+        # pinned copy, loads lazily and holds no lock); the extraction
+        # itself runs unlocked
+        self._emotion_lock = threading.Lock()
         self.hop_length = model.cfg.hop_length
         self.text_buckets = tuple(sorted(text_buckets))
         self.frames_per_token = frames_per_token
@@ -147,6 +178,45 @@ class TTSEngine:
                       "bytes_h2d": 0}
         with torch.inference_mode():
             self.mrf_packed = self.model.dec.pack_mrf()
+
+    def _resolve_emotion(self, emotion, reference_audio, batch: int):
+        """-> the emotion rows for the model, or None for emotion-less versions.
+
+        V2.1 (oldVersion/V210/__init__.py:54-62): reference audio -> the
+        wav2vec2 1024-d vector; else an integer codebook index (default 0).
+        V2.2 (oldVersion/V220/__init__.py:73-78): reference audio -> the
+        CLAP audio feature; a text prompt -> the CLAP text feature; else
+        zeros; 512-d."""
+        mode = self.model.cfg.emotion
+        if mode == "none":
+            return None
+        use_extractor = reference_audio is not None or (
+            mode == "clap220" and isinstance(emotion, str) and emotion)
+        if use_extractor:
+            if self.emotion_extractor is None:
+                with self._emotion_lock:
+                    if self.emotion_extractor is None:
+                        self.emotion_extractor = self._default_emotion_extractor(mode)
+            vec = self.emotion_extractor(reference_audio=reference_audio,
+                                         prompt=emotion)
+            return np.broadcast_to(np.asarray(vec, np.float32),
+                                   (batch, len(vec))).copy()
+        if mode == "vq210":
+            idx = 0 if emotion in (None, "") else int(float(emotion))
+            return np.full((batch,), idx, np.int32)
+        return np.zeros((batch, 512), np.float32)
+
+    def _default_emotion_extractor(self, mode: str):
+        """The reference's extractor of `mode` on the engine's device, its
+        weights loaded before any other thread can call it (the lock is
+        held)."""
+        from bert_vits2_tpu_torch.text import emotion as emotion_module
+
+        cls = {"vq210": emotion_module.Wav2Vec2EmotionExtractor,
+               "clap220": emotion_module.ClapFeatureExtractor}[mode]
+        extractor = cls(device=self.device)
+        extractor._load()
+        return extractor
 
     # ---- shape bucketing (the JAX engine's rules) ----
 
@@ -176,9 +246,8 @@ class TTSEngine:
 
     def _batch(self, reqs: Sequence[PreparedRequest]) -> dict:
         """Pad requests to their bucket and the power-of-two batch -> the
-        model's keyword tensors on the device."""
-        if any(r.emo is not None for r in reqs):
-            raise NotImplementedError("emotion inputs (V2.1/V2.2) are not ported")
+        model's keyword tensors on the device; `emo` rides as [b] int64
+        codebook indices or [b, d] float32 rows."""
         t_x = self._bucket(max(len(r.inputs[0]) for r in reqs))
         rows = [reqs[i] for i in self._pad_idx(list(range(len(reqs))))]
         b = len(rows)
@@ -198,6 +267,10 @@ class TTSEngine:
         }
         for k in ("noise_scale", "length_scale", "noise_scale_w", "sdp_ratio"):
             host[k] = np.asarray([getattr(r, k) for r in rows], np.float32)
+        if reqs[0].emo is not None:
+            emo = np.concatenate([np.asarray(r.emo) for r in rows])
+            host["emo"] = (emo.astype(np.int64) if np.issubdtype(emo.dtype, np.integer)
+                           else emo.astype(np.float32))
         self.stats["bytes_h2d"] += sum(a.nbytes for a in host.values())
         return {k: torch.from_numpy(a).to(self.device) for k, a in host.items()}
 
@@ -314,6 +387,10 @@ class TTSEngine:
                              bert=bert, ja_bert=ja_bert, en_bert=bert,
                              noise_scale=knob, length_scale=knob,
                              noise_scale_w=knob, sdp_ratio=knob)
+                if cfg.emotion == "vq210":  # the codebook-index kind
+                    batch["emo"] = torch.zeros((b,), dtype=torch.long, device=self.device)
+                elif cfg.emotion == "clap220":
+                    batch["emo"] = torch.zeros((b, 512), device=self.device)
                 self._predict(batch, 0)
                 self.model.infer(max_frames=max_frames, generator=self._generator(0),
                                  mrf_packed=self.mrf_packed, **batch)
@@ -347,8 +424,8 @@ class TTSEngine:
         """Synthesize one utterance -> float32 waveform [n_samples].
 
         Ref: infer.py:151-332 (incl. the 3/2-token boundary trims).
-        emotion/reference_audio condition V2.1/V2.2 checkpoints, which the
-        port does not load: passing either raises."""
+        emotion/reference_audio condition V2.1/V2.2 checkpoints (int codebook
+        index or wav path / CLAP text prompt); ignored for other versions."""
         req = self.prepare(
             text, speaker, language=language, sdp_ratio=sdp_ratio,
             noise_scale=noise_scale, noise_scale_w=noise_scale_w,
@@ -377,17 +454,13 @@ class TTSEngine:
         reference_audio=None,
         seed: int = 0,
     ) -> PreparedRequest:
-        """Host-side half of a synthesis call (g2p + BERT + trims).
+        """Host-side half of a synthesis call (g2p + BERT + trims + emotion).
 
         Pass `segments=[(text, lang), ...]` instead of `text` for a
         mixed-language utterance: its per-segment features are concatenated
         into one request, every inner boundary trimmed (ref
         infer.py:335-437). The result runs alone or batched with other
         requests through `run_prepared`."""
-        if emotion is not None or reference_audio is not None:
-            raise NotImplementedError(
-                "emotion inputs condition the V2.1/V2.2 families, which the port "
-                "does not load (ROADMAP §A.6)")
         if segments is None:
             inputs = get_text(text, language, self.bert_extractor,
                               style_text=style_text, style_weight=style_weight,
@@ -411,8 +484,9 @@ class TTSEngine:
                 parts.append(seg_inputs)
             inputs = tuple(np.concatenate([p[j] for p in parts], axis=0)
                            for j in range(6))
+        emo = self._resolve_emotion(emotion, reference_audio, 1)
         return PreparedRequest(
-            inputs=inputs, sid=self.resolve_speaker(speaker),
+            inputs=inputs, sid=self.resolve_speaker(speaker), emo=emo,
             sdp_ratio=float(sdp_ratio), noise_scale=float(noise_scale),
             noise_scale_w=float(noise_scale_w),
             length_scale=float(length_scale), seed=int(seed),

@@ -8,14 +8,19 @@ Counterpart of `bert_vits2_tpu/infer/loader.py`. Weights come from:
   trainer): loaded natively, after stripping the `module.` (DDP) and
   `_orig_mod.` (torch.compile) prefixes, non-strictly as the JAX import
   does: keys missing from the file keep their init and are logged, and
-  missing BERT projections (older checkpoints) are zeroed;
+  missing BERT projections (older checkpoints) are zeroed. The V2.1/V2.2
+  emotion quantizers' EMA buffers (vector_quantize_pytorch's
+  `_codebook.initted`, `cluster_size`, `embed_avg`: training state) are
+  dropped by name before the load;
 - an `.npz` release of the JAX package (`utils/model_tools.py`): its
   parameter tree goes through `compat/params.py:from_jax_params`; the
   posterior encoder `enc_q`, absent from releases, keeps its init.
 
-The JAX package's orbax train-state directories are refused: the port
-writes `.pth` checkpoints. The config's `version` must map to the V2.3
-family, and synthesis runs in float32 only.
+The config's `version` picks the family (`compat/versions.py:spec_for`;
+an unknown version means 2.3), whose overrides the model config takes:
+symbol table, tones, BERT inputs and emotion branch. The JAX package's
+orbax train-state directories are refused (the port writes `.pth`
+checkpoints), and synthesis runs in float32 only.
 """
 
 from __future__ import annotations
@@ -36,16 +41,24 @@ from bert_vits2_tpu_torch.models.synthesizer import Synthesizer, build_synthesiz
 logger = logging.getLogger("bert_vits2_tpu_torch")
 
 _STRIP = ("module.", "_orig_mod.")
+# vector_quantize_pytorch's EMA state under each `_codebook` (not weights)
+_VQ_BUFFERS = (".initted", ".cluster_size", ".embed_avg")
 
 
 def _pth_state_dict(path: str) -> dict[str, torch.Tensor]:
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt["model"] if isinstance(ckpt, dict) and "model" in ckpt else ckpt
-    out = {}
+    out, dropped = {}, []
     for key, value in sd.items():
         while key.startswith(_STRIP):
             key = key.split(".", 1)[1]
+        if "._codebook." in key and key.endswith(_VQ_BUFFERS):
+            dropped.append(key)
+            continue
         out[key] = value.float() if value.is_floating_point() else value
+    if dropped:
+        logger.info("%s: dropped %d quantizer EMA buffers (training state): %s",
+                    path, len(dropped), dropped)
     return out
 
 

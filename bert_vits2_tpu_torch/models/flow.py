@@ -1,31 +1,30 @@
-"""Latent normalizing flow (reference: models.py:403-445).
+"""Latent normalizing flows (reference: models.py:82-145, 403-445).
 
-Counterpart of `TransformerCouplingBlock` in `bert_vits2_tpu/models/flow.py`:
-n_flows x (transformer coupling + channel flip), forward in training
-(posterior latent -> prior space) and reverse at inference. The vits1
-`ResidualCouplingBlock` (use_transformer_flow=false) comes with the
-old-version slice.
+Counterpart of `bert_vits2_tpu/models/flow.py`: n_flows x (coupling +
+channel flip), forward in training (posterior latent -> prior space) and
+reverse at inference. `TransformerCouplingBlock` is the vits2 default
+(use_transformer_flow=true); `ResidualCouplingBlock` the vits1 WN variant
+(4 mean-only couplings of 4 WN layers, kernel 5, dilation 1). Both keep the Flip layers
+in their lists, so the couplings sit at flow.flows.{0,2,4,6}.
 """
 
 from __future__ import annotations
 
 from torch import nn
 
-from bert_vits2_tpu_torch.nn.flows import Flip, TransformerCouplingLayer
+from bert_vits2_tpu_torch.nn.flows import (
+    Flip,
+    ResidualCouplingLayer,
+    TransformerCouplingLayer,
+)
 
 
-class TransformerCouplingBlock(nn.Module):
-    def __init__(self, channels: int, hidden_channels: int,
-                 filter_channels: int, n_heads: int, n_layers: int,
-                 kernel_size: int, p_dropout: float = 0.0, n_flows: int = 4,
-                 gin_channels: int = 0):
+class _CouplingBlock(nn.Module):
+    def __init__(self, couplings):
         super().__init__()
         self.flows = nn.ModuleList()
-        for _ in range(n_flows):
-            self.flows.append(TransformerCouplingLayer(
-                channels, hidden_channels, kernel_size, n_layers, n_heads,
-                filter_channels, p_dropout=p_dropout,
-                gin_channels=gin_channels))
+        for coupling in couplings:
+            self.flows.append(coupling)
             self.flows.append(Flip())
 
     def forward(self, x, x_mask, g=None, reverse=False):
@@ -38,3 +37,27 @@ class TransformerCouplingBlock(nn.Module):
             x, _ = coupling(x, x_mask, g=g)
             x = flip(x)
         return x
+
+
+class TransformerCouplingBlock(_CouplingBlock):
+    def __init__(self, channels: int, hidden_channels: int,
+                 filter_channels: int, n_heads: int, n_layers: int,
+                 kernel_size: int, p_dropout: float = 0.0, n_flows: int = 4,
+                 gin_channels: int = 0):
+        super().__init__([
+            TransformerCouplingLayer(
+                channels, hidden_channels, kernel_size, n_layers, n_heads,
+                filter_channels, p_dropout=p_dropout, gin_channels=gin_channels)
+            for _ in range(n_flows)])
+
+
+class ResidualCouplingBlock(_CouplingBlock):
+    """The vits1 flow as the JAX package builds it: 4 couplings of 4 WN
+    layers, kernel 5, dilation 1 (ROADMAP §C R.4)."""
+
+    def __init__(self, channels: int, hidden_channels: int,
+                 gin_channels: int = 0):
+        super().__init__([
+            ResidualCouplingLayer(channels, hidden_channels, 5, 1, 4,
+                                  gin_channels=gin_channels)
+            for _ in range(4)])

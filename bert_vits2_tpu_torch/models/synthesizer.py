@@ -5,7 +5,10 @@ training forward, `predict_durations` and `infer` the inference half. The
 submodules carry the reference's state_dict names (enc_p, enc_q, dec, flow,
 sdp, dp, and emb_g, or ref_enc when n_speakers == 0: the speaker embedding
 then comes from a reference spectrogram, the training spectrogram in
-`forward` and the caller's `y` in `infer`).
+`forward` and the caller's `y` in `infer`). Every version family of
+`compat/versions.py` is a configuration of this one module: `flow` is the
+transformer flow, or the vits1 WN flow with `use_transformer_flow` false,
+and the V2.1/V2.2 families feed `enc_p` an emotion input (`emo`).
 
 The training forward runs monotonic alignment search on the device (kernel
 K3, `ops/align.py`) with no gradient, then the duration losses, the prior
@@ -37,7 +40,10 @@ from bert_vits2_tpu_torch.models.duration import (
     DurationPredictor,
     StochasticDurationPredictor,
 )
-from bert_vits2_tpu_torch.models.flow import TransformerCouplingBlock
+from bert_vits2_tpu_torch.models.flow import (
+    ResidualCouplingBlock,
+    TransformerCouplingBlock,
+)
 from bert_vits2_tpu_torch.models.generator import Generator
 from bert_vits2_tpu_torch.models.posterior import PosteriorEncoder
 from bert_vits2_tpu_torch.models.reference_encoder import ReferenceEncoder
@@ -60,12 +66,18 @@ def _knob(v, rank: int, ref: torch.Tensor) -> torch.Tensor:
 class Synthesizer(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.emotion != "none":
-            raise NotImplementedError("only the V2.3 family (emotion='none')")
-        if not cfg.use_transformer_flow:
-            raise NotImplementedError("only the transformer flow")
         if cfg.infer_compute_dtype != "float32":
-            raise NotImplementedError("only float32 synthesis")
+            raise NotImplementedError(
+                "only float32 synthesis: the bf16 policy of infer_compute_dtype "
+                "is not ported yet (ROADMAP §A.7)")
+        if not cfg.use_transformer_flow and cfg.n_flow_layer != 4:
+            # the JAX package builds n_flow_layer couplings of 4 WN layers,
+            # the reference (as recalled) 4 couplings of n_flow_layer WN
+            # layers; the two agree only at 4 (ROADMAP §C R.4)
+            raise ValueError(
+                "the vits1 flow (use_transformer_flow false) takes only "
+                f"n_flow_layer 4, not {cfg.n_flow_layer}: its reading of "
+                "n_flow_layer is unconfirmed (ROADMAP §C R.4)")
         if cfg.train_compute_dtype != "float32":
             raise NotImplementedError(
                 "only float32 training: the bf16 policy of train_compute_dtype "
@@ -80,16 +92,22 @@ class Synthesizer(nn.Module):
             num_tones=c.num_tones,
             num_languages=c.num_languages, bert_dim=c.bert_dim,
             gin_channels=gin, use_ja_bert=c.use_ja_bert,
-            use_en_bert=c.use_en_bert, ja_bert_dim=c.ja_bert_dim)
+            use_en_bert=c.use_en_bert, ja_bert_dim=c.ja_bert_dim,
+            emotion=c.emotion)
         self.dec = Generator(
             c.inter_channels, c.resblock, c.resblock_kernel_sizes,
             c.resblock_dilation_sizes, c.upsample_rates,
             c.upsample_initial_channel, c.upsample_kernel_sizes,
             gin_channels=c.gin_channels)
-        self.flow = TransformerCouplingBlock(
-            c.inter_channels, c.hidden_channels, c.filter_channels, c.n_heads,
-            c.n_layers_trans_flow, 5, c.p_dropout, n_flows=c.n_flow_layer,
-            gin_channels=c.gin_channels)
+        if c.use_transformer_flow:
+            self.flow = TransformerCouplingBlock(
+                c.inter_channels, c.hidden_channels, c.filter_channels, c.n_heads,
+                c.n_layers_trans_flow, 5, c.p_dropout, n_flows=c.n_flow_layer,
+                gin_channels=c.gin_channels)
+        else:
+            self.flow = ResidualCouplingBlock(
+                c.inter_channels, c.hidden_channels,
+                gin_channels=c.gin_channels)
         self.sdp = StochasticDurationPredictor(
             c.hidden_channels, 3, 0.5, 4, gin_channels=c.gin_channels)
         self.dp = DurationPredictor(c.hidden_channels, 256, 3, 0.5,
@@ -116,18 +134,20 @@ class Synthesizer(nn.Module):
         return self.ref_enc(y)
 
     def forward(self, x, x_lengths, y, y_lengths, sid, tone, language, bert,
-                ja_bert, en_bert, mas_noise_scale=0.01, generator=None):
+                ja_bert, en_bert, emo=None, mas_noise_scale=0.01, generator=None):
         """Training forward (models.py:937-1024).
 
         x, tone, language: [b, t_x] int; x_lengths, y_lengths, sid: [b];
         y: linear spectrogram [b, t_y, spec]; bert, ja_bert, en_bert:
-        [b, t_x, dim]. Returns the JAX package's dictionary of outputs, in
-        the layout [b, c, t] (attn [b, t_y, t_x], masks [b, 1, t], l_length
-        [b], wave_slice [b, segment_samples], ids_slice [b])."""
+        [b, t_x, dim]; emo: the emotion input of a V2.1/V2.2 model
+        (`TextEncoder.emotion_embedding`). Returns the JAX package's
+        dictionary of outputs, in the layout [b, c, t] (attn [b, t_y, t_x],
+        masks [b, 1, t], l_length [b], wave_slice [b, segment_samples],
+        ids_slice [b])."""
         g = self._speaker(sid, y)
         x_h, m_p, logs_p, x_mask = self.enc_p(
             x, x_lengths, tone, language, bert.transpose(1, 2),
-            ja_bert.transpose(1, 2), en_bert.transpose(1, 2), g=g)
+            ja_bert.transpose(1, 2), en_bert.transpose(1, 2), emo=emo, g=g)
         z, m_q, logs_q, y_mask = self.enc_q(y.transpose(1, 2), y_lengths, g=g,
                                             generator=generator)
         z_p = self.flow(z, y_mask, g=g)
@@ -188,13 +208,13 @@ class Synthesizer(nn.Module):
 
     def _durations(self, x, x_lengths, sid, tone, language, bert, ja_bert,
                    en_bert, length_scale, noise_scale_w, sdp_ratio, generator,
-                   z_in, y=None):
+                   z_in, y=None, emo=None):
         """Shared prefix of predict_durations and infer -> (w [b, t_x],
         m_p, logs_p [b, c, t_x], x_mask [b, 1, t_x], g [b, gin])."""
         g = self._speaker(sid, y)
         x_h, m_p, logs_p, x_mask = self.enc_p(
             x, x_lengths, tone, language, bert.transpose(1, 2),
-            ja_bert.transpose(1, 2), en_bert.transpose(1, 2), g=g)
+            ja_bert.transpose(1, 2), en_bert.transpose(1, 2), emo=emo, g=g)
         b, _, t = x_h.shape
         if z_in is not None:
             z = z_in.transpose(1, 2).to(x_h.dtype)
@@ -209,24 +229,26 @@ class Synthesizer(nn.Module):
         return w, m_p, logs_p, x_mask, g
 
     def predict_durations(self, x, x_lengths, sid, tone, language, bert,
-                          ja_bert, en_bert, length_scale=1.0,
+                          ja_bert, en_bert, emo=None, length_scale=1.0,
                           noise_scale_w=0.8, sdp_ratio=0.0, generator=None,
                           z_in=None, y=None):
         """Predicted frame counts [b] without synthesis: the literal prefix of
         `infer`, so the same generator state gives infer's y_lengths."""
         w, *_ = self._durations(x, x_lengths, sid, tone, language, bert,
                                 ja_bert, en_bert, length_scale, noise_scale_w,
-                                sdp_ratio, generator, z_in, y)
+                                sdp_ratio, generator, z_in, y, emo)
         return torch.sum(torch.ceil(w), dim=-1).clamp(min=1.0).to(torch.int32)
 
     def infer(self, x, x_lengths, sid, tone, language, bert, ja_bert, en_bert,
-              max_frames: int, noise_scale=0.667, length_scale=1.0,
+              max_frames: int, emo=None, noise_scale=0.667, length_scale=1.0,
               noise_scale_w=0.8, sdp_ratio=0.0, generator=None, z_in=None,
               eps=None, mrf_packed=None, y=None):
         """Statically shaped synthesis (models.py:1026-1074).
 
         x, tone, language: [b, t_x] int; x_lengths, sid: [b]; bert, ja_bert,
-        en_bert: [b, t_x, dim]. z_in [b, t_x, 2]: SDP noise, already scaled
+        en_bert: [b, t_x, dim]; emo: the emotion input of a V2.1/V2.2 model
+        ([b] codebook indices or [b, 1024] for vq210, [b, 512] for clap220).
+        z_in [b, t_x, 2]: SDP noise, already scaled
         (noise_scale_w is then ignored); eps [b, max_frames, inter]: prior
         noise before noise_scale. mrf_packed: `dec.pack_mrf()`, resolved once.
         y [b, t, spec_channels]: the reference spectrogram of a model with
@@ -235,7 +257,7 @@ class Synthesizer(nn.Module):
         y_mask [b, t_y], y_lengths [b] int32)."""
         w, m_p, logs_p, x_mask, g = self._durations(
             x, x_lengths, sid, tone, language, bert, ja_bert, en_bert,
-            length_scale, noise_scale_w, sdp_ratio, generator, z_in, y)
+            length_scale, noise_scale_w, sdp_ratio, generator, z_in, y, emo)
         w_ceil = torch.ceil(w)
         y_lengths = torch.sum(w_ceil, dim=-1).clamp(min=1.0)
         y_lengths = torch.clamp(y_lengths, max=max_frames).to(torch.int32)

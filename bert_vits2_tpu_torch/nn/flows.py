@@ -17,6 +17,7 @@ from torch import nn
 from bert_vits2_tpu_torch.nn.attention import Encoder
 from bert_vits2_tpu_torch.nn.conv import conv1d
 from bert_vits2_tpu_torch.nn.ddsconv import DDSConv
+from bert_vits2_tpu_torch.nn.wavenet import WN
 from bert_vits2_tpu_torch.ops.spline import unconstrained_rational_quadratic_spline
 
 
@@ -87,19 +88,16 @@ class ConvFlow(nn.Module):
         return x, torch.sum(logabsdet * x_mask, dim=(1, 2))
 
 
-class TransformerCouplingLayer(nn.Module):
-    """Transformer-parameterized mean-only coupling (modules.py:519-580):
-    volume-preserving, so its logdet is zero."""
+class _MeanOnlyCoupling(nn.Module):
+    """`pre` (1x1 conv), `enc`, `post` (1x1 conv, zero init) on the first
+    half of the channels shift the second: volume-preserving, so the logdet
+    is zero."""
 
-    def __init__(self, channels: int, hidden_channels: int, kernel_size: int,
-                 n_layers: int, n_heads: int, filter_channels: int,
-                 p_dropout: float = 0.0, gin_channels: int = 0):
+    def __init__(self, channels: int, hidden_channels: int, enc: nn.Module):
         super().__init__()
         self.half = channels // 2
         self.pre = conv1d(self.half, hidden_channels, 1)
-        self.enc = Encoder(hidden_channels, filter_channels, n_heads, n_layers,
-                           kernel_size=kernel_size, p_dropout=p_dropout,
-                           gin_channels=gin_channels)
+        self.enc = enc
         self.post = conv1d(hidden_channels, self.half, 1)
         nn.init.zeros_(self.post.weight)
         nn.init.zeros_(self.post.bias)
@@ -112,3 +110,26 @@ class TransformerCouplingLayer(nn.Module):
         if reverse:
             return torch.cat([x0, (x1 - m) * x_mask], 1)
         return torch.cat([x0, m + x1 * x_mask], 1), x.new_zeros(x.shape[0])
+
+
+class ResidualCouplingLayer(_MeanOnlyCoupling):
+    """WN-parameterized coupling of the vits1 flow (modules.py:402-456),
+    mean-only as `ResidualCouplingBlock` builds it."""
+
+    def __init__(self, channels: int, hidden_channels: int, kernel_size: int,
+                 dilation_rate: int, n_layers: int, gin_channels: int = 0):
+        super().__init__(channels, hidden_channels, WN(
+            hidden_channels, kernel_size, dilation_rate, n_layers,
+            gin_channels=gin_channels))
+
+
+class TransformerCouplingLayer(_MeanOnlyCoupling):
+    """Transformer-parameterized mean-only coupling (modules.py:519-580)."""
+
+    def __init__(self, channels: int, hidden_channels: int, kernel_size: int,
+                 n_layers: int, n_heads: int, filter_channels: int,
+                 p_dropout: float = 0.0, gin_channels: int = 0):
+        super().__init__(channels, hidden_channels, Encoder(
+            hidden_channels, filter_channels, n_heads, n_layers,
+            kernel_size=kernel_size, p_dropout=p_dropout,
+            gin_channels=gin_channels))

@@ -47,7 +47,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
    and K2 3 times (counts zeroed just before it); one JP sentence at zero
    noise, card against CPU; infer_batch timed over 5 calls, host time
    (prepare) split from synthesis time.
-6c. the HTTP server in process ([serve]): a ModelRegistry with the loader
+6c. old checkpoint versions ([versions]): for each version family of
+   compat/versions.py, a config.json at the V2.3 widths (version 1.0.1,
+   1.1.1, 2.0.2-fix, 2.1, 2.2, and a 2.3 one with use_transformer_flow
+   false) and a reference-layout G_0.pth of a nonzero-init model (the
+   V2.1/V2.2 quantizers' EMA buffers in the file), loaded by
+   load_tts_engine on the card: every parameter from the file, the buffers
+   dropped. JP and EN from text where the family has them (1.1: JP; 1.0 is
+   ZH only and goes through run_prepared on seeded ids, since its g2p
+   needs jieba); V2.1 with emotion=3 and with a stub extractor's 1024-d
+   vector, V2.2 with zero features and a stub's 512-d vector. Each call
+   launches K1 28 times (12 with the vits1 flow) and K2 3 times; one
+   zero-noise call per emotion input card against CPU within WAVE_BOUND;
+   each family's median time beside the 2.3 engine's.
+6d. the HTTP server in process ([serve]): a ModelRegistry with the loader
    that the server's main() builds (load_tts_engine on the card) over the
    same config.json and G_0.pth, warmup over batches 1, 4 and 16 and
    buckets 64 and 128, make_server on a free port. Client threads send 32
@@ -63,13 +76,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    within WAVE_BOUND of the sentence served alone; the same paragraph with
    batching off equals the batched one; /status names the card,
    /models/info the engine's device.
-6d. the server's CLI ([serve-cli]): `python -m
+6e. the server's CLI ([serve-cli]): `python -m
    bert_vits2_tpu_torch.serve.server --device cuda --warmup --model
    G_0.pth:config.json` in a subprocess on a free port; it must print its
    `serving on` line, answer GET /status and two POST /voice (the first
    also loads the EN g2p's lexicon) with a WAV of a whole number of
    frames, and is terminated.
-6e. the BERT encoder (text/bert_encoder.py) at the published widths of
+6f. the BERT encoder (text/bert_encoder.py) at the published widths of
    chinese-roberta-wwm-ext-large and deberta-v3-large, random weights:
    ms per forward at 64 ids, peak memory, hidden_states[-3] card against
    CPU.
@@ -1045,6 +1058,200 @@ def run_text(dev, smi, counters):
     return totals
 
 
+VERSION_CASES = (  # name, config.json version, model-section additions, text languages
+    ("1.0", "1.0.1", {}, ()),  # ZH only: seeded ids through run_prepared (jieba)
+    ("1.1", "1.1.1", {}, ("JP",)),
+    ("2.0", "2.0.2-fix", {}, ("JP", "EN")),
+    ("2.1", "2.1", {}, ("JP", "EN")),
+    ("2.2", "2.2", {}, ("JP", "EN")),
+    ("2.3 vits1 flow", "2.3", {"use_transformer_flow": False}, ("JP", "EN")),
+    ("2.3", "2.3", {}, ("JP", "EN")),  # the reference for the times
+)
+VERSION_TIMED = 5  # infer calls timed per family
+
+
+class StubEmotion:
+    """Seeded vectors in place of the wav2vec2 / CLAP extractors (no weights
+    in the checkout), one per (reference audio, prompt)."""
+
+    def __init__(self, dim):
+        self.dim = dim
+
+    def __call__(self, reference_audio=None, prompt=None):
+        key = sum(map(ord, repr((reference_audio, prompt))))
+        return np.random.default_rng(key).normal(size=self.dim).astype(np.float32)
+
+
+def write_family(root, name, version, model_add):
+    """config.json of `version` (the V2.3 model section plus `model_add`) and
+    a reference-layout G_0.pth of a nonzero-init model of the family's
+    config; the V2.1/V2.2 quantizers' EMA buffers (training state) are in
+    the file. -> (config path, weights path, ModelConfig, state_dict, the
+    number of EMA buffers added)."""
+    from bert_vits2_tpu_torch.compat.versions import spec_for
+    from bert_vits2_tpu_torch.config import ModelConfig
+    from bert_vits2_tpu_torch.models import build_synthesizer
+    config = dict(
+        version=version, train=dict(segment_size=16384),
+        data=dict(sampling_rate=44100, filter_length=2048, hop_length=512,
+                  win_length=2048, n_mel_channels=128, n_speakers=256,
+                  spk2id={f"spk{i}": i for i in range(4)}),
+        model=dict(V23_MODEL_JSON, **model_add))
+    # [text] holds V23_MODEL_JSON to ModelConfig()'s V2.3 widths
+    cfg = ModelConfig.from_json(config["model"], config["data"], segment_size=16384,
+                                **spec_for(version).model_overrides())
+    model = build_synthesizer(cfg, device="cpu", seed=0)
+    nonzero_init(model)
+    with torch.no_grad():
+        model.dp.proj.bias.fill_(1.5)
+    sd = model.state_dict()
+    saved = dict(sd)  # + the quantizers' EMA buffers, as vector_quantize_pytorch keeps them
+    for key in [k for k in sd if k.endswith("._codebook.embed")]:
+        stem = key[:-len("embed")]
+        heads, size = sd[key].shape[:2]
+        saved[stem + "initted"] = torch.ones(1)
+        saved[stem + "cluster_size"] = torch.ones(heads, size)
+        saved[stem + "embed_avg"] = sd[key].clone()
+    tag = name.replace(" ", "_")
+    weights = os.path.join(root, f"G_{tag}.pth")
+    torch.save({"model": saved, "iteration": 0}, weights)
+    cfg_path = os.path.join(root, f"config_{tag}.json")
+    with open(cfg_path, "w", encoding="utf-8") as f:
+        json.dump(config, f)
+    return cfg_path, weights, cfg, sd, len(saved) - len(sd)
+
+
+def run_versions(dev, smi, counters):
+    """[versions]: every version family of compat/versions.py at the V2.3
+    widths through load_tts_engine on the card, from a config.json and a
+    reference-layout G_0.pth (the V2.1/V2.2 quantizers' EMA buffers in the
+    file, dropped by the loader): 1.0 (ZH only: seeded ids through
+    run_prepared, its g2p needs jieba), 1.1 (JP), 2.0, 2.1 (emotion=3 and a
+    stub 1024-d vector for reference audio), 2.2 (zero CLAP features and a
+    stub 512-d vector), a 2.3 config with use_transformer_flow false (the vits1 WN
+    flow) and the 2.3 engine itself (JP and EN from text). Each call's K1
+    and K2 launches (counts zeroed just before it): 28 and 3 with the
+    transformer flow, 12 and 3 with the vits1 flow. One zero-noise call per
+    emotion input, card against the CPU engine of the same files, within
+    WAVE_BOUND. The median of the first call (infer JP; 1.0: its
+    run_prepared) of each family beside the 2.3 engine's infer JP, and per
+    second of audio (each family's random model predicts other durations);
+    the emotion branch alone on the card. Returns K1's and K2's launches
+    summed over the phase's checked calls."""
+    from bert_vits2_tpu_torch.infer import load_tts_engine
+    from bert_vits2_tpu_torch.infer.loader import _pth_state_dict
+
+    totals = {"banded_attn_fwd": 0, "mrf_fwd": 0}
+    medians, per_audio = {}, {}
+    t_phase = time.perf_counter()
+    sentence = {"JP": TEXT_SENTENCES["JP"][0], "EN": TEXT_SENTENCES["EN"][2]}
+    with tempfile.TemporaryDirectory() as root:
+        for name, version, model_add, langs in VERSION_CASES:
+            config, weights, cfg, sd, n_ema = write_family(root, name, version, model_add)
+            stub = StubEmotion({"vq210": 1024, "clap220": 512}.get(cfg.emotion, 0))
+            t0 = time.perf_counter()
+            engine = load_tts_engine(config, weights, device="cuda", emotion_extractor=stub)
+            load_s = time.perf_counter() - t0
+            if engine.model.cfg != cfg:
+                raise AssertionError(f"[versions] {name}: loaded {engine.model.cfg}, not {cfg}")
+            got_sd = engine.model.state_dict()
+            if set(_pth_state_dict(weights)) != set(got_sd) or not all(
+                    torch.equal(got_sd[k].cpu(), v) for k, v in sd.items()):
+                raise AssertionError(f"[versions] {name}: the loaded weights are not the "
+                                     "file's, or the EMA buffers were not dropped")
+            emos = {"vq210": [dict(emotion=3), dict(reference_audio="stub.wav")],
+                    "clap220": [{}, dict(reference_audio="stub.wav")]}.get(cfg.emotion, [{}])
+            n_attn = 2 * cfg.n_layers + (cfg.n_flow_layer * cfg.n_layers_trans_flow
+                                         if cfg.use_transformer_flow else 0)
+            n_mrf = sum(1 for w in engine.mrf_packed if w is not None)
+            want = {k: 0 for k in counters}
+            want.update(banded_attn_fwd=n_attn, mrf_fwd=n_mrf)
+            if langs:
+                calls = [(f"infer {lang} {emo or ''}".strip(),
+                          lambda lang=lang, emo=emo: engine.infer(
+                              sentence[lang], "spk1", language=lang, **emo))
+                         for lang in langs for emo in emos]
+                zero = [lambda eng, emo=emo: eng.infer(sentence[langs[0]], "spk1",
+                                                       language=langs[0], noise_scale=0.0,
+                                                       noise_scale_w=0.0, **emo)
+                        for emo in emos]
+            else:
+                reqs = [r._replace(noise_scale=0.0, noise_scale_w=0.0)
+                        for r in make_requests(cfg, 2, seed=3)]
+                calls = [("run_prepared of 2 seeded requests",
+                          lambda: engine.run_prepared(reqs))]
+                zero = [lambda eng: eng.run_prepared(reqs[:1])[0]]
+            for what, fn in calls:
+                torch.cuda.synchronize()
+                for c in counters.values():
+                    c.launches = 0
+                out = fn()
+                torch.cuda.synchronize()
+                got = {k: c.launches for k, c in counters.items()}
+                if got != want:
+                    raise AssertionError(f"[versions] {name} {what}: kernel launches "
+                                         f"{got}, want {want}")
+                for k in totals:
+                    totals[k] += got[k]
+                for w in (out if isinstance(out, list) else [out]):
+                    if not (len(w) >= engine.hop_length and np.isfinite(w).all()
+                            and np.abs(w).max() <= 1.0):
+                        raise AssertionError(f"[versions] {name} {what}: a wave is "
+                                             "empty, non-finite or out of [-1, 1]")
+                log(f"[versions] {name} {what}: K1 {got['banded_attn_fwd']} K2 "
+                    f"{got['mrf_fwd']} launches")
+            errs = []
+            if name != "2.3":  # the 2.3 engine's card-vs-CPU check is [text]'s
+                cpu_engine = load_tts_engine(config, weights, device="cpu",
+                                             bert_extractor=engine.bert_extractor,
+                                             emotion_extractor=stub)
+                for fn in zero:
+                    g, c = fn(engine), fn(cpu_engine)
+                    errs.append(float(np.abs(g - c).max()) if len(g) == len(c)
+                                else math.inf)
+                del cpu_engine
+                if not all(e <= WAVE_BOUND for e in errs):
+                    raise AssertionError(f"[versions] {name}: card and CPU disagree: {errs}")
+            lat = []
+            for _ in range(VERSION_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = calls[0][1]()
+                torch.cuda.synchronize()
+                lat.append(time.perf_counter() - t0)
+            medians[name] = float(np.median(lat)) * 1e3
+            audio_s = sum(len(w) for w in (out if isinstance(out, list) else [out])
+                          ) / engine.sampling_rate
+            per_audio[name] = medians[name] / audio_s
+            branch = ""
+            if cfg.emotion != "none":  # the emotion branch alone, batch 1
+                enc = engine.model.enc_p
+                inputs = {"vq210": {"index": torch.tensor([3], device=dev),
+                                    "vector": torch.randn(1, 1024, device=dev)},
+                          "clap220": {"feature": torch.randn(1, 512, device=dev)}}
+                with torch.inference_mode():
+                    branch = "; the emotion branch (" + ", ".join(
+                        f"{k}: {cuda_ms(lambda e=e: enc.emotion_embedding(e)):.4f} ms, "
+                        f"device {device_ms(lambda e=e: enc.emotion_embedding(e)):.4f}"
+                        for k, e in inputs[cfg.emotion].items()) + ")"
+            log(f"[versions] {name} (config version {version}{', ' if model_add else ''}"
+                f"{json.dumps(model_add) if model_add else ''}): load {load_s:.1f} s, "
+                f"{n_ema} EMA buffers dropped; K1 {n_attn} K2 {n_mrf} per call; card vs CPU "
+                f"max_abs_err {', '.join(f'{e:.3e}' for e in errs) or 'see [text]'} "
+                f"(bound {WAVE_BOUND:g}); {calls[0][0]} median {medians[name]:.1f} ms, "
+                f"max {max(lat) * 1e3:.1f} ms over {VERSION_TIMED}, {audio_s:.2f} s of "
+                f"audio: {medians[name] / audio_s:.1f} ms per audio-second{branch}")
+            del engine
+            torch.cuda.empty_cache()
+    log(f"[versions-timing] {smi}: median ms of each family's timed call, and ms "
+        f"per audio-second, beside the 2.3 engine's {medians['2.3']:.1f} and "
+        f"{per_audio['2.3']:.1f}: "
+        + ", ".join(f"{k} {v:.1f} / {per_audio[k]:.1f} ({per_audio[k] / per_audio['2.3']:.2f}x)"
+                    for k, v in medians.items())
+        + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 SERVE_LEVELS = (1, 4, 16)  # client threads sending at once
 SERVE_REQUESTS = 32  # /voice requests per level
 SERVE_PARAGRAPHS = {  # four sentences each; EN: 65-128 tokens, one bucket
@@ -2012,6 +2219,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     text_launches = run_text(dev, smi, counters)
+    versions_launches = run_versions(dev, smi, counters)
     serve_launches = run_serve(smi, counters)
     run_serve_cli(smi)
     run_bert(smi)
@@ -2085,10 +2293,14 @@ def main(argv=None) -> int:
     for row in record["kernels"][2:]:
         row["launches_train_slm"] = slm_launches[row["name"]]
         row["basis"] += slm_basis
+    versions_basis = ("; launches_versions: over the [versions] phase's checked calls "
+                      "of the V1.0-V2.3 families and the vits1 flow (counts zeroed "
+                      "before each)")
     for row in record["kernels"][:2]:
         row["launches_text"] = text_launches[row["name"]]
+        row["launches_versions"] = versions_launches[row["name"]]
         row["launches_serve"] = serve_launches[row["name"]]
-        row["basis"] += text_basis + serve_basis
+        row["basis"] += text_basis + versions_basis + serve_basis
     wide_src = "bert_vits2_tpu_torch/csrc/banded_attn_wide.cu"
     ranged = ("per MultiHeadAttention call of the [attention-range] phase (launches: "
               "that phase's, counts zeroed before it)")

@@ -32,6 +32,7 @@ from bert_vits2_tpu_torch.text.bert_encoder import (
     EncoderConfig,
     load_hf_bert,
 )
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 # transformers' torch classes only: skip its TensorFlow import (~6 s here)
 os.environ.setdefault("USE_TF", "0")

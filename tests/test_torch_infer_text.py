@@ -25,7 +25,6 @@ Tolerances: get_text's arrays exactly equal; waves at zero noise of equal
 length and within WAVE_ATOL = 1e-4 (tests/test_torch_synthesis.py).
 """
 
-import dataclasses
 import json
 
 import numpy as np
@@ -48,23 +47,13 @@ from bert_vits2_tpu_torch.text.bert import RandomBertExtractor
 from bert_vits2_tpu_torch.text.symbols import SYMBOLS
 from test_torch_modules import TINY, random_synth_params
 from test_torch_synthesis import WAVE_ATOL
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = dict(TINY, n_vocab=len(SYMBOLS))
 ENGINE_KW = dict(text_buckets=(64,), frames_per_token=4, frame_multiple=320)
 SPK2ID = {"alice": 0, "bob": 1, "carol": 2, "dave": 3}
 SENTENCES = {"JP": "こんにちは、世界。", "EN": "Hello world.", "ZH": "你好，世界。"}
 ZERO = dict(noise_scale=0.0, noise_scale_w=0.0)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The tiny models gain nothing from intra-op threads, and beside the
-    test runner's other workers their spinning slows every process. One
-    thread here, restored after the file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -116,24 +105,29 @@ def _close(got, want):
 @pytest.mark.parametrize("lang", ["JP", "EN", "ZH"])
 def test_get_text_matches_jax(lang):
     """The six arrays, bit for bit, with and without the 2.3 spec, for two
-    noise seeds; another family's spec raises."""
+    noise seeds, and with another family's spec (2.1: zero fills for the
+    inactive languages, as the JAX get_text gives them; every family in
+    tests/test_torch_versions.py)."""
     ext = RandomBertExtractor(0)
     spec, jax_spec = versions.spec_for("2.3"), jax_versions.spec_for("2.3")
-    for noise_seed, (s, js) in ((0, (None, None)), (5, (spec, jax_spec))):
+    old, jax_old = versions.spec_for("2.1"), jax_versions.spec_for("2.1")
+    for noise_seed, (s, js) in ((0, (None, None)), (5, (spec, jax_spec)),
+                                (5, (old, jax_old))):
         got = get_text(SENTENCES[lang], lang, ext, noise_seed=noise_seed, spec=s)
         want = jax_api.get_text(SENTENCES[lang], lang, ext, noise_seed=noise_seed,
                                 spec=js)
         for g, w in zip(got, want):
             assert g.dtype == w.dtype and np.array_equal(g, w)
-    with pytest.raises(NotImplementedError, match="2.1"):
-        get_text(SENTENCES[lang], lang, ext, spec=dataclasses.replace(spec, family="2.1"))
+    assert not any(got[3 + j].any() for j, la in enumerate(("ZH", "JP", "EN"))
+                   if la != lang)
 
 
 def test_prepare_matches_jax(engines):
     """prepare of every request of the pile (speaker names, segments with the
     inner 3/2-token trims, knobs) and of two with the outer trims
     (skip_start, skip_end): the same arrays and fields as the JAX engine's.
-    Emotion inputs (V2.1/V2.2 only) raise."""
+    Emotion inputs condition V2.1/V2.2 engines only: this 2.3 engine
+    ignores them, as the JAX one does."""
     jax_engine, engine, *_ = engines
     assert engine.resolve_speaker("carol") == jax_engine.resolve_speaker("carol") == 2
     assert engine.resolve_speaker(3) == jax_engine.resolve_speaker(3) == 3
@@ -145,8 +139,9 @@ def test_prepare_matches_jax(engines):
             assert np.array_equal(g, w), key
         assert got._replace(inputs=None) == want._replace(inputs=None), key
     for emo in (dict(emotion=1), dict(reference_audio="ref.wav")):
-        with pytest.raises(NotImplementedError, match="emotion"):
-            engine.prepare(**PILE[0][1], **emo)
+        got, want = engine.prepare(**PILE[0][1], **emo), jax_engine.prepare(**PILE[0][1], **emo)
+        assert got.emo is None and want.emo is None
+        assert got._replace(inputs=None) == want._replace(inputs=None)
     whole = [get_text(t, la, engine.bert_extractor) for t, la in SEGMENTS]
     n = [len(engine.prepare(**PILE[2][1], **t).inputs[0]) for t in ({}, trims)]
     assert n == [len(whole[0][0]) + len(whole[1][0]) - 5,
@@ -194,7 +189,9 @@ def test_loader_matches_jax(engines, tmp_path, monkeypatch):
     """A config.json plus a G_0.pth (the port's state_dict, keys under the
     DDP `module.` prefix) and an .npz release (the JAX package's
     save_release): both packages' load_tts_engine give the same waves from
-    each; refused versions, dtypes and orbax directories raise."""
+    each. A 2.1 config.json routes to the V2.1 family (this 2.3 file lacks
+    its emotion keys, which keep their init); refused dtypes and orbax
+    directories raise."""
     jax_engine, _, params, port, want = engines
     config = _write_config(tmp_path / "config.json")
     pth = tmp_path / "G_0.pth"
@@ -218,9 +215,10 @@ def test_loader_matches_jax(engines, tmp_path, monkeypatch):
         _close([loaded_waves[k] for k in want], list(want.values()))
         _close([engine.infer(SENTENCES["EN"], "dave", language="EN", sdp_ratio=0.4,
                              **ZERO)], [loaded_waves["infer EN"]])
-    with pytest.raises(NotImplementedError, match="2.1 family"):
-        load_tts_engine(_write_config(tmp_path / "old.json", "2.1"), str(pth),
-                        bert_extractor=ext, device="cpu")
+    old = load_tts_engine(_write_config(tmp_path / "old.json", "2.1"), str(pth),
+                          bert_extractor=ext, device="cpu")
+    assert old.version_spec == versions.spec_for("2.1")
+    assert old.model.cfg == ModelConfig(**dict(CFG, emotion="vq210"))
     with pytest.raises(NotImplementedError, match="bfloat16"):
         load_tts_engine(config, str(pth), bert_extractor=ext,
                         compute_dtype="bfloat16", device="cpu")

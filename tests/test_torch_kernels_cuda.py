@@ -614,3 +614,60 @@ def test_slm_train_step_card_against_cpu(card, monkeypatch):
     assert {"loss/wd/total", "loss/g/lm", "loss/g/lm_gen"} <= set(got)
     for k, w in want.items():
         assert abs(got[k] - w) <= 1e-3 * abs(w), (k, got[k], w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,transformer_flow,n_attn", [
+    ("2.1", True, 28), ("2.3", False, 12)])
+def test_old_family_card_against_cpu(card, family, transformer_flow, n_attn):
+    """A V2.1 model (the vq210 emotion branch; a codebook index and a
+    1024-d vector) and a vits1-flow model (use_transformer_flow false, WN
+    couplings on stock convs) at the default V2.3 widths, random weights
+    with the zero-init couplings made random: one request at zero noise
+    through TTSEngine.run_prepared on the card and on the CPU, equal
+    frames and waves within 1e-3; every card call launches K1 n_attn times
+    (enc_p's 6 layers twice, plus the transformer flow's 16) and K2 3
+    times, the CPU none."""
+    import dataclasses
+
+    import numpy as np
+
+    from bert_vits2_tpu_torch.compat.versions import spec_for
+    from bert_vits2_tpu_torch.config import ModelConfig
+    from bert_vits2_tpu_torch.infer import PreparedRequest, TTSEngine
+    from bert_vits2_tpu_torch.models import build_synthesizer
+
+    cfg = dataclasses.replace(ModelConfig(**spec_for(family).model_overrides()),
+                              use_transformer_flow=transformer_flow)
+    model = build_synthesizer(cfg, device="cpu", seed=0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".post." in name or (name.startswith("sdp.") and ".proj." in name):
+                p.copy_(0.02 * torch.randn(p.shape, generator=g))
+        model.dp.proj.bias.fill_(1.5)
+    sd = model.state_dict()
+    rng = np.random.default_rng(2)
+    t = 77
+    inputs = (rng.integers(1, cfg.n_vocab, t), rng.integers(0, cfg.num_tones, t),
+              rng.integers(0, 3, t),
+              *(0.5 * rng.normal(size=(t, 1024)).astype(np.float32) for _ in range(3)))
+    emos = ([np.asarray([3], np.int32),
+             rng.normal(size=(1, 1024)).astype(np.float32)] if cfg.emotion == "vq210"
+            else [None])
+    engines = [TTSEngine(build_synthesizer(cfg, device=dev, state_dict=sd), device=dev)
+               for dev in ("cpu", card)]
+    for emo in emos:
+        req = PreparedRequest(inputs=inputs, sid=3, emo=emo, noise_scale=0.0,
+                              noise_scale_w=0.0)
+        waves = []
+        for engine in engines:
+            torch.cuda.synchronize()
+            banded_rel_self_attention.launches = fused_mrf.launches = 0
+            waves.append(engine.run_prepared([req])[0])
+            torch.cuda.synchronize()
+            want = (n_attn, 3) if engine.device.type == "cuda" else (0, 0)
+            assert (banded_rel_self_attention.launches, fused_mrf.launches) == want
+        want_wave, wave = waves
+        assert len(wave) == len(want_wave) > 0 and np.isfinite(wave).all()
+        assert np.abs(wave - want_wave).max() <= 1e-3

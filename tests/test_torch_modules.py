@@ -31,6 +31,7 @@ from bert_vits2_tpu_torch.compat.params import from_jax_params
 from bert_vits2_tpu_torch.config import ModelConfig
 from bert_vits2_tpu_torch.models import build_synthesizer
 from bert_vits2_tpu_torch.nn.flows import Log
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 TINY = dict(

@@ -41,6 +41,7 @@ from bert_vits2_tpu_torch.ops.mrf import (
     fused_mrf_plain,
     prepare_mrf_weights,
 )
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 KS = (3, 7, 11)

@@ -117,7 +117,8 @@ for name in ("text.cleaner", "text.mandarin", "text.japanese", "text.english",
              "text.bert", "text.bert_encoder", "infer.loader", "utils.model_tools",
              "serve", "serve.server", "serve.batcher", "serve.registry",
              "serve.textseg", "serve.markup", "serve.translate", "serve.webui",
-             "utils.audio"):
+             "utils.audio", "compat.versions", "nn.vq", "text.emotion",
+             "models.text_encoder", "models.flow"):
     assert "bert_vits2_tpu_torch." + name in sys.modules, name
 from bert_vits2_tpu_torch.text import clean_text
 for text, lang in (("こんにちは", "JP"), ("Hello world.", "EN")):
@@ -171,7 +172,32 @@ except RuntimeError:
     raised.append("server CLI")
 assert "bert_vits2_tpu_torch.train.step" in sys.modules
 assert "bert_vits2_tpu_torch.ops.align" in sys.modules
-print(json.dumps({"loaded": loaded, "raised": raised}))
+import numpy as np
+import torch
+from bert_vits2_tpu_torch.compat.versions import spec_for
+from bert_vits2_tpu_torch.text import emotion
+from bert_vits2_tpu_torch.text.bert import RandomBertExtractor
+emotion_devices = []
+
+
+def no_weights(extractor):
+    emotion_devices.append(str(extractor.device))
+    raise RuntimeError("no emotion weights here")
+
+
+emotion.Wav2Vec2EmotionExtractor._load = no_weights
+emotion.ClapFeatureExtractor._load = no_weights
+for family in ("2.1", "2.2"):
+    cfg = ModelConfig(n_layers=1, **spec_for(family).model_overrides())
+    engine = TTSEngine(build_synthesizer(cfg, device="cpu"), device="cpu",
+                       bert_extractor=RandomBertExtractor(0))
+    engine.device = torch.device("cuda")  # the extractor follows the engine
+    try:
+        engine._resolve_emotion(None, np.zeros(16, np.float32), 1)
+    except RuntimeError:
+        pass
+print(json.dumps({"loaded": loaded, "raised": raised,
+                  "emotion_devices": emotion_devices}))
 """
 
 
@@ -182,9 +208,12 @@ def test_import_boundary_and_default_device():
     and cleaning a JP and an EN sentence loads neither JAX, flax, optax nor
     the JAX package, and the entry points (the Trainer, the training CLI,
     the loader, the BERT encoder's extractor and the HTTP server's CLI
-    included) default to CUDA and raise instead of falling back to the CPU.
-    The serving layer (`serve.*`, `utils.audio`) is among the modules
-    imported."""
+    included) default to CUDA and raise instead of falling back to the CPU;
+    an engine on the card builds the default V2.1 and V2.2 emotion
+    extractors on the card.
+    The serving layer (`serve.*`, `utils.audio`) and the old-version
+    modules (`compat.versions`, `nn.vq`, `text.emotion`) are among the
+    modules imported."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120, check=True)
@@ -192,15 +221,20 @@ def test_import_boundary_and_default_device():
     assert res == {"loaded": [], "raised": ["build_synthesizer", "TTSEngine",
                                             "build_models", "Trainer",
                                             "train CLI", "load_tts_engine",
-                                            "BertEncoderExtractor", "server CLI"]}
+                                            "BertEncoderExtractor", "server CLI"],
+                   "emotion_devices": ["cuda", "cuda"]}
 
 
 @pytest.mark.parametrize("path", ["bert_vits2_tpu_torch", "chip_smoke.py"])
 def test_port_sources_name_no_jax(path):
     """No source file of the port or of chip_smoke.py imports JAX, flax,
-    optax or the JAX package."""
+    optax or the JAX package (its JAX-free modules too: the port keeps its
+    own `compat/versions.py`, `nn/vq.py` and `text/emotion.py`)."""
     root = REPO / path
     files = [root] if root.is_file() else sorted(root.rglob("*.py"))
+    if root.is_dir():
+        names = {str(f.relative_to(root)) for f in files}
+        assert {"compat/versions.py", "nn/vq.py", "text/emotion.py"} <= names
     for f in files:
         for line in f.read_text().splitlines():
             words = line.split()

@@ -61,6 +61,7 @@ from test_batcher import FakeEngine, _req
 from test_torch_infer_text import CFG, ENGINE_KW, SPK2ID, _write_config
 from test_torch_modules import random_synth_params
 from test_torch_synthesis import WAVE_ATOL
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 COPIED = ("serve/__init__", "serve/textseg", "serve/markup", "serve/translate",

@@ -77,6 +77,7 @@ from bert_vits2_tpu_torch.train import (
 from test_torch_modules import _t, random_tree
 from test_torch_train_modules import DD, MPD, TINY, patch_noise
 from test_torch_train_step import BATCH_KEYS, DATA, MAS_DRAW, make_batch
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 TINY_HF_KW = dict(
@@ -89,17 +90,6 @@ TINY_HF_KW = dict(
 )
 WD_CH = 8  # the WavLM discriminator's initial channels at the test size
 TINY0 = dict(TINY, n_speakers=0)  # the reference encoder in place of emb_g
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """This file's models are tiny: intra-op threads gain nothing, and
-    beside the test runner's other workers their spinning slows every
-    process. One thread here, restored after the file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _randomized(sd: dict, seed: int) -> dict:
@@ -446,6 +436,7 @@ _NO_TRANSFORMERS = """
 import sys
 sys.modules["transformers"] = None  # any import of it now raises
 import json, torch
+torch.set_num_threads(1)  # a tiny step: threads beside the test runner's workers only spin
 from bert_vits2_tpu_torch.models.slm import WavLM, WavLMConfig, SLM, load_wavlm
 from bert_vits2_tpu_torch.train.trainer import build_models, init_params
 from bert_vits2_tpu_torch.train import (DataConfig, TrainConfig,

@@ -26,6 +26,7 @@ from bert_vits2_tpu_torch.config import ModelConfig
 from bert_vits2_tpu_torch.infer import PreparedRequest, TTSEngine
 from bert_vits2_tpu_torch.models import build_synthesizer
 from test_torch_modules import TINY, random_synth_params
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 WAVE_ATOL = 1e-4
 

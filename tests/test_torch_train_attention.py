@@ -36,6 +36,7 @@ from bert_vits2_tpu_torch.ops.attention import (
     drop_threshold,
     hash_keep,
 )
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 OUT_ATOL = 1e-5
 GRAD_REL = 3e-5

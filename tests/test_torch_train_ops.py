@@ -35,6 +35,7 @@ from bert_vits2_tpu_torch.ops.align import (
     maximum_path_plain,
 )
 from bert_vits2_tpu_torch.train import losses, step
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _t(a):

@@ -67,6 +67,7 @@ from bert_vits2_tpu_torch.train import trainer as trainer_mod
 from bert_vits2_tpu_torch.train.trainer import Trainer, train_config_from_hparams
 from test_torch_modules import random_synth_params
 from test_torch_train_modules import DD, MPD, TINY, build_discriminators
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 SR, HOP, N_FFT, BERT_DIM = 1600, 16, 64, 16
 LANGS = ("ZH", "JP", "EN", "ZH")
@@ -93,17 +94,6 @@ class _Writer:
 
     def add_audio(self, tag, audio, step, sampling_rate):
         self.logged.append(("audio", tag, step))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The tiny corpus and models gain nothing from intra-op threads, and
-    beside the test runner's other workers their spinning slows every
-    process. One thread here, restored after the file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)
