@@ -38,6 +38,8 @@ SIGNATURES = {
         # q, k, v, mask, ek, ev, out, m, l, b, h, t, d, w, drop, thr, seed,
         # scale, device, stream
         "banded_attn_fwd_train": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
+        # as banded_attn_fwd, every tensor bf16
+        "banded_attn_fwd_bf16": [_P] * 7 + [_I] * 6 + [_P],
     },
     "banded_attn_bwd.cu": {
         # b, h, t
@@ -53,6 +55,7 @@ SIGNATURES = {
         # as banded_attn.cu's two entry points
         "banded_attn_wide_fwd": [_P] * 7 + [_I] * 6 + [_P],
         "banded_attn_wide_fwd_train": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
+        "banded_attn_wide_fwd_bf16": [_P] * 7 + [_I] * 6 + [_P],
         # q, k, v, mask, ek, ev, g, m, l, D, dq, band_ds, band_pd, dek, dev,
         # b, h, t, d, w, drop, thr, seed, scale, device, stream
         "banded_attn_wide_bwd_q": [_P] * 15 + [_I] * 8 + [_F, _I, _P],
@@ -63,6 +66,8 @@ SIGNATURES = {
         # x, mask, weights, out, b, c, t, tile, nb, ks, ns, dils, offs,
         # device, stream
         "mrf_fwd": [_P] * 4 + [_I] * 5 + [_P] * 4 + [_I, _P],
+        # x, mask, weights, acc, out, then as mrf_fwd
+        "mrf_fwd_bf16": [_P] * 5 + [_I] * 5 + [_P] * 4 + [_I, _P],
     },
     "tc_probe.cu": {  # built on demand by utils/tc_probe.py, not by build_all
         # A, B, D, lbo, sbo, stream

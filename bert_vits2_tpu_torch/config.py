@@ -9,6 +9,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -59,8 +61,7 @@ class ModelConfig:
     # Inference compute dtype for the flow + decoder ("float32" | "bfloat16").
     # Params stay fp32; activations in the two hot stages are cast. Text
     # encoder / duration predictors always run fp32 so predicted lengths are
-    # bit-stable across dtypes. The PyTorch port synthesizes in float32 only
-    # so far and refuses "bfloat16".
+    # bit-stable across dtypes. Any other value raises ValueError.
     infer_compute_dtype: str = "float32"
 
     # Training compute dtype for the hot forward stages (posterior WN stack,
@@ -76,6 +77,12 @@ class ModelConfig:
     slm_layers: int = 13
     slm_initial_channel: int = 64
     slm_sr: int = 16000
+
+    def __post_init__(self):
+        if self.infer_compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(
+                f"infer_compute_dtype {self.infer_compute_dtype!r} is not one of "
+                f"{COMPUTE_DTYPES}")
 
     @property
     def hop_length(self) -> int:

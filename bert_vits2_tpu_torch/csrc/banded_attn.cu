@@ -53,6 +53,25 @@
 // - Split: hi = v rounded to TF32 in integer ops, lo = v - hi (the tensor
 //   core ignores lo's low 13 bits); cvt.rna.tf32 would run on the 16-lane
 //   conversion pipe.
+//
+// bf16 mode (inference only; `banded_attn_fwd_bf16`): the TPU kernel's
+// bf16 operands (attention_pallas.py:88-146 under the JAX package's
+// infer_compute_dtype "bfloat16", the flow's 16 launches of a synthesis
+// call). q, k, v, the mask, ek, ev and out are bf16; S = Q K^T and P V run
+// as wgmma m64nNk16 bf16 with fp32 accumulators, one MMA per k16 step where
+// 3xTF32 issues three per k8 step, at twice the TF32 rate: the bound is
+// FLOP at 989 TFLOP/s. Scores, the online softmax and the row sums stay
+// fp32 in registers; P is rounded to bf16 only as P V's A operand, taken
+// from the accumulator registers as they lie (the bf16 A fragment of k16
+// step kk is exactly the S accumulator's 8-key tiles 2kk and 2kk + 1);
+// the band logits q . ek and the band term band(P) . ev are fp32 sums on
+// the CUDA cores (16 x 16 x d and 16 x 9 x d a warp, once per block),
+// band(P) from the fp32 P, as in the TPU kernel. Q, K and V lie in shared
+// memory as K-major bf16 core matrices (kmajor_bf16): Q and K with the
+// head dims as K (16-byte stores of 8 dims), V transposed, the keys as K
+// (2-byte stores). The TPU kernel rounds the normalized P and this one P
+// relative to the running max before the final 1 / l, so the two differ by
+// bf16 rounding of P (a few bf16 ulps of the output).
 
 #include "banded_attn_hash.cuh"
 #include "banded_attn_tc.cuh"
@@ -71,6 +90,79 @@ __device__ __forceinline__ void quad_sum(float (&band)[2][NBAND]) {
       band[r][c] += __shfl_xor_sync(0xffffffffu, band[r][c], 1);
       band[r][c] += __shfl_xor_sync(0xffffffffu, band[r][c], 2);
     }
+}
+
+// One key tile through the online softmax, for both modes: sc holds the
+// tile's scores q.k (accumulator layout) and returns what multiplies v and
+// ev, p' = exp(s - m) (dropped and scaled in train mode with drop); the
+// band logits are added and masked keys filled first; the lane's two rows'
+// running max m_run and sum l_run (of the undropped p), the band's
+// probabilities and the output accumulator o are rescaled to the new max,
+// and the band's p' of this tile added.
+template <int DK, bool TRAIN>
+__device__ __forceinline__ void softmax_tile(float (&sc)[4 * NKT], float (&o)[4 * DK],
+                                             float (&band)[2][NBAND], float (&m_run)[2],
+                                             float (&l_run)[2], const float* rw,
+                                             const float* Mk, int j0, int r0, int t, int w,
+                                             int g, int i4, int bh, bool drop,
+                                             uint32_t thr, uint32_t seed,
+                                             float keep_scale) {
+  const int nb = 2 * w + 1;
+  const bool in_band = j0 <= r0 + 15 + w && j0 + BK - 1 >= r0 - w;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int e4 = 0; e4 < 4 * NKT; ++e4) {
+    const int e = e4 % 4;
+    const int jj = (e4 / 4) * 8 + 2 * i4 + e % 2;
+    const int rr = g + 8 * (e / 2);
+    float x = sc[e4];
+    if (in_band) {
+      const int c = j0 + jj - (r0 + rr) + w;
+      if (c >= 0 && c < nb) x += rw[rr * 16 + c];
+    }
+    if (Mk[jj] == 0.f) x = NEG_FILL;
+    if (j0 + jj >= t) x = -INFINITY;  // past the end of the sequence
+    sc[e4] = x;
+    mx[e / 2] = fmaxf(mx[e / 2], x);
+  }
+  float scale[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    // every tile holds key j0 < t, so the new max is finite
+    const float m_new = fmaxf(m_run[r], mx[r]);
+    scale[r] = expf(m_run[r] - m_new);
+    m_run[r] = m_new;
+#pragma unroll
+    for (int c = 0; c < NBAND; ++c) band[r][c] *= scale[r];
+  }
+#pragma unroll
+  for (int e4 = 0; e4 < 4 * NKT; ++e4) {
+    const int e = e4 % 4;
+    const int jj = (e4 / 4) * 8 + 2 * i4 + e % 2;
+    const int rr = g + 8 * (e / 2);
+    const float p = expf(sc[e4] - m_run[e / 2]);
+    psum[e / 2] += p;
+    float pv = p;  // what multiplies v and ev
+    if (TRAIN && drop)
+      pv = hash_keep(r0 + rr, j0 + jj, bh, seed, thr) ? p * keep_scale : 0.f;
+    if (in_band) {
+      const int c = j0 + jj - (r0 + rr) + w;
+#pragma unroll
+      for (int cc = 0; cc < NBAND; ++cc)
+        if (cc == c) band[e / 2][cc] += pv;
+    }
+    sc[e4] = pv;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
+    psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
+    l_run[r] = l_run[r] * scale[r] + psum[r];
+  }
+#pragma unroll
+  for (int e = 0; e < 4 * DK; ++e) o[e] *= scale[(e % 4) / 2];
 }
 
 // Shared memory of a block, in floats. Q, K and V are stored split (hi,
@@ -187,61 +279,8 @@ banded_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     wg_wait<0>();
     fence_operands(sc);
 
-    const bool in_band = j0 <= r0 + 15 + w && j0 + BK - 1 >= r0 - w;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int e4 = 0; e4 < 4 * NKT; ++e4) {
-      const int e = e4 % 4;
-      const int jj = (e4 / 4) * 8 + 2 * i4 + e % 2;
-      const int rr = g + 8 * (e / 2);
-      float x = sc[e4];
-      if (in_band) {
-        const int c = j0 + jj - (r0 + rr) + w;
-        if (c >= 0 && c < nb) x += rw[rr * 16 + c];
-      }
-      if (Mk[jj] == 0.f) x = NEG_FILL;
-      if (j0 + jj >= t) x = -INFINITY;  // past the end of the sequence
-      sc[e4] = x;
-      mx[e / 2] = fmaxf(mx[e / 2], x);
-    }
-    float scale[2], psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // every tile holds key j0 < t, so the new max is finite
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      scale[r] = expf(m_run[r] - m_new);
-      m_run[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < NBAND; ++c) band[r][c] *= scale[r];
-    }
-#pragma unroll
-    for (int e4 = 0; e4 < 4 * NKT; ++e4) {
-      const int e = e4 % 4;
-      const int jj = (e4 / 4) * 8 + 2 * i4 + e % 2;
-      const int rr = g + 8 * (e / 2);
-      const float p = expf(sc[e4] - m_run[e / 2]);
-      psum[e / 2] += p;
-      float pv = p;  // what multiplies v and ev
-      if (TRAIN && drop)
-        pv = hash_keep(r0 + rr, j0 + jj, bh, seed, thr) ? p * keep_scale : 0.f;
-      if (in_band) {
-        const int c = j0 + jj - (r0 + rr) + w;
-#pragma unroll
-        for (int cc = 0; cc < NBAND; ++cc)
-          if (cc == c) band[e / 2][cc] += pv;
-      }
-      sc[e4] = pv;
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
-      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
-      l_run[r] = l_run[r] * scale[r] + psum[r];
-    }
-#pragma unroll
-    for (int e = 0; e < 4 * DK; ++e) o[e] *= scale[(e % 4) / 2];
+    softmax_tile<DK, TRAIN>(sc, o, band, m_run, l_run, rw, Mk, j0, r0, t, w, g, i4, bh,
+                            drop, thr, seed, keep_scale);
 
     // O += P V: P straight from the accumulator registers
     const AccFrags<NKT> pf = acc_frags<NKT>(sc);
@@ -273,6 +312,189 @@ banded_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       m_out[(size_t)bh * t + i] = m_run[r];
       l_out[(size_t)bh * t + i] = l_run[r];
     }
+  }
+}
+
+// Shared memory of a block in bf16 mode: the bf16 operands Q (64 rows), the
+// K tile (BK rows) and the V tile (8DK rows: dims by keys), each K-major
+// (kmajor_bf16), then the fp32 band logits and key mask.
+template <int DK>
+struct LayoutBf16 {
+  static constexpr int Q = 64 * 8 * DK;  // bf16 elements
+  static constexpr int K = BK * 8 * DK;
+  static constexpr int V = BK * 8 * DK;
+  static constexpr int R = 4 * 256;      // floats: [4 warps][16][16] band logits
+  static constexpr size_t bytes = 2 * (Q + K + V) + 4 * (R + BK);
+};
+
+// K1's bf16 mode: one warpgroup (4 warps, 64 query rows) per block, keys
+// in tiles of BK, as banded_attn_fwd_kernel; DK even (the head width
+// zero-padded to a multiple of 16).
+template <int DK>
+__global__ void __launch_bounds__(128)
+banded_attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, const bf16* __restrict__ mask,
+                            const bf16* __restrict__ ek, const bf16* __restrict__ ev,
+                            bf16* __restrict__ out, int h, int t, int d, int w) {
+  static_assert(DK % 2 == 0, "k16 steps of the head width");
+  using L = LayoutBf16<DK>;
+  constexpr int ND = 8 * DK;                   // padded head width
+  constexpr int KCH = (BK * DK + 127) / 128;   // 8-dim chunks of a tile a thread stages
+  extern __shared__ __align__(16) float4 smem4[];
+  bf16* Qc = reinterpret_cast<bf16*>(smem4);
+  bf16* Kc = Qc + L::Q;
+  bf16* Vc = Kc + L::K;
+  float* Rs = reinterpret_cast<float*>(Vc + L::V);
+  float* Mk = Rs + L::R;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, i4 = lane % 4;
+  const int bh = blockIdx.y;
+  const int b = bh / h;
+  const int r0 = (blockIdx.x * 4 + warp) * 16;  // this warp's first row
+  const size_t base = (size_t)bh * t * d;
+  const bf16* qb = q + base;
+  const bf16* kb = k + base;
+  const bf16* vb = v + base;
+  const bf16* mrow = mask + (size_t)b * t;
+  const int nb = 2 * w + 1;
+  const bool vec = d % 8 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                     reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+
+  // Q rows [64 blockIdx.x, +64): a thread stores 8 dims of a row at a time
+  const int q0 = blockIdx.x * 64;
+#pragma unroll
+  for (int it = 0; it < DK / 2; ++it) {
+    const int idx = tid + 128 * it;
+    const int row = idx % 64, c8 = idx / 64;
+    *reinterpret_cast<uint4*>(Qc + kmajor_bf16<64>(row, 8 * c8)) =
+        load8(qb, q0 + row, 8 * c8, t, d, vec);
+  }
+  // band logits R[r, c] = q_r . ek[c] in fp32, c < 16 (zero past 2w)
+  float* rw = Rs + warp * 256;
+  for (int e = lane; e < 256; e += 32) {
+    const int r = e / 16, c = e % 16;
+    float s = 0.f;
+    if (c < nb && r0 + r < t)
+      for (int x = 0; x < d; ++x)
+        s = fmaf(to_f(qb[(size_t)(r0 + r) * d + x]), to_f(ek[(size_t)c * d + x]), s);
+    rw[e] = s;
+  }
+  __syncwarp();
+
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  float o[4 * DK];  // element 4n + e: row g + 8(e/2), dim 8n + 2i + e%2
+  float band[2][NBAND];
+#pragma unroll
+  for (int e = 0; e < 4 * DK; ++e) o[e] = 0.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < NBAND; ++c) band[r][c] = 0.f;
+
+  // K and V rows of a tile, 8 dims at a time, loaded one tile ahead
+  uint4 kpre[KCH], vpre[KCH];
+  float mpre = 0.f;
+  auto load = [&](int j0) {
+#pragma unroll
+    for (int it = 0; it < KCH; ++it) {
+      const int idx = tid + 128 * it;
+      if (idx >= BK * DK) break;
+      const int key = idx % BK, c8 = idx / BK;
+      kpre[it] = load8(kb, j0 + key, 8 * c8, t, d, vec);
+      vpre[it] = load8(vb, j0 + key, 8 * c8, t, d, vec);
+    }
+    if (tid < BK) mpre = j0 + tid < t ? to_f(mrow[j0 + tid]) : 0.f;
+  };
+  load(0);
+
+  for (int j0 = 0; j0 < t; j0 += BK) {
+    __syncthreads();  // the previous tile's readers are done
+#pragma unroll
+    for (int it = 0; it < KCH; ++it) {
+      const int idx = tid + 128 * it;
+      if (idx >= BK * DK) break;
+      const int key = idx % BK, c8 = idx / BK;
+      *reinterpret_cast<uint4*>(Kc + kmajor_bf16<BK>(key, 8 * c8)) = kpre[it];
+      const uint32_t vw[4] = {vpre[it].x, vpre[it].y, vpre[it].z, vpre[it].w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        Vc[kmajor_bf16<ND>(8 * c8 + e, key)] =
+            __ushort_as_bfloat16((unsigned short)(vw[e / 2] >> (16 * (e % 2))));
+    }
+    if (tid < BK) Mk[tid] = mpre;
+    fence_async_smem();
+    __syncthreads();
+    if (j0 + BK < t) load(j0 + BK);  // in flight while this tile is computed
+
+    // S = Q K^T: one k16 step per 16 head dims
+    float sc[4 * NKT];  // element 4n + e: row g + 8(e/2), key j0 + 8n + 2i + e%2
+#pragma unroll
+    for (int e = 0; e < 4 * NKT; ++e) sc[e] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < DK / 2; ++ks)
+      wgmma_bf16_ss<NKT>(sc, smem_desc(Qc + ks * 64 * 16, 128, 256),
+                         smem_desc(Kc + ks * BK * 16, 128, 256));
+    wg_commit();
+    wg_wait<0>();
+    fence_operands(sc);
+
+    softmax_tile<DK, false>(sc, o, band, m_run, l_run, rw, Mk, j0, r0, t, w, g, i4, bh,
+                            false, 0u, 0u, 1.f);
+
+    // O += P V: P rounded to bf16 straight from the accumulator registers
+    uint32_t pa[NKT / 2][4];
+#pragma unroll
+    for (int kk = 0; kk < NKT / 2; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < NKT / 2; ++kk)
+      wgmma_bf16_rs<DK>(o, pa[kk], smem_desc(Vc + kk * ND * 16, 128, 256));
+    wg_commit();
+    wg_wait<0>();
+    fence_operands(o);
+  }
+
+  // the band term in fp32: sum the quad's partial band rows, then
+  // o += band . ev for the lane's rows g, g + 8 and dims 8n + 2i, +1
+  quad_sum(band);
+#pragma unroll
+  for (int nt = 0; nt < DK; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = nt * 8 + 2 * i4 + e;
+      if (col >= d) continue;
+      float a0 = 0.f, a1 = 0.f;
+      for (int c = 0; c < nb; ++c) {
+        const float evc = to_f(ev[(size_t)c * d + col]);
+        a0 = fmaf(band[0][c], evc, a0);
+        a1 = fmaf(band[1][c], evc, a1);
+      }
+      o[4 * nt + e] += a0;
+      o[4 * nt + 2 + e] += a1;
+    }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = r0 + g + 8 * r;
+    if (i >= t) continue;
+    const float inv = 1.f / l_run[r];
+    bf16* orow = out + base + (size_t)i * d;
+#pragma unroll
+    for (int nt = 0; nt < DK; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = nt * 8 + 2 * i4 + e;
+        if (col < d) orow[col] = __float2bfloat16_rn(o[4 * nt + 2 * r + e] * inv);
+      }
   }
 }
 
@@ -315,6 +537,21 @@ int launch(const float* q, const float* k, const float* v, const float* mask,
 #undef BANDED_ATTN_LAUNCH
 }
 
+template <int DK>
+int launch_bf16_dk(const bf16* q, const bf16* k, const bf16* v, const bf16* mask,
+                   const bf16* ek, const bf16* ev, bf16* out, int b, int h, int t, int d,
+                   int w, int device, cudaStream_t stream) {
+  static size_t configured[MAXDEV] = {};
+  const size_t bytes = LayoutBf16<DK>::bytes;
+  const cudaError_t err = allow_smem((const void*)banded_attn_fwd_bf16_kernel<DK>, bytes,
+                                     configured, device);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((t + 63) / 64, b * h);
+  banded_attn_fwd_bf16_kernel<DK><<<grid, 128, bytes, stream>>>(q, k, v, mask, ek, ev, out,
+                                                                h, t, d, w);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Inference: the output only.
@@ -338,4 +575,22 @@ extern "C" int banded_attn_fwd_train(const float* q, const float* k,
   return launch<true>(q, k, v, mask, ek, ev, out, m, l, b, h, t, d, w,
                       drop != 0, (uint32_t)thr, (uint32_t)seed, scale, device,
                       stream);
+}
+
+// K1's bf16 mode (inference): every pointer to bf16 data, [b, h, t, d]
+// q, k, v and out, [b, t] mask, [2w+1, d] ek, ev.
+extern "C" int banded_attn_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                    const bf16* mask, const bf16* ek, const bf16* ev,
+                                    bf16* out, int b, int h, int t, int d, int w,
+                                    int device, void* stream) {
+  if (bad_attn_shape(b, h, t, d, w, device)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int steps = (d + 15) / 16;  // k16 steps
+  if (steps <= 1) return launch_bf16_dk<2>(q, k, v, mask, ek, ev, out, b, h, t, d, w, device, s);
+  if (steps <= 2) return launch_bf16_dk<4>(q, k, v, mask, ek, ev, out, b, h, t, d, w, device, s);
+  if (steps <= 4) return launch_bf16_dk<8>(q, k, v, mask, ek, ev, out, b, h, t, d, w, device, s);
+  if (steps <= 6) return launch_bf16_dk<12>(q, k, v, mask, ek, ev, out, b, h, t, d, w, device, s);
+  return launch_bf16_dk<16>(q, k, v, mask, ek, ev, out, b, h, t, d, w, device, s);
 }

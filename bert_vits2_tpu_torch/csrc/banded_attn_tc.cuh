@@ -1,7 +1,9 @@
 // What the banded attention's forward (banded_attn.cu) and backward
 // (banded_attn_bwd.cu) kernels share: the 3xTF32 split, the wgmma TF32
 // wrappers, the band-logit and band-term products, and the host side of a
-// launch.
+// launch; and, by operand type, what K1's bf16 mode and the wide kernels'
+// bf16 forward (banded_attn_wide.cu) read and write: the float / bf16
+// conversions, the wgmma bf16 wrappers and the bf16 operand layout.
 //
 // 3xTF32: an fp32 operand v is split into hi (v rounded to TF32) and lo =
 // v - hi, and a product is summed as lo*hi + hi*lo + hi*hi in fp32, which
@@ -15,9 +17,12 @@
 // 4n + e at row 16w + g + 8(e/2), column 8n + 2i + e%2.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+using bf16 = __nv_bfloat16;
 
 constexpr int DMAX = 128;  // largest head width
 constexpr int WMAX = 4;    // largest window
@@ -390,6 +395,162 @@ __device__ __forceinline__ float4 load4(const float* p, int row, int col, int t,
     return row < t && col < d ? *reinterpret_cast<const float4*>(p + (size_t)row * d + col)
                               : make_float4(0.f, 0.f, 0.f, 0.f);
   return make_float4(at(col), at(col + 1), at(col + 2), at(col + 3));
+}
+
+// ---- operand types: float (fp32 entry points) and bf16 (bf16 modes) ----
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_rn(x); }
+// x as the operand type holds it (rounded to nearest even for bf16)
+template <typename T>
+__device__ __forceinline__ float rnd(float x) { return to_f(from_f<T>(x)); }
+
+// (lo, hi) rounded to bf16, lo in the low half: one 32-bit fragment
+// register of a bf16 MMA (the lower k index first)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint64_t smem_desc(const bf16* p, int lbo, int sbo) {
+  return smem_desc(reinterpret_cast<const float*>(p), lbo, sbo);
+}
+
+// bf16 operands in shared memory, K-major, as 8-row x 16-byte core matrices
+// of 8 values a row (no swizzle): element (row, col) of an operand of ROWS
+// rows (M or N) by K columns lies at k16 step col / 16, 8-row group row / 8,
+// K half (col / 8) % 2, row % 8, value col % 8, i.e. at
+//   (col / 16) * ROWS * 16 + (row / 8) * 128 + ((col / 8) % 2) * 64 +
+//   (row % 8) * 8 + col % 8
+// bf16 elements; a k16 step's descriptor starts at (col / 16) * ROWS * 16
+// with LBO 128 B (the K half) and SBO 256 B (the 8-row group), the layout
+// of the TF32 operands with 8 values to a 16-byte row.
+template <int ROWS>
+__device__ __forceinline__ int kmajor_bf16(int row, int col) {
+  return (col / 16) * ROWS * 16 + (row / 8) * 128 + ((col / 8) % 2) * 64 + (row % 8) * 8 +
+         col % 8;
+}
+
+// d += A * B (m64 x 8NT x k16, bf16 operands, fp32 accumulators), both from
+// shared memory by descriptor, both K-major
+template <int NT>
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[4 * NT], uint64_t da, uint64_t db);
+// d += a * B (m64 x 8NT x k16, bf16): a from registers, the A fragment of
+// mma.m16n8k16 for each warp's 16 rows (lane 4g + i: {row g, cols 2i, 2i+1},
+// {row g + 8, the same}, {row g, cols 2i + 8, 2i + 9}, {row g + 8, the
+// same}), B K-major from shared memory by descriptor
+template <int NT>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[4 * NT], const uint32_t (&a)[4],
+                                              uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_bf16_ss<4>(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs<2>(float (&d)[8], const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs<4>(float (&d)[16], const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs<8>(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs<12>(float (&d)[48], const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs<16>(float (&d)[64], const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// eight consecutive values of row `row` from col of a [t, d] bf16 matrix,
+// zero past t and d; one 16-byte load when vec (d % 8 == 0, aligned)
+__device__ __forceinline__ uint4 load8(const bf16* p, int row, int col, int t, int d,
+                                       bool vec) {
+  if (vec)
+    return row < t && col < d ? *reinterpret_cast<const uint4*>(p + (size_t)row * d + col)
+                              : make_uint4(0u, 0u, 0u, 0u);
+  uint32_t w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int c = col + 2 * e;
+    const float lo = row < t && c < d ? __bfloat162float(p[(size_t)row * d + c]) : 0.f;
+    const float hi = row < t && c + 1 < d ? __bfloat162float(p[(size_t)row * d + c + 1]) : 0.f;
+    w[e] = pack_bf16(lo, hi);  // exact: both are bf16 values
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 // The shapes every banded-attention entry point takes.

@@ -12,6 +12,13 @@
 // -1e4 fill and the position-hash dropout are those of banded_attn.cu and
 // banded_attn_bwd.cu (see their notes).
 //
+// The inference forward also takes bf16 q, k, v, mask, ek, ev and out
+// (`banded_attn_wide_fwd_bf16`, K1's bf16 mode outside its range): the
+// loads convert to fp32, the arithmetic is the fp32 kernel's, P is rounded
+// to bf16 where it multiplies v (the band term takes the fp32 P), and the
+// output is rounded to bf16, the TPU kernel's rounding points. The train
+// mode and the backward kernels take fp32 only.
+//
 // What bounds them: nothing the main path measures. The V2.3 widths (d =
 // 96, w = 4) never reach them, so they are written to be exact and simple,
 // on the fp32 cores:
@@ -61,11 +68,11 @@ __device__ __forceinline__ float keep_scale(const Drop& dr, int i, int j, int bh
                                                                            : 0.f;
 }
 
-// a . b over n floats by one warp; every lane gets the sum
-__device__ __forceinline__ float warp_dot(const float* a, const float* b, int n,
-                                          int lane) {
+// a . b over n values by one warp (b float or bf16); every lane gets the sum
+template <typename T>
+__device__ __forceinline__ float warp_dot(const float* a, const T* b, int n, int lane) {
   float s = 0.f;
-  for (int x = lane; x < n; x += 32) s = fmaf(a[x], b[x], s);
+  for (int x = lane; x < n; x += 32) s = fmaf(a[x], to_f(b[x]), s);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULLMASK, s, o);
   return s;
@@ -89,13 +96,14 @@ __device__ __forceinline__ float block_reduce(float x, float* red) {
   return r;
 }
 
-// grid (t, min(b*h, 65535)); shared memory: 2d + 2(2w+1) + TILE + WARPS floats
-template <bool TRAIN>
+// grid (t, min(b*h, 65535)); shared memory: 2d + 2(2w+1) + TILE + WARPS
+// floats; T: the operands' type (float, or bf16 when not TRAIN)
+template <bool TRAIN, typename T>
 __global__ void __launch_bounds__(THREADS)
-wide_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ mask,
-                const float* __restrict__ ek, const float* __restrict__ ev,
-                float* __restrict__ out, float* __restrict__ m_out,
+wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ mask,
+                const T* __restrict__ ek, const T* __restrict__ ev,
+                T* __restrict__ out, float* __restrict__ m_out,
                 float* __restrict__ l_out, int bhs, int h, int t, int d, int w,
                 Drop dr) {
   extern __shared__ float sm[];
@@ -109,11 +117,11 @@ wide_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int i = blockIdx.x, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   for (int bh = blockIdx.y; bh < bhs; bh += gridDim.y) {
     const size_t base = (size_t)bh * t * d;
-    const float* kb = k + base;
-    const float* vb = v + base;
-    const float* mrow = mask + (size_t)(bh / h) * t;
+    const T* kb = k + base;
+    const T* vb = v + base;
+    const T* mrow = mask + (size_t)(bh / h) * t;
     for (int x = tid; x < d; x += THREADS) {
-      qs[x] = q[base + (size_t)i * d + x];
+      qs[x] = to_f(q[base + (size_t)i * d + x]);
       acc[x] = 0.f;
     }
     for (int c = tid; c < nb; c += THREADS) pb[c] = 0.f;
@@ -132,7 +140,7 @@ wide_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if (lane == 0) {
           const int c = j - i + w;
           if (c >= 0 && c < nb) s += bl[c];
-          sc[jj] = mrow[j] == 0.f ? NEG_FILL : s;
+          sc[jj] = to_f(mrow[j]) == 0.f ? NEG_FILL : s;
         }
       }
       __syncthreads();
@@ -149,7 +157,9 @@ wide_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       for (int x = tid; x < d; x += THREADS) {
         float a = acc[x] * alpha;
-        for (int jj = 0; jj < n; ++jj) a = fmaf(sc[jj], vb[(size_t)(j0 + jj) * d + x], a);
+        // P as the operand type holds it where it multiplies v
+        for (int jj = 0; jj < n; ++jj)
+          a = fmaf(rnd<T>(sc[jj]), to_f(vb[(size_t)(j0 + jj) * d + x]), a);
         acc[x] = a;
       }
       m = m_new;
@@ -157,8 +167,8 @@ wide_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     for (int x = tid; x < d; x += THREADS) {
       float a = acc[x];
-      for (int c = 0; c < nb; ++c) a = fmaf(pb[c], ev[(size_t)c * d + x], a);
-      out[base + (size_t)i * d + x] = a / l;
+      for (int c = 0; c < nb; ++c) a = fmaf(pb[c], to_f(ev[(size_t)c * d + x]), a);
+      out[base + (size_t)i * d + x] = from_f<T>(a / l);
     }
     if (TRAIN && tid == 0) {
       m_out[(size_t)bh * t + i] = m;
@@ -349,18 +359,18 @@ Drop drop_of(int drop, int thr, int seed, float scale) {
   return Drop{drop != 0, (uint32_t)thr, (uint32_t)seed, scale};
 }
 
-template <bool TRAIN>
-int launch_fwd(const float* q, const float* k, const float* v, const float* mask,
-               const float* ek, const float* ev, float* out, float* m, float* l, int b,
-               int h, int t, int d, int w, Drop dr, int device, void* stream) {
+template <bool TRAIN, typename T>
+int launch_fwd(const T* q, const T* k, const T* v, const T* mask, const T* ek,
+               const T* ev, T* out, float* m, float* l, int b, int h, int t, int d,
+               int w, Drop dr, int device, void* stream) {
   if (bad_wide_shape(b, h, t, d, w, device)) return (int)cudaErrorInvalidValue;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   static size_t configured[MAXDEV] = {};
   const size_t bytes = sizeof(float) * (2 * d + 2 * (2 * w + 1) + TILE + WARPS);
-  err = allow_smem((const void*)wide_fwd_kernel<TRAIN>, bytes, configured, device);
+  err = allow_smem((const void*)wide_fwd_kernel<TRAIN, T>, bytes, configured, device);
   if (err != cudaSuccess) return (int)err;
-  wide_fwd_kernel<TRAIN><<<row_grid(b, h, t), THREADS, bytes, (cudaStream_t)stream>>>(
+  wide_fwd_kernel<TRAIN, T><<<row_grid(b, h, t), THREADS, bytes, (cudaStream_t)stream>>>(
       q, k, v, mask, ek, ev, out, m, l, b * h, h, t, d, w, dr);
   return (int)cudaGetLastError();
 }
@@ -372,6 +382,15 @@ extern "C" int banded_attn_wide_fwd(const float* q, const float* k, const float*
                                     const float* mask, const float* ek,
                                     const float* ev, float* out, int b, int h, int t,
                                     int d, int w, int device, void* stream) {
+  return launch_fwd<false>(q, k, v, mask, ek, ev, out, nullptr, nullptr, b, h, t, d,
+                           w, drop_of(0, 0, 0, 1.f), device, stream);
+}
+
+// Inference on bf16 operands: every pointer to bf16 data.
+extern "C" int banded_attn_wide_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                         const bf16* mask, const bf16* ek,
+                                         const bf16* ev, bf16* out, int b, int h, int t,
+                                         int d, int w, int device, void* stream) {
   return launch_fwd<false>(q, k, v, mask, ek, ev, out, nullptr, nullptr, b, h, t, d,
                            w, drop_of(0, 0, 0, 1.f), device, stream);
 }

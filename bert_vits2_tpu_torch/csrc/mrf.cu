@@ -77,9 +77,32 @@
 //   conv1 read lrelu(y) without a mask load.
 // - Above C = 64 the N tiles are done in passes of 8 (the output goes to
 //   the other buffer, so a pass never overwrites what a later one reads).
+//
+// bf16 mode (`mrf_fwd_bf16`): the TPU kernel's bf16 operands (mrf_pallas.py:
+// 128-203 under the JAX package's infer_compute_dtype "bfloat16", the 3
+// launches of a synthesis call). x, the mask and the output are bf16; the
+// weights arrive rounded to bf16 after an fp32 weight-norm resolve
+// (ops/mrf.py prepare_mrf_weights), the biases fp32. Each conv is the same
+// implicit GEMM as wgmma m64nCk16 bf16, one MMA per 16 input channels where
+// 3xTF32 issues three per 8, at twice the TF32 rate: the bound is FLOP at
+// 989 TFLOP/s. The slabs (tap, kstep of 16 channels) are bf16 core matrices
+// of 8 rows x 8 values: output group j, K half kh, row r, column c holds
+// W[8j + r, 16*kstep + 8*kh + c, tap] (LBO 128 B, SBO 256 B as above), 2
+// KB at C = 64. The activations are rounded where the TPU kernel rounds
+// them: each conv's fp32 sum plus the fp32 bias is rounded to bf16, then
+// leaky ReLU (rounded) and the mask; conv2's output is added to the
+// residual stream and the sum rounded to bf16. The two [C][Wp] buffers keep
+// these bf16 values as floats, so the window, the tile and the shared
+// memory are the fp32 mode's; an A fragment packs two channels of a sample
+// into one register (exact). The blocks' outputs are summed in fp32 in a
+// [B, C, T] scratch in device memory, and the last block writes the sum
+// divided by their number, rounded to bf16.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+using bf16 = __nv_bfloat16;
 
 namespace {
 
@@ -102,6 +125,18 @@ struct MrfMeta {
 };
 
 __device__ __forceinline__ float lrelu(float v) { return fmaxf(v, SLOPE * v); }
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+// x rounded to bf16 (nearest even), as a float
+__device__ __forceinline__ float rnd_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+// (lo, hi) rounded to bf16, lo in the low half: one A fragment register
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
 // v = hi + lo for the TF32 tensor cores, in integer and fp32 ops at full
 // rate (cvt.rna.tf32 runs on the conversion pipe, 16 lanes a clock): hi is
@@ -248,6 +283,120 @@ __device__ __forceinline__ void wgmma_tf32<8>(float (&d)[32], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
+// d += a * B (m64 x 8NT x k16, bf16 operands, fp32 accumulators): a from
+// registers (the mma.m16n8k16 A fragment of each warp's 16 rows), B
+// K-major from shared memory by descriptor
+template <int NT>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[4 * NT], const uint32_t (&a)[4],
+                                           uint64_t desc);
+template <>
+__device__ __forceinline__ void wgmma_bf16<1>(float (&d)[4], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<2>(float (&d)[8], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<3>(float (&d)[12], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, %16, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<4>(float (&d)[16], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<5>(float (&d)[20], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<6>(float (&d)[24], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<7>(float (&d)[28], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27}, "
+      "{%28, %29, %30, %31}, %32, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<8>(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
@@ -263,8 +412,9 @@ __device__ __forceinline__ void cp_async_wait1() {
 // FIRST: conv1 (input through lrelu; output stored activated and masked).
 // Otherwise conv2 (output added into the residual stream, then masked).
 // Warpgroup wg computes M tiles wg, wg + 2, ... (64 samples each from olo,
-// 16 per warp) for N tiles [n0, n0 + NT) of each pass.
-template <int NT, int MT, int WGS, bool FIRST>
+// 16 per warp) for N tiles [n0, n0 + NT) of each pass. BF16: the bf16
+// mode (bf16 slabs, one k16 MMA per slab, outputs rounded to bf16).
+template <int NT, int MT, int WGS, bool FIRST, bool BF16>
 __device__ __forceinline__ void conv_window(const float* in, float* out,
                                             const float* Ms,
                                             const float* __restrict__ wg,
@@ -274,10 +424,13 @@ __device__ __forceinline__ void conv_window(const float* in, float* out,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wgi = warp / 4, wq = warp % 4;
   const int g = lane / 4, i4 = lane % 4;
-  const int ntt = C / 8;  // N tiles, and K steps per tap
-  const int slab = 16 * C;  // floats per (tap, kstep) slab: hi, then lo
+  const int ntt = C / 8;  // N tiles
+  const int nks = BF16 ? C / 16 : C / 8;  // K steps per tap
+  // floats per (tap, kstep) slab: the hi, then the lo part (fp32 mode), or
+  // 16 x C bf16 values
+  const int slab = BF16 ? 8 * C : 16 * C;
   const int per_stage = STAGE_FLOATS / slab;
-  const int nslab = k * ntt;
+  const int nslab = k * nks;
   const int nst = (nslab + per_stage - 1) / per_stage;
   const int half = (k - 1) / 2 * dil;
   const int nmt = (ohi - olo + 63) / 64;
@@ -316,26 +469,49 @@ __device__ __forceinline__ void conv_window(const float* in, float* out,
       // then lo*hi, hi*lo, hi*hi; the tile before it may still be running
       for (int q = 0; q < cnt; ++q) {
         const int sl = first + q;
-        const int tap = sl / ntt, kst = sl % ntt;
-        const float* bhi = st + q * slab + n0 * 64;  // 64 floats per 8-channel group
+        const int tap = sl / nks, kst = sl % nks;
+        // 64 floats (fp32: of the hi part) per 8-channel output group
+        const float* bhi = st + q * slab + n0 * 64;
         const uint64_t dh = smem_desc(bhi), dl = smem_desc(bhi + 8 * C);
-        const float* xa = in + (kst * 8 + i4) * Wp + olo + 16 * wq + g + tap * dil - half;
         uint32_t ah[2][4], al[2][4];
+        if constexpr (BF16) {
+          // lane 4g + i: channels 2i, 2i + 1 (and + 8) of samples g, g + 8
+          const float* xa =
+              in + (kst * 16 + 2 * i4) * Wp + olo + 16 * wq + g + tap * dil - half;
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const int mt = wgi + WGS * m;
-          if (mt >= nmt) continue;  // uniform over the warpgroup
-          const float* p = xa + mt * 64;
-          const float v[4] = {p[0], p[8], p[4 * Wp], p[4 * Wp + 8]};
+          for (int m = 0; m < MT; ++m) {
+            const int mt = wgi + WGS * m;
+            if (mt >= nmt) continue;  // uniform over the warpgroup
+            const float* p = xa + mt * 64;
+            const float v[8] = {p[0],      p[Wp],          p[8],          p[Wp + 8],
+                                p[8 * Wp], p[9 * Wp], p[8 * Wp + 8], p[9 * Wp + 8]};
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            split(FIRST ? lrelu(v[e]) : v[e], ah[m & 1][e], al[m & 1][e]);
-          wg_fence();
-          wgmma_tf32<NT>(acc[m], al[m & 1], dh);
-          wgmma_tf32<NT>(acc[m], ah[m & 1], dl);
-          wgmma_tf32<NT>(acc[m], ah[m & 1], dh);
-          wg_commit();
-          wg_wait<1>();
+            for (int e = 0; e < 4; ++e)
+              ah[m & 1][e] = FIRST ? pack_bf16(lrelu(v[2 * e]), lrelu(v[2 * e + 1]))
+                                   : pack_bf16(v[2 * e], v[2 * e + 1]);
+            wg_fence();
+            wgmma_bf16<NT>(acc[m], ah[m & 1], dh);
+            wg_commit();
+            wg_wait<1>();
+          }
+        } else {
+          const float* xa = in + (kst * 8 + i4) * Wp + olo + 16 * wq + g + tap * dil - half;
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            const int mt = wgi + WGS * m;
+            if (mt >= nmt) continue;  // uniform over the warpgroup
+            const float* p = xa + mt * 64;
+            const float v[4] = {p[0], p[8], p[4 * Wp], p[4 * Wp + 8]};
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              split(FIRST ? lrelu(v[e]) : v[e], ah[m & 1][e], al[m & 1][e]);
+            wg_fence();
+            wgmma_tf32<NT>(acc[m], al[m & 1], dh);
+            wgmma_tf32<NT>(acc[m], ah[m & 1], dl);
+            wgmma_tf32<NT>(acc[m], ah[m & 1], dh);
+            wg_commit();
+            wg_wait<1>();
+          }
         }
         wg_wait<0>();  // the slab's B and A registers are free again
       }
@@ -363,14 +539,18 @@ __device__ __forceinline__ void conv_window(const float* in, float* out,
           const float mk = Ms[r];
           float* o0 = out + co * Wp + r;
           float* o1 = o0 + Wp;
-          const float a0 = acc[m][4 * n + 2 * hr] + bv0;
-          const float a1 = acc[m][4 * n + 2 * hr + 1] + bv1;
+          float a0 = acc[m][4 * n + 2 * hr] + bv0;
+          float a1 = acc[m][4 * n + 2 * hr + 1] + bv1;
+          if (BF16) {
+            a0 = rnd_bf16(a0);
+            a1 = rnd_bf16(a1);
+          }
           if (FIRST) {
-            *o0 = lrelu(a0) * mk;
-            *o1 = lrelu(a1) * mk;
+            *o0 = (BF16 ? rnd_bf16(lrelu(a0)) : lrelu(a0)) * mk;
+            *o1 = (BF16 ? rnd_bf16(lrelu(a1)) : lrelu(a1)) * mk;
           } else {
-            *o0 = (*o0 + a0) * mk;
-            *o1 = (*o1 + a1) * mk;
+            *o0 = (BF16 ? rnd_bf16(*o0 + a0) : *o0 + a0) * mk;
+            *o1 = (BF16 ? rnd_bf16(*o1 + a1) : *o1 + a1) * mk;
           }
         }
       }
@@ -378,11 +558,15 @@ __device__ __forceinline__ void conv_window(const float* in, float* out,
   }
 }
 
-template <int NT, int MT, int WGS>
+// V: the type of x, the mask and out (float, or bf16 in the bf16 mode);
+// accb: where the blocks' outputs are summed (out itself in the fp32
+// mode, an fp32 scratch [B, C, T] in the bf16 mode)
+template <int NT, int MT, int WGS, typename V>
 __global__ void __launch_bounds__(128 * WGS, 1)
-mrf_kernel(const float* __restrict__ x, const float* __restrict__ mask,
-           const float* __restrict__ wts, float* __restrict__ out, int C,
-           int T, int tile, int halo, int Wp, MrfMeta meta) {
+mrf_kernel(const V* __restrict__ x, const V* __restrict__ mask,
+           const float* __restrict__ wts, float* __restrict__ accb, V* __restrict__ out,
+           int C, int T, int tile, int halo, int Wp, MrfMeta meta) {
+  constexpr bool BF16 = sizeof(V) == 2;
   constexpr int THREADS = 128 * WGS;
   extern __shared__ __align__(16) float smem[];
   const int W = tile + 2 * halo;
@@ -394,10 +578,11 @@ mrf_kernel(const float* __restrict__ x, const float* __restrict__ mask,
   const int t0 = blockIdx.x * tile;
   for (int p = threadIdx.x; p < Wp + SLACK; p += THREADS) {
     const int gi = t0 - halo + p;
-    Ms[p] = (p < W && gi >= 0 && gi < T) ? mask[(size_t)b * T + gi] : 0.f;
+    Ms[p] = (p < W && gi >= 0 && gi < T) ? to_f(mask[(size_t)b * T + gi]) : 0.f;
   }
-  const float* xb = x + (size_t)b * C * T;
-  float* ob = out + (size_t)b * C * T;
+  const V* xb = x + (size_t)b * C * T;
+  V* ob = out + (size_t)b * C * T;
+  float* ab = accb + (size_t)b * C * T;
   const float inv_nb = 1.f / (float)meta.nb;
   for (int j = 0; j < meta.nb; ++j) {
     const int k = meta.k[j];
@@ -412,7 +597,7 @@ mrf_kernel(const float* __restrict__ x, const float* __restrict__ mask,
         const int idx = idx0 + u * THREADS;
         const int c = idx / n, p = lo + idx % n;
         const int gi = t0 - halo + p;
-        val[u] = idx < C * n && gi >= 0 && gi < T ? xb[(size_t)c * T + gi] : 0.f;
+        val[u] = idx < C * n && gi >= 0 && gi < T ? to_f(xb[(size_t)c * T + gi]) : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
@@ -425,10 +610,12 @@ mrf_kernel(const float* __restrict__ x, const float* __restrict__ mask,
       const int d = meta.dil[j][s];
       const int h1 = (k - 1) / 2 * d, h2 = (k - 1) / 2;
       // each conv starts with a barrier: its input is complete
-      conv_window<NT, MT, WGS, true>(Y, A, Ms, wts + meta.w1[j][s], wts + meta.b1[j][s],
-                                ring, C, Wp, k, d, lo + h1, hi - h1);
-      conv_window<NT, MT, WGS, false>(A, Y, Ms, wts + meta.w2[j][s], wts + meta.b2[j][s],
-                                 ring, C, Wp, k, 1, lo + h1 + h2, hi - h1 - h2);
+      conv_window<NT, MT, WGS, true, BF16>(Y, A, Ms, wts + meta.w1[j][s],
+                                           wts + meta.b1[j][s], ring, C, Wp, k, d,
+                                           lo + h1, hi - h1);
+      conv_window<NT, MT, WGS, false, BF16>(A, Y, Ms, wts + meta.w2[j][s],
+                                            wts + meta.b2[j][s], ring, C, Wp, k, 1,
+                                            lo + h1 + h2, hi - h1 - h2);
       lo += h1 + h2;
       hi -= h1 + h2;
     }
@@ -440,7 +627,7 @@ mrf_kernel(const float* __restrict__ x, const float* __restrict__ mask,
       for (int u = 0; u < UNROLL; ++u) {
         const int idx = idx0 + u * THREADS;
         const int c = idx / tile, gi = t0 + idx % tile;
-        prev[u] = j > 0 && idx < C * tile && gi < T ? ob[(size_t)c * T + gi] : 0.f;
+        prev[u] = j > 0 && idx < C * tile && gi < T ? ab[(size_t)c * T + gi] : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
@@ -448,7 +635,12 @@ mrf_kernel(const float* __restrict__ x, const float* __restrict__ mask,
         const int c = idx / tile, i = idx % tile;
         if (idx >= C * tile || t0 + i >= T) continue;
         const float sum = prev[u] + Y[c * Wp + halo + i];  // Y is masked
-        ob[(size_t)c * T + t0 + i] = last ? sum * inv_nb : sum;
+        if (!last)
+          ab[(size_t)c * T + t0 + i] = sum;
+        else if constexpr (BF16)
+          ob[(size_t)c * T + t0 + i] = __float2bfloat16_rn(sum * inv_nb);
+        else
+          ob[(size_t)c * T + t0 + i] = sum * inv_nb;
       }
     }
   }
@@ -456,35 +648,33 @@ mrf_kernel(const float* __restrict__ x, const float* __restrict__ mask,
 
 // The shared-memory attribute is set once per instantiation, device and
 // size: the largest size set so far is kept.
-template <int NT, int MT, int WGS>
-int launch(const float* x, const float* mask, const float* w, float* out, int b,
+template <int NT, int MT, int WGS, typename V>
+int launch(const V* x, const V* mask, const float* w, float* accb, V* out, int b,
            int c, int t, int tile, int halo, int Wp, long long bytes,
            const MrfMeta& meta, int device, cudaStream_t stream) {
   static long long configured[MAXDEV] = {};
   if (tile + 2 * halo > 64 * WGS * MT) return (int)cudaErrorInvalidValue;
   if (bytes > configured[device]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        mrf_kernel<NT, MT, WGS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        mrf_kernel<NT, MT, WGS, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
     configured[device] = bytes;
   }
   dim3 grid((t + tile - 1) / tile, b);
-  mrf_kernel<NT, MT, WGS><<<grid, 128 * WGS, bytes, stream>>>(x, mask, w, out, c, t, tile,
-                                                       halo, Wp, meta);
+  mrf_kernel<NT, MT, WGS, V><<<grid, 128 * WGS, bytes, stream>>>(x, mask, w, accb, out, c, t,
+                                                              tile, halo, Wp, meta);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// ks[nb], ns[nb], dils[nb * MAXS], offs[nb * MAXS * 4] (w1, b1, w2, b2
-// offsets in floats into `weights`, each a multiple of 4), all host memory.
-// The window tile + 2 * halo must fit the warps' M tiles (ops/mrf.py
-// pick_tile): 64 * WGS * MT samples (the switch below).
-extern "C" int mrf_fwd(const float* x, const float* mask, const float* weights,
-                       float* out, int b, int c, int t, int tile, int nb,
-                       const int* ks, const int* ns, const int* dils,
-                       const long long* offs, int device, void* stream) {
-  if (nb < 1 || nb > MAXB || c < 8 || c % 8 != 0 || c >= 128 || tile < 1 ||
+// Checks the arguments and fills the launch's metadata; the window
+// tile + 2 * halo must fit the warps' M tiles (ops/mrf.py pick_tile).
+// step: the channels of one K step (8, or 16 in the bf16 mode).
+template <typename V>
+int mrf_launch(const V* x, const V* mask, const float* weights, float* accb, V* out,
+               int b, int c, int t, int tile, int nb, const int* ks, const int* ns,
+               const int* dils, const long long* offs, int device, void* stream) {
+  const int step = sizeof(V) == 2 ? 16 : 8;
+  if (nb < 1 || nb > MAXB || c < step || c % step != 0 || c >= 128 || tile < 1 ||
       b < 1 || b > 65535 || t < 1 || device < 0 || device >= MAXDEV)
     return (int)cudaErrorInvalidValue;
   MrfMeta meta = {};
@@ -525,14 +715,40 @@ extern "C" int mrf_fwd(const float* x, const float* mask, const float* weights,
   const cudaStream_t s = (cudaStream_t)stream;
   // four warpgroups of at most 128 registers a thread while C <= 40 (more
   // warps to overlap each group's wait), two of up to 255 above
+#define MRF_ARGS x, mask, weights, accb, out, b, c, t, tile, halo, Wp, bytes, meta, device, s
   switch (c / 8 < 8 ? c / 8 : 8) {
-    case 1: return launch<1, 16, 4>(x, mask, weights, out, b, c, t, tile, halo, Wp, bytes, meta, device, s);
-    case 2: return launch<2, 8, 4>(x, mask, weights, out, b, c, t, tile, halo, Wp, bytes, meta, device, s);
-    case 3: return launch<3, 5, 4>(x, mask, weights, out, b, c, t, tile, halo, Wp, bytes, meta, device, s);
-    case 4: return launch<4, 4, 4>(x, mask, weights, out, b, c, t, tile, halo, Wp, bytes, meta, device, s);
-    case 5: return launch<5, 3, 4>(x, mask, weights, out, b, c, t, tile, halo, Wp, bytes, meta, device, s);
-    case 6: return launch<6, 4, 2>(x, mask, weights, out, b, c, t, tile, halo, Wp, bytes, meta, device, s);
-    case 7: return launch<7, 3, 2>(x, mask, weights, out, b, c, t, tile, halo, Wp, bytes, meta, device, s);
-    default: return launch<8, 3, 2>(x, mask, weights, out, b, c, t, tile, halo, Wp, bytes, meta, device, s);
+    case 1: return launch<1, 16, 4>(MRF_ARGS);
+    case 2: return launch<2, 8, 4>(MRF_ARGS);
+    case 3: return launch<3, 5, 4>(MRF_ARGS);
+    case 4: return launch<4, 4, 4>(MRF_ARGS);
+    case 5: return launch<5, 3, 4>(MRF_ARGS);
+    case 6: return launch<6, 4, 2>(MRF_ARGS);
+    case 7: return launch<7, 3, 2>(MRF_ARGS);
+    default: return launch<8, 3, 2>(MRF_ARGS);
   }
+#undef MRF_ARGS
+}
+
+}  // namespace
+
+// ks[nb], ns[nb], dils[nb * MAXS], offs[nb * MAXS * 4] (w1, b1, w2, b2
+// offsets in floats into `weights`, each a multiple of 4), all host memory.
+extern "C" int mrf_fwd(const float* x, const float* mask, const float* weights,
+                       float* out, int b, int c, int t, int tile, int nb,
+                       const int* ks, const int* ns, const int* dils,
+                       const long long* offs, int device, void* stream) {
+  return mrf_launch<float>(x, mask, weights, out, out, b, c, t, tile, nb, ks, ns, dils,
+                           offs, device, stream);
+}
+
+// The bf16 mode: x, mask and out bf16, C % 16 == 0; `weights` holds the
+// bf16 slabs (ops/mrf.py pack_conv_weight_bf16) and the fp32 biases, the
+// offsets as mrf_fwd's; acc: an fp32 scratch [b, c, t] for the blocks'
+// sum (unused when nb == 1).
+extern "C" int mrf_fwd_bf16(const bf16* x, const bf16* mask, const float* weights,
+                            float* acc, bf16* out, int b, int c, int t, int tile,
+                            int nb, const int* ks, const int* ns, const int* dils,
+                            const long long* offs, int device, void* stream) {
+  return mrf_launch<bf16>(x, mask, weights, acc, out, b, c, t, tile, nb, ks, ns, dils,
+                          offs, device, stream);
 }

@@ -146,6 +146,11 @@ class TTSEngine:
     (`text/emotion.py`; the default one for the model's branch is built on
     first use).
 
+    The model's `cfg.infer_compute_dtype` sets the dtype of the flow and
+    the decoder in every synthesis call (`run_prepared`, `run_packed`,
+    `infer*`, `warmup`); `predict_frames` and the frame caps run in
+    float32 either way, so the lengths do not depend on it.
+
     `stats` counts, across run_prepared calls: frames_capacity (padded batch
     x frame cap), frames_delivered (frames inside real requests' y_len) and
     bytes_h2d (request tensors shipped to the device)."""
@@ -176,8 +181,13 @@ class TTSEngine:
         self.frame_multiple = frame_multiple
         self.stats = {"frames_capacity": 0, "frames_delivered": 0,
                       "bytes_h2d": 0}
+        # the flow and decoder in the model's infer_compute_dtype, and K2's
+        # weights packed for it, each made once (float32: the modules
+        # themselves; bfloat16: copies resolved in float32, then cast)
+        with torch.no_grad():
+            self.stages = self.model.compute_stages()
         with torch.inference_mode():
-            self.mrf_packed = self.model.dec.pack_mrf()
+            self.mrf_packed = self.model.dec.pack_mrf(self.model.compute_dtype)
 
     def _resolve_emotion(self, emotion, reference_audio, batch: int):
         """-> the emotion rows for the model, or None for emotion-less versions.
@@ -320,7 +330,7 @@ class TTSEngine:
                          self._frame_cap(t_x, max(r.length_scale for r in reqs)))
         wave, _, _, y_len = self.model.infer(
             max_frames=max_frames, generator=self._generator(reqs[0].seed),
-            mrf_packed=self.mrf_packed, **batch)
+            mrf_packed=self.mrf_packed, stages=self.stages, **batch)
         y_len = y_len.cpu().numpy()
         n_pad = batch["x"].shape[0]
         self.stats["frames_capacity"] += n_pad * max_frames
@@ -393,7 +403,7 @@ class TTSEngine:
                     batch["emo"] = torch.zeros((b, 512), device=self.device)
                 self._predict(batch, 0)
                 self.model.infer(max_frames=max_frames, generator=self._generator(0),
-                                 mrf_packed=self.mrf_packed, **batch)
+                                 mrf_packed=self.mrf_packed, stages=self.stages, **batch)
                 n += 1
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

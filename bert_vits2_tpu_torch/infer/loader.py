@@ -20,11 +20,13 @@ The config's `version` picks the family (`compat/versions.py:spec_for`;
 an unknown version means 2.3), whose overrides the model config takes:
 symbol table, tones, BERT inputs and emotion branch. The JAX package's
 orbax train-state directories are refused (the port writes `.pth`
-checkpoints), and synthesis runs in float32 only.
+checkpoints). `compute_dtype` sets the model's `infer_compute_dtype` for
+every family, as the JAX loader does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 
@@ -116,14 +118,14 @@ def load_tts_engine(
     encoder, the rest degrade to seeded noise with a loud warning. Set
     allow_noise_bert=False to make missing weights a hard error instead
     (recommended for servers).
+
+    compute_dtype: "float32" or "bfloat16", the model's infer_compute_dtype
+    (the flow and the decoder; the weights stay float32), for every version
+    family, as the JAX loader applies it; None keeps the config's.
     """
     from bert_vits2_tpu_torch.infer.api import TTSEngine
     from bert_vits2_tpu_torch.text.bert import AutoBertExtractor
 
-    if compute_dtype not in (None, "float32"):
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: the port synthesizes in float32 "
-            "only (bf16 policy: ROADMAP §A.7)")
     dev = resolve_device(device)
     hps = get_hparams_from_file(config_path)
     spec = spec_for(str(hps.get("version", "2.3")))
@@ -132,6 +134,8 @@ def load_tts_engine(
                                            device=dev)
         logger.info("BERT extractors for %s: %s", config_path, bert_extractor.describe())
     mcfg = model_config_from_hparams(hps, **spec.model_overrides())
+    if compute_dtype is not None:  # raises on a dtype it does not know
+        mcfg = dataclasses.replace(mcfg, infer_compute_dtype=compute_dtype)
     model = build_synthesizer(mcfg, device="cpu", seed=seed)
     load_generator_params(checkpoint_path, model)
     spk2id = hps.data.get("spk2id")

@@ -14,6 +14,14 @@ The caller chooses the MRF path by what it passes: with `mrf_packed`
 an entry run through the kernel K2 (`ops.mrf.fused_mrf`, inference only);
 the other stages, and every stage when `mrf_packed` is None (always so in
 training), run the ResBlock modules, which are differentiable.
+
+The forward runs in the dtype of its input and parameters: float32, or
+bfloat16 on the bf16 inference copy (`models/synthesizer.py:cast_copy`),
+where the frame mask is cast to the activation dtype up front (JAX
+generator.py:183), the upsample convs, the C >= 128 ResBlocks and
+`conv_post` compute in bf16, and K2 takes the stages packed by
+`pack_mrf(torch.bfloat16)` (from the float32 module: weights resolved in
+float32, then rounded; float32 biases, as the TPU kernel's packing).
 """
 
 from __future__ import annotations
@@ -125,17 +133,18 @@ class Generator(nn.Module):
         n = self.num_kernels
         return list(self.resblocks[i * n:(i + 1) * n])
 
-    def _fused_stage(self, i: int) -> bool:
+    def _fused_stage(self, i: int, dtype: torch.dtype) -> bool:
         ch = self.ups[i].out_channels
         return self.resblock == "1" and stage_supported(
-            ch, self.kernel_sizes, self.dilation_sizes)
+            ch, self.kernel_sizes, self.dilation_sizes, dtype)
 
-    def pack_mrf(self) -> list[MrfWeights | None]:
-        """Weight-norm-resolved MRF weights per stage: an entry for a stage
-        whose channel count K2 takes (0 < C < 128, C % 8 == 0), None for one
-        that runs the ResBlock modules. Resolve once and pass to forward."""
-        return [prepare_mrf_weights(self._stage_blocks(i))
-                if self._fused_stage(i) else None
+    def pack_mrf(self, dtype: torch.dtype = torch.float32) -> list[MrfWeights | None]:
+        """Weight-norm-resolved MRF weights per stage for activations of
+        `dtype`: an entry for a stage whose channel count K2 takes (0 < C <
+        128, C % 8 == 0; bf16: C % 16 == 0), None for one that runs the
+        ResBlock modules. Resolve once and pass to forward."""
+        return [prepare_mrf_weights(self._stage_blocks(i), dtype)
+                if self._fused_stage(i, dtype) else None
                 for i in range(len(self.ups))]
 
     def forward(self, x, g=None, y_mask=None, mrf_packed=None):

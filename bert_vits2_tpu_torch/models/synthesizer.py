@@ -18,7 +18,16 @@ order, through `ops/noise.py`: the posterior sample, the MAS noise, the SDP
 
 Synthesis is statically shaped like the JAX version: the caller fixes
 `max_frames`, predicted durations are masked into it, and `y_lengths` says
-where each item's audio ends. The public layout of the inputs is the JAX
+where each item's audio ends. It follows the JAX package's
+`infer_compute_dtype` policy (synthesizer.py:341-349): enc_p and both
+duration predictors run in float32, so the lengths do not depend on the
+dtype; the prior sample is drawn in float32 and cast; the flow and the
+decoder run in the compute dtype (`compute_stages`: under bfloat16, copies
+with weight norm resolved in float32, then rounded, LayerNorm parameters
+kept float32); the wave comes back float32. The module's own parameters
+stay float32 under the reference's names either way.
+
+The public layout of the inputs is the JAX
 package's (BERT features [b, t, dim], spectrograms [b, t, bins], attn
 [b, t_y, t_x], waves [b, samples]); inside, and in the training forward's
 outputs, tensors are in the reference layout [b, c, t]. The four inference
@@ -29,7 +38,9 @@ of `infer` explicitly instead.
 
 from __future__ import annotations
 
+import copy
 import math
+import warnings
 
 import torch
 from torch import nn
@@ -48,6 +59,7 @@ from bert_vits2_tpu_torch.models.generator import Generator
 from bert_vits2_tpu_torch.models.posterior import PosteriorEncoder
 from bert_vits2_tpu_torch.models.reference_encoder import ReferenceEncoder
 from bert_vits2_tpu_torch.models.text_encoder import TextEncoder
+from bert_vits2_tpu_torch.nn.norm import LayerNorm
 from bert_vits2_tpu_torch.ops import noise
 from bert_vits2_tpu_torch.ops.align import maximum_path
 from bert_vits2_tpu_torch.ops.masking import (
@@ -63,13 +75,39 @@ def _knob(v, rank: int, ref: torch.Tensor) -> torch.Tensor:
     return v.reshape(v.shape + (1,) * (rank - v.dim()))
 
 
+def compute_dtype(name: str) -> torch.dtype:
+    """A config's compute dtype name ("float32" | "bfloat16") -> torch's."""
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+@torch.no_grad()
+def cast_copy(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """An inference copy of `module` in `dtype`, as the JAX package's convs
+    compute under a compute dtype (nn/conv.py: weight norm resolved in
+    float32, the resolved weight and the bias cast to the dtype): weight
+    norm is removed on the copy in float32, then every parameter is cast
+    but those of the LayerNorms, which normalize in float32."""
+    # the weight-normed convs hold their last computed weight, a non-leaf
+    # tensor that deepcopy refuses: the copy leaves it out, and removing
+    # weight norm computes it anew from weight_g and weight_v
+    memo = {id(sub.weight): None for sub in module.modules()
+            if hasattr(sub, "weight_g")}
+    out = copy.deepcopy(module, memo).eval()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        for sub in out.modules():
+            if hasattr(sub, "weight_g"):
+                nn.utils.remove_weight_norm(sub)
+    for sub in out.modules():
+        if not isinstance(sub, LayerNorm):
+            for p in sub.parameters(recurse=False):
+                p.data = p.data.to(dtype)
+    return out.requires_grad_(False)
+
+
 class Synthesizer(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.infer_compute_dtype != "float32":
-            raise NotImplementedError(
-                "only float32 synthesis: the bf16 policy of infer_compute_dtype "
-                "is not ported yet (ROADMAP §A.7)")
         if not cfg.use_transformer_flow and cfg.n_flow_layer != 4:
             # the JAX package builds n_flow_layer couplings of 4 WN layers,
             # the reference (as recalled) 4 couplings of n_flow_layer WN
@@ -81,7 +119,8 @@ class Synthesizer(nn.Module):
         if cfg.train_compute_dtype != "float32":
             raise NotImplementedError(
                 "only float32 training: the bf16 policy of train_compute_dtype "
-                "is not ported yet (ROADMAP §A.7)")
+                "(and K1-train, B5 and B6 in bf16) is the next slice of the "
+                "port, ROADMAP §A.7; infer_compute_dtype takes bfloat16")
         self.cfg = cfg
         c = cfg
         gin = (c.gin_channels
@@ -122,6 +161,21 @@ class Synthesizer(nn.Module):
             c.spec_channels, c.inter_channels, c.hidden_channels,
             kernel_size=5, dilation_rate=1, n_layers=16,
             gin_channels=c.gin_channels)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The flow's and the decoder's dtype in synthesis."""
+        return compute_dtype(self.cfg.infer_compute_dtype)
+
+    def compute_stages(self) -> tuple[nn.Module, nn.Module]:
+        """(flow, dec) as `infer` runs them: the modules themselves under
+        float32; under bfloat16 their `cast_copy`s, which share no
+        parameter with the module (make them once, as the engine does, and
+        pass them to `infer`)."""
+        if self.compute_dtype == torch.float32:
+            return self.flow, self.dec
+        return (cast_copy(self.flow, self.compute_dtype),
+                cast_copy(self.dec, self.compute_dtype))
 
     def _speaker(self, sid, y):
         """The speaker embedding [b, gin]: emb_g(sid), or with
@@ -242,7 +296,7 @@ class Synthesizer(nn.Module):
     def infer(self, x, x_lengths, sid, tone, language, bert, ja_bert, en_bert,
               max_frames: int, emo=None, noise_scale=0.667, length_scale=1.0,
               noise_scale_w=0.8, sdp_ratio=0.0, generator=None, z_in=None,
-              eps=None, mrf_packed=None, y=None):
+              eps=None, mrf_packed=None, y=None, stages=None):
         """Statically shaped synthesis (models.py:1026-1074).
 
         x, tone, language: [b, t_x] int; x_lengths, sid: [b]; bert, ja_bert,
@@ -250,7 +304,9 @@ class Synthesizer(nn.Module):
         ([b] codebook indices or [b, 1024] for vq210, [b, 512] for clap220).
         z_in [b, t_x, 2]: SDP noise, already scaled
         (noise_scale_w is then ignored); eps [b, max_frames, inter]: prior
-        noise before noise_scale. mrf_packed: `dec.pack_mrf()`, resolved once.
+        noise before noise_scale. mrf_packed: `dec.pack_mrf(dtype)` in the
+        compute dtype, resolved once. stages: `compute_stages()`, made once
+        (made here on each call when None).
         y [b, t, spec_channels]: the reference spectrogram of a model with
         n_speakers == 0 (sid is then unused).
         Returns (wave [b, max_frames * hop], attn [b, t_y, t_x],
@@ -271,10 +327,13 @@ class Synthesizer(nn.Module):
             eps = torch.randn(m_p_y.shape, generator=generator,
                               device=m_p_y.device, dtype=m_p_y.dtype)
         z_p = m_p_y + eps * torch.exp(logs_p_y) * _knob(noise_scale, 3, m_p_y)
-        z = self.flow(z_p, y_mask[:, None, :], g=g, reverse=True)
-        wave = self.dec(z * y_mask[:, None, :], g=g, y_mask=y_mask,
-                        mrf_packed=mrf_packed)
-        return wave, attn, y_mask, y_lengths
+        flow, dec = stages if stages is not None else self.compute_stages()
+        dt = self.compute_dtype
+        z_p, y_mask_c, g_c = z_p.to(dt), y_mask.to(dt), g.to(dt)
+        z = flow(z_p, y_mask_c[:, None, :], g=g_c, reverse=True)
+        wave = dec(z * y_mask_c[:, None, :], g=g_c, y_mask=y_mask_c,
+                   mrf_packed=mrf_packed)
+        return wave.float(), attn, y_mask, y_lengths
 
 
 def build_synthesizer(cfg: ModelConfig, device: str | torch.device = "cuda",

@@ -17,6 +17,15 @@ wrappers pick the tensor-core kernels or, outside their range, those of
 path in plain PyTorch. Speaker conditioning enters before layer
 `cond_layer_idx`. Dropout sits where the JAX modules have it and is active
 in train() mode only.
+
+The modules compute in the dtype of their input and parameters: float32,
+or bfloat16 in the bf16 inference copy of the flow
+(`models/synthesizer.py:cast_copy`), with the JAX package's casts: the
+mask is cast to the activations' dtype up front, q is scaled in that dtype,
+the relative tables are cast to q's dtype, and the LayerNorms normalize in
+float32 and return the input's dtype. A bf16 call goes to K1's bf16 mode
+(or the wide kernel's) on the card, and the short-sequence path runs in
+bf16.
 """
 
 from __future__ import annotations
@@ -98,6 +107,7 @@ class MultiHeadAttention(nn.Module):
 
         q = heads(self.conv_q(x)) * (1.0 / math.sqrt(d))
         k, v = heads(self.conv_k(x)), heads(self.conv_v(x))
+        x_mask = x_mask.to(q.dtype)
         p_drop = self.p_dropout if self.training else 0.0
         if 2 * w + 1 > t + 1:
             out = self._window_attention(q, k, v, x_mask, p_drop)
@@ -112,8 +122,9 @@ class MultiHeadAttention(nn.Module):
             seed = _dropout_seed() if p_drop else None
             out = banded_rel_self_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(),
-                x_mask[:, 0].contiguous(), self.emb_rel_k[0], self.emb_rel_v[0],
-                w, dropout_p=p_drop, dropout_seed=seed)
+                x_mask[:, 0].contiguous(), self.emb_rel_k[0].to(q.dtype),
+                self.emb_rel_v[0].to(q.dtype), w, dropout_p=p_drop,
+                dropout_seed=seed)
         else:
             # the training direction (the JAX package's deterministic=False)
             out = banded_attention_plain(
@@ -126,7 +137,7 @@ class MultiHeadAttention(nn.Module):
         """Short sequences (t < 2w): the reference's skew formulation."""
         t, w = q.shape[2], self.window_size
         scores = torch.matmul(q, k.transpose(-1, -2))
-        key_rel = _window_embeddings(self.emb_rel_k, t, w)
+        key_rel = _window_embeddings(self.emb_rel_k.to(q.dtype), t, w)
         rel = torch.einsum("bhtd,gmd->bhtm", q, key_rel)
         scores = scores + _rel_to_abs(rel)
         am = x_mask[:, :, :, None] * x_mask[:, :, None, :]
@@ -135,7 +146,7 @@ class MultiHeadAttention(nn.Module):
         if p_drop:
             p = F.dropout(p, p_drop)
         out = torch.matmul(p, v)
-        value_rel = _window_embeddings(self.emb_rel_v, t, w)
+        value_rel = _window_embeddings(self.emb_rel_v.to(q.dtype), t, w)
         return out + torch.einsum("bhtm,gmd->bhtd", _abs_to_rel(p), value_rel)
 
 
@@ -190,6 +201,7 @@ class Encoder(nn.Module):
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
                 g: torch.Tensor | None = None) -> torch.Tensor:
         """x: [b, c, t]; x_mask: [b, 1, t]; g: [b, gin] or None."""
+        x_mask = x_mask.to(x.dtype)
         x = x * x_mask
         for i in range(self.n_layers):
             if i == self.cond_layer_idx and g is not None and self.gin_channels:

@@ -1,7 +1,10 @@
 """LayerNorm over the channel axis of [b, c, t] (reference: modules.py:17-29).
 
 Counterpart of `bert_vits2_tpu/nn/norm.py`; the parameters keep the
-reference's names `gamma` and `beta`.
+reference's names `gamma` and `beta`. It normalizes in float32 and returns
+the input's dtype, as the JAX module does, so a bf16 activation stays bf16
+while gamma and beta stay float32 (the bf16 inference copies of
+`models/synthesizer.py:compute_stages` leave them so).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ class LayerNorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.transpose(1, -1)
-        x = F.layer_norm(x, (self.channels,), self.gamma, self.beta, self.eps)
-        return x.transpose(1, -1)
+        y = x.transpose(1, -1).float()
+        y = F.layer_norm(y, (self.channels,), self.gamma.float(),
+                         self.beta.float(), self.eps)
+        return y.transpose(1, -1).to(x.dtype)

@@ -26,16 +26,24 @@ Beside them:
   it, and the tests and `chip_smoke.py` hold the kernels against it (the
   backward kernels against its autograd, `banded_attention_bwd_plain`). It
   masks query rows as well as keys; the kernels mask keys only, so the two
-  agree on valid rows, which is all any caller reads.
+  agree on valid rows, which is all any caller reads. On bf16 operands it
+  rounds where the TPU kernel does (attention_pallas.py:88-146): scores
+  and softmax in fp32, the probabilities rounded to bf16 for P.V with an
+  fp32 sum, the band term from the fp32 probabilities against the bf16
+  table, the output rounded to bf16. (The JAX package's own CPU path, its
+  XLA formula, softmaxes in bf16 instead; the port follows the kernel.)
 - `banded_rel_self_attention`, the public wrapper: the plain version for
   CPU tensors; for CUDA tensors the inference launch of K1, or, when a
   gradient is wanted or dropout is on, `BandedAttentionFn` (K1 in train
   mode forward, B5 and B6 backward), each in the variant the shape takes;
-  an error for anything else.
+  an error for anything else. The inference launch takes float32 or
+  bfloat16 operands (K1's bf16 mode, `banded_attention_fwd_bf16`, and the
+  wide kernel's, `wide_fwd_bf16`); the training direction float32 only.
 - `banded_kernels_support`, the tensor-core kernels' range of shapes.
 
 Each kernel launcher counts its launches in its `launches` attribute: the
-wrappers count the tensor-core kernels', the `wide_*` functions their own.
+wrappers count the tensor-core kernels' float32 launches, the `*_bf16` and
+`wide_*` functions their own.
 
 Dropout is the JAX package's counter-based position hash (`hash_keep`):
 the keep mask of probability (row i, column j) of batch row b and head
@@ -56,6 +64,7 @@ NEG_FILL = -1e4  # the reference's mask fill: a fully masked row is uniform
 MAX_HEAD_DIM = 128  # the tensor-core kernels' widest head and window
 MAX_WINDOW = 4
 WIDE_MAX_HEAD_DIM = 8192  # csrc/banded_attn_wide.cu MAX_D
+INFERENCE_DTYPES = (torch.float32, torch.bfloat16)  # the inference launches'
 _M32 = 0xFFFFFFFF
 
 
@@ -154,13 +163,18 @@ def banded_attention_plain(q, k, v, x_mask, emb_rel_k, emb_rel_v,
     with the position hash when given a `dropout_seed` (the JAX `_dense`
     branch), and with `F.dropout` from torch's generator without one."""
     w = int(window_size)
+    dt = q.dtype
+    if dt != torch.float32:  # the TPU kernel's rounding points (module note)
+        q, k, v, emb_rel_k, emb_rel_v = (
+            a.float() for a in (q, k, v, emb_rel_k, emb_rel_v))
     p = torch.softmax(banded_scores_plain(q, k, x_mask, emb_rel_k, w), dim=-1)
     if dropout_p and dropout_seed is not None:
         p = hash_dropout_probs(p, dropout_p, dropout_seed)
     elif dropout_p:
         p = F.dropout(p, dropout_p)
-    out = torch.matmul(p, v)
-    return out + torch.einsum("bhtc,cd->bhtd", abs_to_band(p, w), emb_rel_v)
+    out = torch.matmul(p.to(dt).float() if dt != torch.float32 else p, v)
+    out = out + torch.einsum("bhtc,cd->bhtd", abs_to_band(p, w), emb_rel_v)
+    return out.to(dt)
 
 
 def banded_attention_stats_plain(q, k, x_mask, emb_rel_k, window_size: int):
@@ -203,31 +217,46 @@ def _check_bwd_shapes(q, g, m, l, delta) -> None:
         raise ValueError(f"m, l, delta must be {tuple(q.shape[:3])}")
 
 
-def banded_kernels_support(b: int, h: int, t: int, d: int, w: int) -> bool:
+def banded_kernels_support(b: int, h: int, t: int, d: int, w: int,
+                           dtype: torch.dtype = torch.float32) -> bool:
     """Whether the tensor-core kernels (csrc/banded_attn.cu,
-    banded_attn_bwd.cu) take float32 inputs of this shape; the wrappers
-    send every other shape they accept to csrc/banded_attn_wide.cu."""
-    return (1 <= d <= MAX_HEAD_DIM and 0 <= w <= MAX_WINDOW and t >= 2 * w
-            and b * h <= 65535)
+    banded_attn_bwd.cu) take inputs of this shape and dtype: float32 (every
+    entry point) or bfloat16 (the inference launch, K1's bf16 mode), each
+    at d <= 128, w <= 4, t >= 2w, b*h <= 65535; the wrappers send every
+    other shape they accept to csrc/banded_attn_wide.cu."""
+    return (dtype in INFERENCE_DTYPES and 1 <= d <= MAX_HEAD_DIM
+            and 0 <= w <= MAX_WINDOW and t >= 2 * w and b * h <= 65535)
 
 
-def _check_kernel_inputs(tensors, w: int) -> bool:
-    """Raise on what no kernel takes (CUDA tensors only); True where the
-    tensor-core kernels take the shape, False where the wide ones do."""
+def _check_kernel_inputs(tensors, w: int,
+                         dtypes: tuple = (torch.float32,)) -> bool:
+    """Raise on what no kernel takes (CUDA tensors only): a device other
+    than one card, a dtype outside `dtypes`, operands of mixed dtypes (the
+    mask, tensors[3], may be float32 beside bf16 operands), a shape out of
+    every kernel's range. True where the tensor-core kernels take the
+    shape, False where the wide ones do."""
     q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     if any(x.device != q.device for x in tensors):
         raise ValueError("all inputs must lie on one device")
-    if any(x.dtype != torch.float32 for x in tensors):
-        raise ValueError("the kernel takes float32 inputs")
+    if q.dtype not in dtypes:
+        raise ValueError(f"the kernel takes {' or '.join(map(str, dtypes))} "
+                         f"inputs, not {q.dtype}"
+                         + ("" if q.dtype != torch.bfloat16 else
+                            ": bf16 training is the next slice (ROADMAP §A.7)"))
+    if any(x.dtype != q.dtype for i, x in enumerate(tensors) if i != 3):
+        raise ValueError("the kernel takes operands of one dtype: "
+                         f"{[x.dtype for x in tensors]}")
+    if tensors[3].dtype not in (q.dtype, torch.float32):
+        raise ValueError(f"the mask is {tensors[3].dtype}")
     if any(not x.is_contiguous() for x in tensors):
         raise ValueError("the kernel takes contiguous inputs")
     b, h, t, d = q.shape
     if not (1 <= d <= WIDE_MAX_HEAD_DIM and 0 <= w and 1 <= t and t >= 2 * w
             and b * h < 2**31):
         raise ValueError(f"unsupported shape b={b} h={h} t={t} d={d} w={w}")
-    return banded_kernels_support(b, h, t, d, w)
+    return banded_kernels_support(b, h, t, d, w, q.dtype)
 
 
 def _stream(x: torch.Tensor):
@@ -341,6 +370,32 @@ def wide_fwd(tensors, w: int) -> torch.Tensor:
     return out
 
 
+def banded_attention_fwd_bf16(tensors, w: int) -> torch.Tensor:
+    """K1's bf16 mode (the inference launch of csrc/banded_attn.cu on
+    bf16 operands) on checked inputs (q, k, v, x_mask, emb_rel_k,
+    emb_rel_v, the mask in the operands' dtype) -> out, bf16."""
+    q = tensors[0]
+    b, h, t, d = q.shape
+    out = torch.empty_like(q)
+    err = _build.library("banded_attn.cu").banded_attn_fwd_bf16(
+        *(x.data_ptr() for x in (*tensors, out)), b, h, t, d, w, *_stream(q))
+    _build.check(err, "banded_attn_fwd_bf16")
+    banded_attention_fwd_bf16.launches += 1
+    return out
+
+
+def wide_fwd_bf16(tensors, w: int) -> torch.Tensor:
+    """The inference launch of csrc/banded_attn_wide.cu on bf16 operands
+    (checked, as `banded_attention_fwd_bf16`'s) -> out, bf16."""
+    q = tensors[0]
+    out = torch.empty_like(q)
+    err = _build.library("banded_attn_wide.cu").banded_attn_wide_fwd_bf16(
+        *(x.data_ptr() for x in (*tensors, out)), *q.shape, w, *_stream(q))
+    _build.check(err, "banded_attn_wide_fwd_bf16")
+    wide_fwd_bf16.launches += 1
+    return out
+
+
 def wide_fwd_train(tensors, w: int, dropout_p: float, dropout_seed):
     """The train-mode launch of csrc/banded_attn_wide.cu -> (out, m, l)."""
     q = tensors[0]
@@ -439,7 +494,12 @@ def banded_rel_self_attention(q, k, v, x_mask, emb_rel_k, emb_rel_v,
     if grad or dropout_p:
         return BandedAttentionFn.apply(*tensors, w, float(dropout_p),
                                        dropout_seed)
-    if not _check_kernel_inputs(tensors, w):
+    tensor_cores = _check_kernel_inputs(tensors, w, INFERENCE_DTYPES)
+    if q.dtype == torch.bfloat16:
+        tensors = (q, k, v, x_mask.to(q.dtype), emb_rel_k, emb_rel_v)
+        return (banded_attention_fwd_bf16 if tensor_cores else wide_fwd_bf16)(
+            tensors, w)
+    if not tensor_cores:
         return wide_fwd(tensors, w)
     b, h, t, d = q.shape
     out = torch.empty_like(q)
@@ -454,7 +514,9 @@ banded_rel_self_attention.launches = 0
 banded_attention_fwd_train.launches = 0
 banded_attention_bwd_q.launches = 0
 banded_attention_bwd_k.launches = 0
+banded_attention_fwd_bf16.launches = 0
 wide_fwd.launches = 0
+wide_fwd_bf16.launches = 0
 wide_fwd_train.launches = 0
 wide_bwd_q.launches = 0
 wide_bwd_k.launches = 0

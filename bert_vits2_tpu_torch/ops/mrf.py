@@ -7,15 +7,20 @@ compute one function, and the phase fold of the second only fills the TPU's
 matrix-unit rows. Its source note says what bounds it on the card and how
 the design answers that. Beside it:
 
-- `prepare_mrf_weights`, run once per engine: resolves weight norm and packs
-  every conv of the stage's `ResBlock1` blocks (reference layout) and the
-  kernel's flat buffer, each conv weight split into TF32 hi and lo parts
-  (`split_tf32`) and laid out as the kernel's tensor-core B fragments
-  (`pack_conv_weight`).
+- `prepare_mrf_weights`, run once per engine: resolves weight norm in
+  float32 and packs every conv of the stage's `ResBlock1` blocks (reference
+  layout) and the kernel's flat buffer. For float32 activations each conv
+  weight is split into TF32 hi and lo parts (`split_tf32`) and laid out as
+  the kernel's tensor-core B fragments (`pack_conv_weight`); for bfloat16
+  ones (the TPU kernel's bf16 mode, mrf_pallas.py:54-67) it is rounded to
+  bf16 and laid out as the bf16 B fragments (`pack_conv_weight_bf16`); the
+  biases stay float32 in both.
 - `fused_mrf_plain`, the same function in plain PyTorch (`F.conv1d`), which
-  the CPU runs and the tests and `chip_smoke.py` hold the kernel against.
+  the CPU runs and the tests and `chip_smoke.py` hold the kernel against;
+  in bf16 it rounds where the TPU kernel rounds (mrf_pallas.py:150-203).
 - `fused_mrf`, the wrapper: plain version for CPU tensors, the kernel for
-  CUDA tensors. Its `launches` attribute counts kernel launches.
+  CUDA tensors. Its `launches` attribute counts launches of the float32
+  mode, `mrf_fwd_bf16.launches` those of the bf16 mode.
 
 Layout is the port's [B, C, T]; the mask is [B, T] and always applied (an
 all-ones mask reproduces the unmasked ResBlock, the zero padding at the
@@ -48,11 +53,14 @@ SLACK = 32
 MAX_WINDOW = {1: 4096, 2: 2048, 3: 1280, 4: 1024, 5: 768, 6: 512, 7: 384, 8: 384}
 
 
-def stage_supported(channels: int, kernel_sizes, dilations) -> bool:
-    """The stages the kernel takes: 0 < C < 128 and C % 8 == 0 (the JAX
-    package's pack_generator_mrf selection), with odd kernels and at most
-    MAX_BLOCKS blocks of MAX_STAGES dilations."""
-    return (0 < channels < 128 and channels % 8 == 0
+def stage_supported(channels: int, kernel_sizes, dilations,
+                    dtype: torch.dtype = torch.float32) -> bool:
+    """The stages the kernel takes with activations of `dtype`: 0 < C < 128
+    and C % 8 == 0 (the JAX package's pack_generator_mrf selection; bf16:
+    C % 16 == 0, the depth of one bf16 tensor-core step), with odd kernels
+    and at most MAX_BLOCKS blocks of MAX_STAGES dilations."""
+    step = {torch.float32: 8, torch.bfloat16: 16}.get(dtype)
+    return (step is not None and 0 < channels < 128 and channels % step == 0
             and len(kernel_sizes) <= MAX_BLOCKS
             and all(k % 2 == 1 for k in kernel_sizes)
             and all(len(ds) <= MAX_STAGES for ds in dilations))
@@ -62,16 +70,19 @@ def stage_supported(channels: int, kernel_sizes, dilations) -> bool:
 class MrfWeights:
     """Weight-norm-resolved weights of one stage's MRF blocks.
 
-    convs[j][s] = (w1, b1, w2, b2) in the reference layout [C, C, k];
-    flat / offsets: the kernel's buffer (`pack_conv_weight` per conv
-    weight, the biases as they are) and the (w1, b1, w2, b2) float offsets
-    per (block, stage) into it."""
+    convs[j][s] = (w1, b1, w2, b2) in the reference layout [C, C, k], the
+    weights in `dtype` (the activations' dtype), the biases float32;
+    flat / offsets: the kernel's float32 buffer (`pack_conv_weight` or,
+    in bf16, `pack_conv_weight_bf16` per conv weight, the biases as they
+    are) and the (w1, b1, w2, b2) float offsets per (block, stage) into
+    it."""
 
     kernel_sizes: tuple
     dilations: tuple
     convs: tuple
     flat: torch.Tensor
     offsets: tuple
+    dtype: torch.dtype = torch.float32
 
     @property
     def channels(self) -> int:
@@ -112,21 +123,45 @@ def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
     return torch.stack(parts, dim=2).reshape(-1)
 
 
+def pack_conv_weight_bf16(w: torch.Tensor) -> torch.Tensor:
+    """A bf16 conv weight [C_out, C_in, k] -> the bf16 mode's B operands,
+    as float32 words holding two bf16 values each (the first in the low
+    half): per slab (tap, kstep) of 16 input channels, `wgmma` core
+    matrices of 8 rows x 8 values: 8-channel output group j, K half kh,
+    row r, column c holds w[8j + r, 16*kstep + 8*kh + c, tap]
+    (csrc/mrf.cu)."""
+    co, ci, k = w.shape
+    # [tap, ci, co] -> [tap, kstep, kh, c, j, r] -> [tap, kstep, j, kh, r, c]
+    t = w.permute(2, 1, 0).reshape(k, ci // 16, 2, 8, co // 8, 8)
+    return t.permute(0, 1, 4, 2, 5, 3).reshape(-1).contiguous().view(torch.float32)
+
+
 @torch.no_grad()
-def prepare_mrf_weights(blocks) -> MrfWeights:
+def prepare_mrf_weights(blocks, dtype: torch.dtype = torch.float32) -> MrfWeights:
     """blocks: the stage's ResBlock1 modules (each with `convs1`, `convs2`,
-    `kernel_size`, `dilations`)."""
+    `kernel_size`, `dilations`), float32; dtype: the activations' dtype
+    (float32 or bfloat16). Raises ValueError for a stage the kernel does
+    not take in that dtype."""
+    if not stage_supported(blocks[0].convs1[0].out_channels,
+                           [b.kernel_size for b in blocks],
+                           [b.dilations for b in blocks], dtype):
+        raise ValueError(f"no K2 stage of {blocks[0].convs1[0].out_channels} "
+                         f"channels in {dtype}")
+    pack = {torch.float32: pack_conv_weight,
+            torch.bfloat16: pack_conv_weight_bf16}[dtype]
     convs, pieces, offsets = [], [], []
     n = 0
     for blk in blocks:
         stages = []
         for c1, c2 in zip(blk.convs1, blk.convs2):
-            quad = (resolved_weight(c1).detach().clone(), c1.bias.detach().clone(),
-                    resolved_weight(c2).detach().clone(), c2.bias.detach().clone())
+            quad = (resolved_weight(c1).detach().float().to(dtype).clone(),
+                    c1.bias.detach().float().clone(),
+                    resolved_weight(c2).detach().float().to(dtype).clone(),
+                    c2.bias.detach().float().clone())
             stages.append(quad)
             offs = []
             for i, p in enumerate(quad):
-                flat = pack_conv_weight(p) if i % 2 == 0 else p
+                flat = pack(p) if i % 2 == 0 else p
                 offs.append(n)
                 pieces.append(flat)
                 n += flat.numel()
@@ -138,12 +173,15 @@ def prepare_mrf_weights(blocks) -> MrfWeights:
         convs=tuple(convs),
         flat=torch.cat(pieces).contiguous(),
         offsets=tuple(offsets),
+        dtype=dtype,
     )
 
 
 def fused_mrf_plain(x: torch.Tensor, mask: torch.Tensor,
                     weights: MrfWeights) -> torch.Tensor:
     """The plain PyTorch version of K2: x [B, C, T], mask [B, T]."""
+    if x.dtype != torch.float32:
+        return _fused_mrf_plain_bf16(x, mask, weights)
     m = mask[:, None, :]
     acc = None
     for k, ds, stages in zip(weights.kernel_sizes, weights.dilations,
@@ -158,6 +196,30 @@ def fused_mrf_plain(x: torch.Tensor, mask: torch.Tensor,
         y = y * m
         acc = y if acc is None else acc + y
     return acc / len(weights.convs)
+
+
+def _fused_mrf_plain_bf16(x, mask, weights):
+    """The plain version in bf16, rounding where the TPU kernel rounds
+    (mrf_pallas.py:150-203): each conv an fp32 sum of the bf16 products
+    plus the fp32 bias, rounded to bf16; leaky ReLU, masking and the
+    residual add in bf16; the blocks' outputs summed in fp32, divided by
+    their number, then rounded."""
+    dt = x.dtype
+    m = mask[:, None, :].to(dt)
+    acc = None
+    for k, ds, stages in zip(weights.kernel_sizes, weights.dilations,
+                             weights.convs):
+        y = x
+        for d, (w1, b1, w2, b2) in zip(ds, stages):
+            a = F.leaky_relu(y, LRELU_SLOPE) * m
+            a = F.conv1d(a.float(), w1.float(), b1, padding=(k - 1) // 2 * d,
+                         dilation=d).to(dt)
+            a = F.leaky_relu(a, LRELU_SLOPE) * m
+            a = F.conv1d(a.float(), w2.float(), b2, padding=(k - 1) // 2).to(dt)
+            y = a + y
+        y = (y * m).float()
+        acc = y if acc is None else acc + y
+    return (acc / len(weights.convs)).to(dt)
 
 
 def _smem_bytes(channels: int, window: int) -> int:
@@ -187,20 +249,33 @@ def fused_mrf(x: torch.Tensor, mask: torch.Tensor,
     b, c, t = x.shape
     if mask.shape != (b, t):
         raise ValueError(f"mask {tuple(mask.shape)} is not {(b, t)}")
+    if x.dtype != weights.dtype:
+        raise ValueError(f"x is {x.dtype}, the packed weights are for "
+                         f"{weights.dtype}")
     if c != weights.channels or not stage_supported(
-            c, weights.kernel_sizes, weights.dilations):
-        raise ValueError(f"unsupported MRF stage: C={c}")
+            c, weights.kernel_sizes, weights.dilations, x.dtype):
+        raise ValueError(f"unsupported MRF stage: C={c}, {x.dtype}")
     if x.device.type == "cpu":
         return fused_mrf_plain(x, mask, weights)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    if (x.dtype != torch.float32 or mask.dtype != torch.float32
-            or weights.flat.dtype != torch.float32):
-        raise ValueError("the kernel takes float32 inputs")
+    if mask.dtype != x.dtype or weights.flat.dtype != torch.float32:
+        raise ValueError("the kernel takes x and the mask in one dtype")
     if mask.device != x.device or weights.flat.device != x.device:
         raise ValueError("all inputs must lie on one device")
     if not (x.is_contiguous() and mask.is_contiguous()):
         raise ValueError("the kernel takes contiguous inputs")
+    if x.dtype == torch.bfloat16:
+        return mrf_fwd_bf16(x, mask, weights)
+    out = torch.empty_like(x)
+    _launch("mrf_fwd", x, mask, weights, out)
+    fused_mrf.launches += 1
+    return out
+
+
+def _launch(entry: str, x, mask, weights, out, *scratch) -> None:
+    """One launch of an entry point of csrc/mrf.cu on checked inputs."""
+    b, c, t = x.shape
     nb = len(weights.kernel_sizes)
     ks = (ctypes.c_int * nb)(*weights.kernel_sizes)
     ns = (ctypes.c_int * nb)(*(len(ds) for ds in weights.dilations))
@@ -213,17 +288,28 @@ def fused_mrf(x: torch.Tensor, mask: torch.Tensor,
             offs[(j * MAX_STAGES + s) * 4:(j * MAX_STAGES + s + 1) * 4] = list(
                 weights.offsets[i])
             i += 1
-    out = torch.empty_like(x)
     tile = pick_tile(c, t, weights.halo)
-    lib = _build.library("mrf.cu")
-    err = lib.mrf_fwd(
-        x.data_ptr(), mask.data_ptr(), weights.flat.data_ptr(), out.data_ptr(),
+    err = getattr(_build.library("mrf.cu"), entry)(
+        x.data_ptr(), mask.data_ptr(), weights.flat.data_ptr(),
+        *(a.data_ptr() for a in scratch), out.data_ptr(),
         b, c, t, tile, nb, ks, ns, dils, offs, x.device.index or 0,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(err, "mrf_fwd")
-    fused_mrf.launches += 1
+    _build.check(err, entry)
+
+
+def mrf_fwd_bf16(x: torch.Tensor, mask: torch.Tensor,
+                 weights: MrfWeights) -> torch.Tensor:
+    """K2's bf16 mode on checked inputs (`fused_mrf` checks them): bf16 x,
+    mask and output, fp32 accumulation; the blocks' outputs summed in an
+    fp32 scratch [B, C, T] when there is more than one."""
+    acc = torch.empty(x.shape if len(weights.kernel_sizes) > 1 else (1,),
+                      device=x.device)
+    out = torch.empty_like(x)
+    _launch("mrf_fwd_bf16", x, mask, weights, out, acc)
+    mrf_fwd_bf16.launches += 1
     return out
 
 
 fused_mrf.launches = 0
+mrf_fwd_bf16.launches = 0

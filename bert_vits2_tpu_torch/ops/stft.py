@@ -66,8 +66,11 @@ def mel_filterbank(sampling_rate: int, n_fft: int, n_mels: int, fmin: float,
 
 @functools.lru_cache(maxsize=8)
 def _mel_weights(sampling_rate, n_fft, n_mels, fmin, fmax, device) -> torch.Tensor:
-    return torch.from_numpy(
-        mel_filterbank(sampling_rate, n_fft, n_mels, fmin, fmax)).to(device)
+    # a normal tensor even when first asked for under inference_mode: the
+    # cached copy also serves the training losses, which autograd tracks
+    with torch.inference_mode(False):
+        return torch.from_numpy(
+            mel_filterbank(sampling_rate, n_fft, n_mels, fmin, fmax)).to(device)
 
 
 def spectrogram(y: torch.Tensor, n_fft: int, hop: int, win_length: int,

@@ -117,8 +117,9 @@ def _check_fp32(cfg: TrainConfig) -> None:
     if cfg.bf16_run:
         raise NotImplementedError(
             "bf16_run is not ported yet: the bf16 training policy (autocast "
-            "of the hot stages, global-norm clipping) is ROADMAP §A.7; this "
-            "step trains in float32 only")
+            "of the hot stages, global-norm clipping, K1-train, B5 and B6 in "
+            "bf16) is the next slice of the port, ROADMAP §A.7; this step "
+            "trains in float32 only (bf16 serves: infer_compute_dtype)")
 
 
 def make_optimizer(cfg: TrainConfig, module: nn.Module,

@@ -4,6 +4,7 @@ and check them.
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1-3: the kernels alone
+    python3 chip_smoke.py --bf16      # the build and phase 6b' alone
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -47,6 +48,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
    and K2 3 times (counts zeroed just before it); one JP sentence at zero
    noise, card against CPU; infer_batch timed over 5 calls, host time
    (prepare) split from synthesis time.
+6b'. bf16 serving ([bf16]): K1's bf16 mode at the flow's [8, 2, 768, 96],
+   the wide forward's at one [attention-range] shape and K2's at C = 64,
+   32, 16, each against its plain bf16 version (within K1_BF16_ULPS /
+   K2_BF16_ULPS bf16 ulps of the largest reference entry; the least time at
+   989 TFLOP/s bf16); a bf16 MultiHeadAttention of d = 160 card against CPU
+   through the wide bf16 kernel; then the [text] phase's config.json and
+   G_0.pth loaded by load_tts_engine(compute_dtype="float32" and
+   "bfloat16"): identical state_dicts; the seed-7 batch of 8 through
+   run_prepared on both, K1 28 fp32 launches a fp32 call and 12 fp32 + 16
+   bf16 a bf16 call, K2 3 fp32 or 3 bf16; y_lengths equal; the bf16 waves
+   against the fp32 ones (max-abs error, log-mel L1 over every bin and over
+   the bins within 60 dB of each utterance's peak); both engines timed in
+   turns (F B B F), peak memory, a profile of one call each with device
+   time by group (K1, K2, convs and GEMMs, the rest) and the device time of
+   the C >= 128 vocoder stages' convolutions.
 6c. old checkpoint versions ([versions]): for each version family of
    compat/versions.py, a config.json at the V2.3 widths (version 1.0.1,
    1.1.1, 2.0.2-fix, 2.1, 2.2, and a 2.3 one with use_transformer_flow
@@ -147,6 +163,7 @@ import torch
 
 FP32_FLOPS = 67e12  # H100 SXM fp32 rate outside the tensor cores
 TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core rate
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 HBM_BYTES = 3.35e12  # H100 SXM HBM3 rate
 K1_BOUND = 1e-4  # fp32, outputs O(1), sums of up to t terms in another order
 K2_BOUND = 2e-4  # fp32, 18 chained convs of up to 11*C-term sums
@@ -164,6 +181,15 @@ ATTN_RANGE_BOUND = 1e-5  # card vs CPU, fp32, TF32 off: one attention (wide kern
 # another order than cuBLAS's and autograd's
 BWD_REL_BOUND = 1e-4
 N_ENC_ATTN, N_FLOW_ATTN = 6, 16  # attention layers of enc_p and of the flow
+# bf16 kernels against their plain versions (which round where the TPU
+# kernels round): bf16 ulps of the largest reference entry. K1: the kernel
+# rounds P relative to the running max, the plain version the normalized P
+# (each a relative 2**-9), and an fp32 sum in another order can flip the
+# output's last rounding: 1 ulp and a little more. K2: a flipped rounding in
+# one of 18 chained convs travels through the later convs and residuals.
+K1_BF16_ULPS = 4
+K2_BF16_ULPS = 4
+BF16_ROUNDS = 3  # [bf16]: fp32 and bf16 run_prepared in turns, F B B F a round
 # the [attention-range] phase: MultiHeadAttention (channels, heads, window)
 # outside the tensor-core kernels' range, at [b, t] with these lengths; its
 # kernels (csrc/banded_attn_wide.cu) checked at the same [b, h, t, d, w],
@@ -214,6 +240,18 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
 
 
+def bound_bf16(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time of work on bf16 operands: the bf16 tensor-core rate
+    or the bytes."""
+    t_ops, t_mem = flops / BF16_FLOPS, nbytes / HBM_BYTES
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+
+
 def bound_fp32(flops: float, nbytes: float) -> float:
     """The bound of a design on the fp32 cores (the wide kernels): the
     fp32 rate or the bytes."""
@@ -255,9 +293,13 @@ def range_cases():
             for c, h, w in RANGE_MODULES]
 
 
-def check_attention(dev, cases=None, label="K1", design=bound_3xtf32):
+def check_attention(dev, cases=None, label="K1", design=bound_3xtf32,
+                    dtype=torch.float32):
     """The inference launch against the plain version, timed: K1 at the
-    serving path's shapes, or (cases) the wide kernel at its own."""
+    serving path's shapes, or (cases) the wide kernel at its own; with
+    dtype bfloat16 the bf16 mode on bf16 operands (mask float32), bounded
+    by K1_BF16_ULPS bf16 ulps of the largest reference entry, and the
+    least time at the bf16 rate and 2-byte operands."""
     from bert_vits2_tpu_torch.ops.attention import (
         banded_attention_plain, banded_rel_self_attention)
     rows = []
@@ -271,6 +313,7 @@ def check_attention(dev, cases=None, label="K1", design=bound_3xtf32):
         q = q / math.sqrt(d)
         ek, ev = (torch.randn(2 * w + 1, d, device=dev, generator=g)
                   / math.sqrt(d) for _ in range(2))
+        q, k, v, ek, ev = (a.to(dtype) for a in (q, k, v, ek, ev))
         m = lens_mask([t - (t // 16) * i for i in range(b)], t, dev)
         args = (q, k, v, m, ek, ev, w)
         with torch.inference_mode():
@@ -278,21 +321,28 @@ def check_attention(dev, cases=None, label="K1", design=bound_3xtf32):
             want = banded_attention_plain(*args)
             torch.cuda.synchronize()
             valid = m.bool()[:, None, :, None].expand_as(got)
-            err = (got - want).abs()[valid].max().item()
+            err = (got.float() - want.float()).abs()[valid].max().item()
             ms = cuda_ms(lambda: banded_rel_self_attention(*args))
             dms = device_ms(lambda: banded_rel_self_attention(*args))
             plain = cuda_ms(lambda: banded_attention_plain(*args))
         flops = 4 * b * h * t * t * d + 4 * b * h * t * (2 * w + 1) * d
-        nbytes = 4 * (4 * b * h * t * d + b * t + 2 * (2 * w + 1) * d)
-        bms, by = bound(flops, nbytes)
+        size = q.element_size()
+        nbytes = size * (4 * b * h * t * d + 2 * (2 * w + 1) * d) + 4 * b * t
+        if dtype == torch.float32:
+            bms, by = bound(flops, nbytes)
+            tol, unit = K1_BOUND, "67 TFLOP/s fp32"
+        else:
+            bms, by = bound_bf16(flops, nbytes)
+            scale = want.float().abs()[valid].max().item()
+            tol, unit = K1_BF16_ULPS * bf16_ulp(scale), "989 TFLOP/s bf16"
         tc = design(flops, nbytes)
-        log(f"{label} {name} [b={b},h={h},t={t},d={d},w={w}]: max_abs_err {err:.3e} "
-            f"(bound {K1_BOUND:g}), kernel {ms:.4f} ms (device {dms:.4f} ms), "
-            f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}: "
-            f"{flops / 1e9:.2f} GFLOP at 67 TFLOP/s fp32, {nbytes / 1e6:.1f} MB "
+        log(f"{label} {name} [b={b},h={h},t={t},d={d},w={w}] {str(dtype)[6:]}: "
+            f"max_abs_err {err:.3e} (bound {tol:g}), kernel {ms:.4f} ms (device "
+            f"{dms:.4f} ms), plain {plain:.4f} ms, bound {bms:.4f} ms ({by}: "
+            f"{flops / 1e9:.2f} GFLOP at {unit}, {nbytes / 1e6:.1f} MB "
             f"at 3.35 TB/s), design bound {tc:.4f} ms")
-        if not err <= K1_BOUND:
-            raise AssertionError(f"{label} {name}: max_abs_err {err} > {K1_BOUND}")
+        if not err <= tol:
+            raise AssertionError(f"{label} {name}: max_abs_err {err} > {tol}")
         rows.append(dict(shape=[b, h, t, d], launches_per_call=n_main, err=err,
                          ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms,
                          bound_by=by, bound_design_ms=tc))
@@ -412,7 +462,11 @@ def check_attention_bwd(dev, cases=None, keys=TC_KEYS, design=bound_3xtf32):
     return rows
 
 
-def check_mrf(dev):
+def check_mrf(dev, dtype=torch.float32):
+    """K2 against its plain version at the serving path's three stages,
+    timed; with dtype bfloat16 its bf16 mode (weights packed in bf16, x and
+    the mask bf16), bounded by K2_BF16_ULPS bf16 ulps of the largest
+    reference entry, the least time at the bf16 rate."""
     from bert_vits2_tpu_torch.models.generator import ResBlock1
     from bert_vits2_tpu_torch.ops.mrf import (
         fused_mrf, fused_mrf_plain, prepare_mrf_weights)
@@ -427,15 +481,16 @@ def check_mrf(dev):
                 for conv in (*blk.convs1, *blk.convs2):
                     conv.weight_g.fill_(1.0)
                     conv.bias.normal_(0.0, 0.1)
-        wts = prepare_mrf_weights([blk.to(dev) for blk in blocks])
+        wts = prepare_mrf_weights([blk.to(dev) for blk in blocks], dtype)
         g = torch.Generator(device=dev).manual_seed(c)
-        x = torch.randn(MAIN_BATCH, c, t, device=dev, generator=g)
-        m = lens_mask([t - up * 37 * i for i in range(MAIN_BATCH)], t, dev)
+        x = torch.randn(MAIN_BATCH, c, t, device=dev, generator=g).to(dtype)
+        m = lens_mask([t - up * 37 * i for i in range(MAIN_BATCH)], t, dev).to(dtype)
         with torch.inference_mode():
             got = fused_mrf(x, m, wts)
             want = fused_mrf_plain(x, m, wts)
             torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
             masked = got[m[:, None, :].expand_as(got) == 0].abs().max().item()
             del got, want
             ms = cuda_ms(lambda: fused_mrf(x, m, wts), iters=5)
@@ -443,17 +498,26 @@ def check_mrf(dev):
             plain = cuda_ms(lambda: fused_mrf_plain(x, m, wts), iters=3, warmup=1)
         macs = sum(2 * c * c * k * len(dd) for k, dd in zip(ks, ds))
         flops = 2 * macs * MAIN_BATCH * t
-        nbytes = 4 * (2 * MAIN_BATCH * c * t + MAIN_BATCH * t + wts.flat.numel())
-        bms, by = bound(flops, nbytes)
-        tc = bound_3xtf32(flops, nbytes)
-        log(f"K2 C={c} [B={MAIN_BATCH},T={t}]: max_abs_err {err:.3e} "
-            f"(bound {K2_BOUND:g}), masked outputs max |y| {masked:.1e} (must "
+        size = x.element_size()
+        nbytes = size * (2 * MAIN_BATCH * c * t + MAIN_BATCH * t) + 4 * wts.flat.numel()
+        if dtype == torch.float32:
+            bms, by = bound(flops, nbytes)
+            tc = bound_3xtf32(flops, nbytes)
+            tol = K2_BOUND
+            units = ("67 TFLOP/s fp32", "3xTF32 bound", "3 x FLOP at 495 TFLOP/s")
+        else:
+            bms, by = bound_bf16(flops, nbytes)
+            tc = bms
+            tol = K2_BF16_ULPS * bf16_ulp(scale)
+            units = ("989 TFLOP/s bf16", "design bound", "one bf16 MMA a product")
+        log(f"K2 C={c} [B={MAIN_BATCH},T={t}] {str(dtype)[6:]}: max_abs_err "
+            f"{err:.3e} (bound {tol:g}), masked outputs max |y| {masked:.1e} (must "
             f"be 0), kernel {ms:.3f} ms (device {dms:.3f} ms), plain "
             f"{plain:.3f} ms, bound {bms:.3f} ms ({by}: {flops / 1e9:.1f} GFLOP "
-            f"at 67 TFLOP/s fp32, {nbytes / 1e6:.1f} MB at 3.35 TB/s), 3xTF32 "
-            f"bound {tc:.3f} ms (3 x FLOP at 495 TFLOP/s)")
-        if not (err <= K2_BOUND and masked == 0.0):
-            raise AssertionError(f"K2 C={c}: max_abs_err {err} > {K2_BOUND} "
+            f"at {units[0]}, {nbytes / 1e6:.1f} MB at 3.35 TB/s), {units[1]} "
+            f"{tc:.3f} ms ({units[2]})")
+        if not (err <= tol and masked == 0.0):
+            raise AssertionError(f"K2 C={c} {dtype}: max_abs_err {err} > {tol} "
                                  f"or masked outputs {masked} != 0")
         rows.append(dict(shape=[MAIN_BATCH, c, t], launches_per_call=1, err=err,
                          ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms,
@@ -1056,6 +1120,192 @@ def run_text(dev, smi, counters):
     del engine
     torch.cuda.empty_cache()
     return totals
+
+
+def log_mel(waves, dev):
+    """The training's log-mel (n_fft 2048, hop 512, 128 bins at 44.1 kHz)
+    of each wave, on the card."""
+    from bert_vits2_tpu_torch.ops.stft import mel_spectrogram
+    return [mel_spectrogram(torch.from_numpy(w).to(dev)[None], 2048, 128, 44100, 512,
+                            2048, 0.0, None)[0] for w in waves]
+
+
+def run_bf16(dev, smi, counters):
+    """bf16 serving ([bf16]): K1's bf16 mode at the flow's shape, the wide
+    forward's at one [attention-range] shape and K2's at C = 64, 32, 16,
+    each against its plain bf16 version; a bf16 MultiHeadAttention of
+    d = 160 card against CPU (the wide bf16 kernel's route); then one
+    config.json and G_0.pth loaded by load_tts_engine as float32 and as
+    bfloat16 (identical state_dicts), the seed-7 batch of MAIN_BATCH
+    through run_prepared on both in turns (F B B F, BF16_ROUNDS rounds):
+    medians and max, peak memory, K1/K2 launches per call (fp32 28 and 3;
+    bf16 12 fp32 + 16 bf16 K1 and 3 bf16 K2), y_lengths equal, the bf16
+    waves against the fp32 ones (max-abs error, log-mel L1), a profile of
+    one call each. Returns (kernel rows by name, launches by name)."""
+    from bert_vits2_tpu_torch.infer import load_tts_engine
+    from bert_vits2_tpu_torch.models.synthesizer import cast_copy
+    from bert_vits2_tpu_torch.nn.attention import MultiHeadAttention
+
+    bf16 = torch.bfloat16
+    design = lambda f, n: bound_bf16(f, n)[0]  # noqa: E731
+    rows = {"banded_attn_fwd_bf16": check_attention(
+                dev, (("flow", MAIN_BATCH, 2, FRAMES, 96, 4, N_FLOW_ATTN),), "K1",
+                design, bf16),
+            "banded_attn_wide_fwd_bf16": check_attention(
+                dev, range_cases()[:1], "K1-wide", design, bf16),
+            "mrf_fwd_bf16": check_mrf(dev, bf16)}
+    torch.cuda.empty_cache()
+
+    # the wide kernel's bf16 route through the module (d = 160)
+    channels, heads, window = RANGE_MODULES[0]
+    torch.manual_seed(channels)
+    mod = MultiHeadAttention(channels, channels, heads, window_size=window).eval()
+    cpu, gpu = cast_copy(mod, bf16), cast_copy(mod, bf16).to(dev)
+    x = torch.randn(len(RANGE_LENS), channels, RANGE_T).to(bf16)
+    m = lens_mask(RANGE_LENS, RANGE_T, "cpu")[:, None, :]
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    with torch.inference_mode():
+        got = gpu(x.to(dev), m.to(dev)).float().cpu() * m
+        torch.cuda.synchronize()
+        wide_launches = {k: fn.launches for k, fn in counters.items()}
+        want = cpu(x, m).float() * m
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    tol = K1_BF16_ULPS * bf16_ulp(scale)
+    log(f"[bf16] MultiHeadAttention({channels}, {heads} head, window {window}) in "
+        f"bf16, [b={len(RANGE_LENS)}, t={RANGE_T}]: card vs CPU max_abs_err "
+        f"{err:.3e} (bound {tol:g}: {K1_BF16_ULPS} bf16 ulps of {scale:.3f}); "
+        f"launches {wide_launches}")
+    want_wide = {k: 0 for k in counters}
+    want_wide["banded_attn_wide_fwd_bf16"] = 1
+    if wide_launches != want_wide or not err <= tol:
+        raise AssertionError("[bf16] the bf16 module outside the tensor-core range")
+
+    with tempfile.TemporaryDirectory() as root:
+        config, weights = write_engine_config(root)
+        t0 = time.perf_counter()
+        engines = {dt: load_tts_engine(config, weights, device="cuda", compute_dtype=dt)
+                   for dt in ("float32", "bfloat16")}
+        load_s = time.perf_counter() - t0
+    f32, b16 = engines["float32"], engines["bfloat16"]
+    sd_f, sd_b = f32.model.state_dict(), b16.model.state_dict()
+    if sd_f.keys() != sd_b.keys() or not all(torch.equal(sd_f[k], sd_b[k]) for k in sd_f):
+        raise AssertionError("[bf16] the two engines' state_dicts differ")
+    cfg = b16.model.cfg
+    reqs = make_requests(cfg, MAIN_BATCH, seed=7)
+    n_attn = 2 * cfg.n_layers + cfg.n_flow_layer * cfg.n_layers_trans_flow
+    want = {"float32": dict(banded_attn_fwd=n_attn, mrf_fwd=3),
+            "bfloat16": dict(banded_attn_fwd=2 * cfg.n_layers,
+                             banded_attn_fwd_bf16=N_FLOW_ATTN, mrf_fwd_bf16=3)}
+    log(f"[bf16] load_tts_engine(config.json, G_0.pth, compute_dtype=...) float32 and "
+        f"bfloat16 in {load_s:.1f} s; identical state_dicts ({len(sd_f)} tensors); "
+        f"flow and dec copies in bf16: "
+        f"{sorted({str(p.dtype) for st in b16.stages for p in st.parameters()})}")
+    out, lat, peak, launches = {}, {"float32": [], "bfloat16": []}, {}, {}
+    for name, eng in engines.items():
+        eng.run_prepared(reqs)  # warm-up
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        out[name] = eng.run_prepared(reqs)
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in counters.items()}
+        w_ = {k: 0 for k in counters}
+        w_.update(want[name])
+        log(f"[bf16] {name} run_prepared: launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        if got != w_:
+            raise AssertionError(f"[bf16] {name}: kernel launches {got}, want {w_}")
+        launches[name] = got
+        for w in out[name]:
+            if not (len(w) >= eng.hop_length and np.isfinite(w).all()
+                    and np.abs(w).max() <= 1.0):
+                raise AssertionError(f"[bf16] {name}: a wave is empty, non-finite or "
+                                     "out of [-1, 1]")
+    lens_f = [len(w) // f32.hop_length for w in out["float32"]]
+    lens_b = [len(w) // b16.hop_length for w in out["bfloat16"]]
+    if lens_f != lens_b:
+        raise AssertionError(f"[bf16] y_lengths differ: {lens_f} {lens_b}")
+    err = max(float(np.abs(a - b).max()) for a, b in zip(out["float32"], out["bfloat16"]))
+    rms = float(np.sqrt(np.mean(np.concatenate(out["float32"]) ** 2)))
+    mel_l1, mel_l1_60 = [], []
+    with torch.inference_mode():
+        for a, b in zip(log_mel(out["float32"], dev), log_mel(out["bfloat16"], dev)):
+            mel_l1.append((a - b).abs().mean().item())
+            floor = a.max() - math.log(1000.0)  # 60 dB below the peak magnitude
+            mel_l1_60.append((a.clamp(min=floor) - b.clamp(min=floor)).abs().mean().item())
+    log(f"[bf16] y_lengths equal ({lens_f} frames); bf16 against float32 waves: "
+        f"max_abs_err {err:.3e} (fp32 wave rms {rms:.3e}), log-mel L1 "
+        f"{np.mean(mel_l1):.4f}, within 60 dB of each peak {np.mean(mel_l1_60):.4f} "
+        f"(n_fft 2048, hop 512, 128 bins, natural log of magnitude, mean over the "
+        f"{MAIN_BATCH} requests)")
+
+    for _ in range(BF16_ROUNDS):
+        for name in ("float32", "bfloat16", "bfloat16", "float32"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engines[name].run_prepared(reqs)
+            torch.cuda.synchronize()
+            lat[name].append(time.perf_counter() - t0)
+    for name, eng in engines.items():
+        torch.cuda.reset_peak_memory_stats()
+        eng.run_prepared(reqs)
+        peak[name] = torch.cuda.max_memory_allocated() / 2**30
+    audio_s = sum(len(w) for w in out["float32"]) / f32.sampling_rate
+    med = {k: float(np.median(v)) for k, v in lat.items()}
+    log(f"[bf16-timing] {smi}: run_prepared batch {MAIN_BATCH}, {audio_s:.2f} s of "
+        f"audio, {2 * BF16_ROUNDS} calls each in turns (F B B F): float32 median "
+        f"{med['float32'] * 1e3:.1f} ms, max {max(lat['float32']) * 1e3:.1f}; bfloat16 "
+        f"median {med['bfloat16'] * 1e3:.1f} ms, max {max(lat['bfloat16']) * 1e3:.1f} "
+        f"(bf16 / fp32 {med['bfloat16'] / med['float32']:.3f}); peak memory float32 "
+        f"{peak['float32']:.2f} GiB, bfloat16 {peak['bfloat16']:.2f} GiB")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    # the C >= 128 vocoder stages (those K2 does not take): their convs'
+    # inputs have the channels of these stages and more samples than text
+    t_x = f32._bucket(max(len(r.inputs[0]) for r in reqs))
+    stage_ch = {cfg.upsample_initial_channel >> (i + k)
+                for i, packed in enumerate(b16.mrf_packed) if packed is None
+                for k in (0, 1)}
+    for name, eng in engines.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            eng.run_prepared(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        evs, dev_us = profile_lines(prof, wall, f"[bf16] one {name} run_prepared")
+        stage_us = sum(e.device_time_total
+                       for e in prof.key_averages(group_by_input_shape=True)
+                       if e.key == "aten::convolution" and e.input_shapes
+                       and len(e.input_shapes[0]) == 3
+                       and e.input_shapes[0][1] in stage_ch
+                       and e.input_shapes[0][2] > t_x)
+        log(f"[bf16] {name}: the C >= 128 vocoder stages' convolutions (inputs of "
+            f"{sorted(stage_ch)} channels; cuDNN's kernels with its layout "
+            f"conversions) {stage_us / 1e3:.2f} ms of device time "
+            f"({100 * stage_us / dev_us:.1f}%)")
+        groups = collections.Counter()
+        for e in evs:
+            key = e.key.lower()
+            group = ("K1" if "banded_attn" in key else "K2" if "mrf_kernel" in key
+                     else "convs and GEMMs (cuDNN, cuBLAS)" if any(
+                         s_ in key for s_ in ("conv", "cudnn", "xmma", "gemm", "sm90",
+                                              "cutlass", "implicit"))
+                     else "other (elementwise, copies, reductions)")
+            groups[group] += e.self_device_time_total
+        log(f"[bf16] {name} device time by group: " + "; ".join(
+            f"{g_} {us / 1e3:.2f} ms ({100 * us / dev_us:.1f}%)"
+            for g_, us in groups.most_common()))
+    del engines, f32, b16
+    torch.cuda.empty_cache()
+    bf16_launches = {k: launches["bfloat16"][k] for k in ("banded_attn_fwd_bf16",
+                                                            "mrf_fwd_bf16")}
+    bf16_launches["banded_attn_wide_fwd_bf16"] = wide_launches["banded_attn_wide_fwd_bf16"]
+    return rows, bf16_launches
 
 
 VERSION_CASES = (  # name, config.json version, model-section additions, text languages
@@ -2101,6 +2351,10 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", action="store_true",
                     help="phases 1-3 only: build, hold every kernel against its "
                          "plain version and time it; no model phases, no ok line")
+    ap.add_argument("--bf16", action="store_true",
+                    help="the build, then the [bf16] phase alone (the bf16 kernels "
+                         "against their plain versions, fp32 and bf16 engines in "
+                         "turns); no ok line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2110,7 +2364,7 @@ def main(argv=None) -> int:
     from bert_vits2_tpu_torch.infer import TTSEngine
     from bert_vits2_tpu_torch.ops.align import maximum_path
     from bert_vits2_tpu_torch.ops import attention
-    from bert_vits2_tpu_torch.ops.mrf import fused_mrf
+    from bert_vits2_tpu_torch.ops.mrf import fused_mrf, mrf_fwd_bf16
 
     counters = {"banded_attn_fwd": attention.banded_rel_self_attention,
                 "mrf_fwd": fused_mrf, "mas_fwd": maximum_path,
@@ -2120,7 +2374,10 @@ def main(argv=None) -> int:
                 "banded_attn_wide_fwd": attention.wide_fwd,
                 "banded_attn_wide_fwd_train": attention.wide_fwd_train,
                 "banded_attn_wide_bwd_q": attention.wide_bwd_q,
-                "banded_attn_wide_bwd_k": attention.wide_bwd_k}
+                "banded_attn_wide_bwd_k": attention.wide_bwd_k,
+                "banded_attn_fwd_bf16": attention.banded_attention_fwd_bf16,
+                "banded_attn_wide_fwd_bf16": attention.wide_fwd_bf16,
+                "mrf_fwd_bf16": mrf_fwd_bf16}
     dev = torch.device("cuda")
     smi = smi_line()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -2139,6 +2396,10 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("[kernels] TF32 off for matmul and cuDNN: plain versions in full fp32")
+    if args.bf16:
+        rows, bf16_launches = run_bf16(dev, smi, counters)
+        print(json.dumps({"rows": rows, "launches": bf16_launches}), flush=True)
+        return 0
     k1 = check_attention(dev)
     k2 = check_mrf(dev)
     k3 = check_mas(dev)
@@ -2219,6 +2480,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     text_launches = run_text(dev, smi, counters)
+    bf16_rows, bf16_launches = run_bf16(dev, smi, counters)
     versions_launches = run_versions(dev, smi, counters)
     serve_launches = run_serve(smi, counters)
     run_serve_cli(smi)
@@ -2313,6 +2575,25 @@ def main(argv=None) -> int:
             ("banded_attn_wide_bwd_k", "bert_vits2_tpu/ops/attention_pallas.py:228")):
         record["kernels"].append(entry(name, wide_src, replaces, wide_rows[name],
                                        ranged, fp32))
+    bf16_design = ("bf16 on the tensor cores (wgmma m64nNk16, fp32 accumulators): "
+                   "bound_ms and bound_design_ms are FLOP at 989 TFLOP/s or the "
+                   "bytes of the bf16 operands")
+    bf16_basis = ("launches: the bf16 run_prepared call of the [bf16] phase "
+                  "(counts zeroed before it); shapes: ")
+    launches.update(bf16_launches)
+    for name, source, replaces, basis in (
+            ("banded_attn_fwd_bf16", "bert_vits2_tpu_torch/csrc/banded_attn.cu",
+             "bert_vits2_tpu/ops/attention_pallas.py:88 (bf16 operands)",
+             bf16_basis + "the flow's, " + serving),
+            ("mrf_fwd_bf16", "bert_vits2_tpu_torch/csrc/mrf.cu",
+             "bert_vits2_tpu/ops/mrf_pallas.py:128 and :434 (bf16 operands)",
+             bf16_basis + serving),
+            ("banded_attn_wide_fwd_bf16", wide_src,
+             "bert_vits2_tpu/ops/attention_pallas.py:88 (bf16 operands)",
+             "launches: the [bf16] phase's bf16 MultiHeadAttention call of d = 160 "
+             "(counts zeroed before it); per such call")):
+        record["kernels"].append(entry(name, source, replaces, bf16_rows[name], basis,
+                                       bf16_design))
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -190,8 +190,9 @@ def test_loader_matches_jax(engines, tmp_path, monkeypatch):
     DDP `module.` prefix) and an .npz release (the JAX package's
     save_release): both packages' load_tts_engine give the same waves from
     each. A 2.1 config.json routes to the V2.1 family (this 2.3 file lacks
-    its emotion keys, which keep their init); refused dtypes and orbax
-    directories raise."""
+    its emotion keys, which keep their init); compute_dtype="bfloat16"
+    loads the same parameters into a bf16 engine (tests/test_torch_bf16.py
+    holds its synthesis); orbax directories raise."""
     jax_engine, _, params, port, want = engines
     config = _write_config(tmp_path / "config.json")
     pth = tmp_path / "G_0.pth"
@@ -219,9 +220,13 @@ def test_loader_matches_jax(engines, tmp_path, monkeypatch):
                           bert_extractor=ext, device="cpu")
     assert old.version_spec == versions.spec_for("2.1")
     assert old.model.cfg == ModelConfig(**dict(CFG, emotion="vq210"))
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        load_tts_engine(config, str(pth), bert_extractor=ext,
-                        compute_dtype="bfloat16", device="cpu")
+    bf16 = load_tts_engine(config, str(pth), bert_extractor=ext,
+                           compute_dtype="bfloat16", device="cpu")
+    assert bf16.model.cfg == ModelConfig(**dict(CFG, infer_compute_dtype="bfloat16"))
+    assert bf16.model.compute_dtype == torch.bfloat16
+    sd = bf16.model.state_dict()
+    assert sd.keys() == port.state_dict().keys()
+    assert all(torch.equal(sd[k], v) for k, v in port.state_dict().items())
     (tmp_path / "orbax").mkdir()
     with pytest.raises(NotImplementedError, match="orbax"):
         load_tts_engine(config, str(tmp_path / "orbax"), bert_extractor=ext,

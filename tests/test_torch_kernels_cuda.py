@@ -26,6 +26,17 @@ the move-left bits the tests give it). The kernels of banded_attn_wide.cu
 fp32 on the CUDA cores, with K1's and B5/B6's bounds; the attention module
 through them within 1e-5 of the CPU module (one fp32 attention, TF32 off)
 and its parameter gradients within 1e-4 of the largest gradient entry.
+
+The bf16 modes (bf16 operands, fp32 accumulators and softmax: K1's
+inference launch, the wide forward and K2) against their plain bf16
+versions, which round where the TPU kernels round: within 4 bf16 ulps of
+the largest reference entry (bf16 keeps 8 significant bits; the kernels
+round P relative to the running row max and sum in another order, K2
+chains 18 convs whose roundings a reordered sum can flip, each flip an ulp
+of an intermediate). The bf16 engine at the V2.3 widths card against CPU
+within 1e-2 (the two bf16 paths, kernels and cuDNN against the plain
+versions and the CPU's convs, round at different points; the bf16 waves
+lie ~1e-3 from the fp32 ones at these widths, PERF.md §6).
 """
 
 import pytest
@@ -53,12 +64,15 @@ from bert_vits2_tpu_torch.ops.attention import (
     banded_rel_self_attention,
     wide_bwd_k,
     wide_bwd_q,
+    banded_attention_fwd_bf16,
     wide_fwd,
+    wide_fwd_bf16,
     wide_fwd_train,
 )
 from bert_vits2_tpu_torch.ops.mrf import (
     fused_mrf,
     fused_mrf_plain,
+    mrf_fwd_bf16,
     prepare_mrf_weights,
 )
 
@@ -73,6 +87,13 @@ def _launchers(b, h, t, d, w):
     wrappers move at this shape."""
     return TC_COUNTERS if banded_kernels_support(b, h, t, d, w) else WIDE_COUNTERS
 DS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+BF16_ULPS = 4
+
+
+def _bf16_bound(want: torch.Tensor) -> float:
+    """BF16_ULPS bf16 ulps of the largest entry of `want`."""
+    import math
+    return BF16_ULPS * 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
 
 
 @pytest.fixture
@@ -92,8 +113,7 @@ def _lens_mask(lens, t, dev):
             < torch.as_tensor(lens, device=dev)[:, None]).float()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,h,t,d,lens", [
+ATTN_CASES = [
     (2, 2, 200, 96, [200, 131]),   # several key tiles, ragged last tile
     (3, 2, 13, 4, [13, 8, 1]),     # t < one tile, tiny head width
     (1, 1, 8, 128, [8]),           # t == 2w, widest head
@@ -107,7 +127,23 @@ def _lens_mask(lens, t, dev):
     (2, 1, 200, 160, [200, 131]),  # wide kernel: a head of 160 channels
     (3, 1, 257, 300, [257, 256, 3]),  # wide: d > 2 * 128, one past two tiles
     (1, 65536, 8, 2, None),        # wide: b * h above the grid's 65535
-])
+]
+
+
+def _attention_inputs(card, b, h, t, d, lens, dtype=torch.float32):
+    g = torch.Generator(device=card).manual_seed(t)
+    lens = lens or [t - 37 * i for i in range(b)]
+    q, k, v = (torch.randn(b, h, t, d, device=card, generator=g)
+               for _ in range(3))
+    q = q / d ** 0.5
+    ek, ev = (torch.randn(9, d, device=card, generator=g) / d ** 0.5
+              for _ in range(2))
+    return (*(a.to(dtype) for a in (q, k, v)), _lens_mask(lens, t, card),
+            *(a.to(dtype) for a in (ek, ev)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,d,lens", ATTN_CASES)
 def test_banded_attention_kernel(card, b, h, t, d, lens):
     g = torch.Generator(device=card).manual_seed(t)
     lens = lens or [t - 37 * i for i in range(b)]
@@ -127,6 +163,29 @@ def test_banded_attention_kernel(card, b, h, t, d, lens):
     valid = m.bool()[:, None, :, None].expand_as(got)
     err = (got - want).abs()[valid].max().item()
     assert err <= 1e-4, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,d,lens", ATTN_CASES)
+def test_banded_attention_kernel_bf16(card, b, h, t, d, lens):
+    """K1's bf16 mode (the wide kernel's outside its range) on bf16
+    operands and an fp32 mask, at the fp32 cases' shapes: bf16 out within
+    BF16_ULPS of the plain bf16 version on valid rows, one launch of the
+    bf16 launcher and none of the fp32 ones."""
+    q, k, v, m, ek, ev = _attention_inputs(card, b, h, t, d, lens, torch.bfloat16)
+    launcher = (banded_attention_fwd_bf16 if banded_kernels_support(
+        b, h, t, d, 4, torch.bfloat16) else wide_fwd_bf16)
+    counters = (launcher, banded_rel_self_attention, wide_fwd)
+    before = [c.launches for c in counters]
+    with torch.inference_mode():
+        got = banded_rel_self_attention(q, k, v, m, ek, ev, 4)
+        want = banded_attention_plain(q, k, v, m, ek, ev, 4)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 0, 0]
+    assert got.dtype == want.dtype == torch.bfloat16
+    valid = m.bool()[:, None, :, None].expand_as(got)
+    err = (got.float() - want.float()).abs()[valid].max().item()
+    assert err <= _bf16_bound(want.float()[valid]), err
 
 
 @pytest.mark.cuda
@@ -254,6 +313,46 @@ def test_mrf_kernel(card, c, t, lens, ks, ds):
     assert fused_mrf.launches == before + 1
     err = (got - want).abs().max().item()
     assert err <= 2e-4, err
+    assert got[m[:, None, :].expand_as(got) == 0].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,t,lens,ks,ds", [
+    (64, 1000, [1000, 611], KS, DS),
+    (32, 3000, [2999, 3000], KS, DS),
+    (16, 5000, [5000, 1], KS, DS),
+    (48, 900, [900, 1], KS, DS),  # C / 16 odd: N tiles 6
+    (16, 1200, [1200, 999], (5, 9), ((1, 2, 4, 8), (1, 3, 1, 3))),
+    (16, 333, [333, 200], (3,), ((1, 3),)),  # one block: no fp32 scratch sum
+    (64, 793, [793, 1], KS, DS),  # T one past a multiple of the sample tile
+    (32, 1297, [1, 1297], KS, DS),
+    (16, 2833, [2833, 1], KS, DS),
+    (80, 500, [500, 311], KS, DS),  # above 64 channels: two passes of N tiles
+])
+def test_mrf_kernel_bf16(card, c, t, lens, ks, ds):
+    """K2's bf16 mode (weights packed in bf16, biases fp32, bf16 x and
+    mask) against the plain bf16 version: within BF16_ULPS of it, the
+    masked outputs exactly 0, one bf16 launch and no fp32 one."""
+    torch.manual_seed(c)
+    blocks = [ResBlock1(c, k, d) for k, d in zip(ks, ds)]
+    with torch.no_grad():
+        for blk in blocks:  # unit-gain convs, not the near-identity init
+            for conv in (*blk.convs1, *blk.convs2):
+                conv.weight_g.fill_(1.0)
+                conv.bias.normal_(0.0, 0.1)
+    w = prepare_mrf_weights([blk.to(card) for blk in blocks], torch.bfloat16)
+    g = torch.Generator(device=card).manual_seed(t)
+    x = torch.randn(len(lens), c, t, device=card, generator=g).bfloat16()
+    m = _lens_mask(lens, t, card).bfloat16()
+    before = (mrf_fwd_bf16.launches, fused_mrf.launches)
+    with torch.inference_mode():
+        got = fused_mrf(x, m, w)
+        want = fused_mrf_plain(x, m, w)
+    torch.cuda.synchronize()
+    assert (mrf_fwd_bf16.launches - before[0], fused_mrf.launches - before[1]) == (1, 0)
+    assert got.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _bf16_bound(want.float()), err
     assert got[m[:, None, :].expand_as(got) == 0].abs().max().item() == 0.0
 
 
@@ -440,6 +539,88 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
                      lens * 2, lens)
     with pytest.raises(ValueError):  # lengths on another device
         maximum_path(torch.zeros(1, 8, 4, device=card), lens.cpu() * 2, lens)
+
+
+@pytest.mark.cuda
+def test_bf16_inputs_no_kernel_takes_raise(card):
+    """bf16 tensors that no kernel takes raise, never run upcast or on the
+    plain version: a head wider than the wide kernels', operands of mixed
+    dtypes, the training direction (bf16 training is the next slice), a K2
+    stage whose channels are not a multiple of 16, x and packed weights of
+    different dtypes."""
+    bf = torch.bfloat16
+    q = torch.randn(1, 1, 16, WIDE_MAX_HEAD_DIM + 1, device=card, dtype=bf)
+    e = torch.randn(9, WIDE_MAX_HEAD_DIM + 1, device=card, dtype=bf)
+    m = torch.ones(1, 16, device=card)
+    counters = (banded_attention_fwd_bf16, wide_fwd_bf16, banded_rel_self_attention,
+                wide_fwd, mrf_fwd_bf16, fused_mrf)
+    before = [c.launches for c in counters]
+    with pytest.raises(ValueError):
+        banded_rel_self_attention(q, q, q, m, e, e, 4)
+    q, e = torch.randn(1, 1, 16, 8, device=card, dtype=bf), torch.randn(9, 8, device=card)
+    with pytest.raises(ValueError, match="one dtype"):
+        banded_rel_self_attention(q, q, q, m, e, e, 4)
+    e = e.to(bf)
+    with pytest.raises(ValueError, match="next slice"):
+        banded_rel_self_attention(q.requires_grad_(), q, q, m, e, e, 4)
+    blocks = [ResBlock1(24, k, d).to(card) for k, d in zip(KS, DS)]
+    for dtype in (bf, torch.float16):  # 24 channels: no bf16 stage; no fp16 mode
+        with pytest.raises(ValueError):
+            prepare_mrf_weights(blocks, dtype)
+    blocks = [ResBlock1(32, k, d).to(card) for k, d in zip(KS, DS)]
+    x, mb = torch.randn(1, 32, 100, device=card, dtype=bf), m.new_ones(1, 100).to(bf)
+    with pytest.raises(ValueError, match="packed weights"):
+        fused_mrf(x, mb, prepare_mrf_weights(blocks))
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == before
+
+
+@pytest.mark.cuda
+def test_bf16_engine_card_against_cpu(card):
+    """The default V2.3 model with infer_compute_dtype "bfloat16" (random
+    weights, the zero-init couplings made random): one request at zero
+    noise through TTSEngine.run_prepared on the card and on the CPU, equal
+    frames and waves within 1e-2; the card call launches K1 12 times in
+    fp32 (enc_p) and 16 in bf16 (the flow) and K2 3 times in bf16, the CPU
+    none."""
+    import numpy as np
+
+    from bert_vits2_tpu_torch.config import ModelConfig
+    from bert_vits2_tpu_torch.infer import PreparedRequest, TTSEngine
+    from bert_vits2_tpu_torch.models import build_synthesizer
+
+    cfg = ModelConfig(infer_compute_dtype="bfloat16")
+    model = build_synthesizer(cfg, device="cpu", seed=0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".post." in name or (name.startswith("sdp.") and ".proj." in name):
+                p.copy_(0.02 * torch.randn(p.shape, generator=g))
+        model.dp.proj.bias.fill_(1.5)
+    sd = model.state_dict()
+    rng = np.random.default_rng(2)
+    t = 77
+    inputs = (rng.integers(1, cfg.n_vocab, t), rng.integers(0, cfg.num_tones, t),
+              rng.integers(0, 3, t),
+              *(0.5 * rng.normal(size=(t, 1024)).astype(np.float32) for _ in range(3)))
+    req = PreparedRequest(inputs=inputs, sid=3, noise_scale=0.0, noise_scale_w=0.0)
+    counters = (banded_rel_self_attention, banded_attention_fwd_bf16, fused_mrf,
+                mrf_fwd_bf16)
+    waves = []
+    for dev in ("cpu", card):
+        engine = TTSEngine(build_synthesizer(cfg, device=dev, state_dict=sd), device=dev)
+        assert all(p is not None and p.dtype == torch.bfloat16
+                   for p in engine.mrf_packed[2:])
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        waves.append(engine.run_prepared([req])[0])
+        torch.cuda.synchronize()
+        want = (12, 16, 0, 3) if engine.device.type == "cuda" else (0, 0, 0, 0)
+        assert tuple(c.launches for c in counters) == want
+    want_wave, wave = waves
+    assert len(wave) == len(want_wave) > 0 and np.isfinite(wave).all()
+    assert np.abs(wave - want_wave).max() <= 1e-2
 
 
 @pytest.mark.cuda

@@ -268,6 +268,21 @@ def test_spline_inverse_matches_jax():
     assert np.abs(tl.numpy() - np.asarray(jl)).max() <= ATOL
 
 
+def test_mel_weights_cached_under_inference_mode_serve_autograd():
+    """The mel filterbank is cached per device: one first made under
+    inference_mode (a wave's log-mel in synthesis) must still serve a
+    training loss that autograd tracks."""
+    from bert_vits2_tpu_torch.ops.stft import _mel_weights, mel_spectrogram
+
+    args = (64, 10, 22050, 16, 64, 0.0, None)
+    _mel_weights.cache_clear()
+    with torch.inference_mode():
+        mel_spectrogram(torch.randn(1, 256), *args)
+    y = torch.randn(1, 256, requires_grad=True)
+    mel_spectrogram(y, *args).sum().backward()
+    assert torch.isfinite(y.grad).all() and y.grad.abs().max() > 0
+
+
 def test_masks_and_path_match_jax():
     rng = np.random.default_rng(7)
     lens = np.asarray([5, 3, 1])
