@@ -69,7 +69,11 @@ class ModelConfig:
     # autocast(bf16) policy (train_ms.py:458-480 under `bf16_run`):
     # fp32 master params, bf16 activations/matmuls (no loss scaling
     # needed — bf16 keeps fp32's exponent range). MAS statistics, duration
-    # predictors, text encoder, and every loss stay fp32.
+    # predictors, text encoder, and every loss stay fp32. The vocoder
+    # slice gets the speaker embedding in bf16 and so runs in bf16 from
+    # `cond` on; the JAX package passes it in fp32, which promotes that
+    # slice back to fp32 (ROADMAP §C R.6). Any other value raises
+    # ValueError.
     train_compute_dtype: str = "float32"
 
     # SLM discriminator (config.json model.slm)
@@ -79,10 +83,10 @@ class ModelConfig:
     slm_sr: int = 16000
 
     def __post_init__(self):
-        if self.infer_compute_dtype not in COMPUTE_DTYPES:
-            raise ValueError(
-                f"infer_compute_dtype {self.infer_compute_dtype!r} is not one of "
-                f"{COMPUTE_DTYPES}")
+        for name in ("infer_compute_dtype", "train_compute_dtype"):
+            if getattr(self, name) not in COMPUTE_DTYPES:
+                raise ValueError(f"{name} {getattr(self, name)!r} is not one of "
+                                 f"{COMPUTE_DTYPES}")
 
     @property
     def hop_length(self) -> int:

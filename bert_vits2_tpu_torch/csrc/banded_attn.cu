@@ -54,10 +54,13 @@
 //   core ignores lo's low 13 bits); cvt.rna.tf32 would run on the 16-lane
 //   conversion pipe.
 //
-// bf16 mode (inference only; `banded_attn_fwd_bf16`): the TPU kernel's
-// bf16 operands (attention_pallas.py:88-146 under the JAX package's
-// infer_compute_dtype "bfloat16", the flow's 16 launches of a synthesis
-// call). q, k, v, the mask, ek, ev and out are bf16; S = Q K^T and P V run
+// bf16 mode (`banded_attn_fwd_bf16`, and its train mode
+// `banded_attn_fwd_train_bf16`): the TPU kernel's bf16 operands
+// (attention_pallas.py:88-146 under the JAX package's infer_compute_dtype
+// or train_compute_dtype "bfloat16": the flow's 16 launches of a synthesis
+// call or of a training step). q, k, v, the mask, ek, ev and out are bf16;
+// the train mode's m and l fp32, its hash dropout applied to the fp32
+// probabilities before P is rounded, as in the fp32 train mode; S = Q K^T and P V run
 // as wgmma m64nNk16 bf16 with fp32 accumulators, one MMA per k16 step where
 // 3xTF32 issues three per k8 step, at twice the TF32 rate: the bound is
 // FLOP at 989 TFLOP/s. Scores, the online softmax and the row sums stay
@@ -329,13 +332,15 @@ struct LayoutBf16 {
 
 // K1's bf16 mode: one warpgroup (4 warps, 64 query rows) per block, keys
 // in tiles of BK, as banded_attn_fwd_kernel; DK even (the head width
-// zero-padded to a multiple of 16).
-template <int DK>
+// zero-padded to a multiple of 16). TRAIN as banded_attn_fwd_kernel's.
+template <int DK, bool TRAIN>
 __global__ void __launch_bounds__(128)
 banded_attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const bf16* __restrict__ mask,
                             const bf16* __restrict__ ek, const bf16* __restrict__ ev,
-                            bf16* __restrict__ out, int h, int t, int d, int w) {
+                            bf16* __restrict__ out, float* __restrict__ m_out,
+                            float* __restrict__ l_out, int h, int t, int d, int w,
+                            bool drop, uint32_t thr, uint32_t seed, float keep_scale) {
   static_assert(DK % 2 == 0, "k16 steps of the head width");
   using L = LayoutBf16<DK>;
   constexpr int ND = 8 * DK;                   // padded head width
@@ -442,8 +447,8 @@ banded_attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
     wg_wait<0>();
     fence_operands(sc);
 
-    softmax_tile<DK, false>(sc, o, band, m_run, l_run, rw, Mk, j0, r0, t, w, g, i4, bh,
-                            false, 0u, 0u, 1.f);
+    softmax_tile<DK, TRAIN>(sc, o, band, m_run, l_run, rw, Mk, j0, r0, t, w, g, i4, bh,
+                            drop, thr, seed, keep_scale);
 
     // O += P V: P rounded to bf16 straight from the accumulator registers
     uint32_t pa[NKT / 2][4];
@@ -495,6 +500,10 @@ banded_attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
         const int col = nt * 8 + 2 * i4 + e;
         if (col < d) orow[col] = __float2bfloat16_rn(o[4 * nt + 2 * r + e] * inv);
       }
+    if (TRAIN && i4 == 0) {
+      m_out[(size_t)bh * t + i] = m_run[r];
+      l_out[(size_t)bh * t + i] = l_run[r];
+    }
   }
 }
 
@@ -537,19 +546,41 @@ int launch(const float* q, const float* k, const float* v, const float* mask,
 #undef BANDED_ATTN_LAUNCH
 }
 
-template <int DK>
+template <int DK, bool TRAIN>
 int launch_bf16_dk(const bf16* q, const bf16* k, const bf16* v, const bf16* mask,
-                   const bf16* ek, const bf16* ev, bf16* out, int b, int h, int t, int d,
-                   int w, int device, cudaStream_t stream) {
+                   const bf16* ek, const bf16* ev, bf16* out, float* m, float* l, int b,
+                   int h, int t, int d, int w, bool drop, uint32_t thr, uint32_t seed,
+                   float keep_scale, int device, cudaStream_t stream) {
   static size_t configured[MAXDEV] = {};
   const size_t bytes = LayoutBf16<DK>::bytes;
-  const cudaError_t err = allow_smem((const void*)banded_attn_fwd_bf16_kernel<DK>, bytes,
-                                     configured, device);
+  const cudaError_t err = allow_smem((const void*)banded_attn_fwd_bf16_kernel<DK, TRAIN>,
+                                     bytes, configured, device);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((t + 63) / 64, b * h);
-  banded_attn_fwd_bf16_kernel<DK><<<grid, 128, bytes, stream>>>(q, k, v, mask, ek, ev, out,
-                                                                h, t, d, w);
+  banded_attn_fwd_bf16_kernel<DK, TRAIN><<<grid, 128, bytes, stream>>>(
+      q, k, v, mask, ek, ev, out, m, l, h, t, d, w, drop, thr, seed, keep_scale);
   return (int)cudaGetLastError();
+}
+
+template <bool TRAIN>
+int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* mask,
+                const bf16* ek, const bf16* ev, bf16* out, float* m, float* l, int b,
+                int h, int t, int d, int w, bool drop, uint32_t thr, uint32_t seed,
+                float keep_scale, int device, void* stream) {
+  if (bad_attn_shape(b, h, t, d, w, device)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int steps = (d + 15) / 16;  // k16 steps
+#define BANDED_ATTN_BF16_LAUNCH(DK)                                              \
+  return launch_bf16_dk<DK, TRAIN>(q, k, v, mask, ek, ev, out, m, l, b, h, t, d,  \
+                                   w, drop, thr, seed, keep_scale, device, s)
+  if (steps <= 1) BANDED_ATTN_BF16_LAUNCH(2);
+  if (steps <= 2) BANDED_ATTN_BF16_LAUNCH(4);
+  if (steps <= 4) BANDED_ATTN_BF16_LAUNCH(8);
+  if (steps <= 6) BANDED_ATTN_BF16_LAUNCH(12);
+  BANDED_ATTN_BF16_LAUNCH(16);
+#undef BANDED_ATTN_BF16_LAUNCH
 }
 
 }  // namespace
@@ -583,14 +614,18 @@ extern "C" int banded_attn_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
                                     const bf16* mask, const bf16* ek, const bf16* ev,
                                     bf16* out, int b, int h, int t, int d, int w,
                                     int device, void* stream) {
-  if (bad_attn_shape(b, h, t, d, w, device)) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = use_device(device);
-  if (err != cudaSuccess) return (int)err;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int steps = (d + 15) / 16;  // k16 steps
-  if (steps <= 1) return launch_bf16_dk<2>(q, k, v, mask, ek, ev, out, b, h, t, d, w, device, s);
-  if (steps <= 2) return launch_bf16_dk<4>(q, k, v, mask, ek, ev, out, b, h, t, d, w, device, s);
-  if (steps <= 4) return launch_bf16_dk<8>(q, k, v, mask, ek, ev, out, b, h, t, d, w, device, s);
-  if (steps <= 6) return launch_bf16_dk<12>(q, k, v, mask, ek, ev, out, b, h, t, d, w, device, s);
-  return launch_bf16_dk<16>(q, k, v, mask, ek, ev, out, b, h, t, d, w, device, s);
+  return launch_bf16<false>(q, k, v, mask, ek, ev, out, nullptr, nullptr, b, h, t, d, w,
+                            false, 0u, 0u, 1.f, device, stream);
+}
+
+// K1's train mode on bf16 operands: q, k, v, mask, ek, ev and out bf16,
+// m, l [b, h, t] fp32; the dropout arguments as banded_attn_fwd_train's.
+extern "C" int banded_attn_fwd_train_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                          const bf16* mask, const bf16* ek,
+                                          const bf16* ev, bf16* out, float* m, float* l,
+                                          int b, int h, int t, int d, int w, int drop,
+                                          int thr, int seed, float scale, int device,
+                                          void* stream) {
+  return launch_bf16<true>(q, k, v, mask, ek, ev, out, m, l, b, h, t, d, w, drop != 0,
+                           (uint32_t)thr, (uint32_t)seed, scale, device, stream);
 }

@@ -69,6 +69,29 @@
 // block writes its partial sums, and a second kernel adds the partials in
 // block order. Partials over atomics: the same gradient on every run, and
 // no zero-fill launch.
+//
+// bf16 modes (`banded_attn_bwd_q_bf16`, `banded_attn_bwd_k_bf16`: the
+// flow's 16 launches each of a bf16 training step, train_compute_dtype
+// "bfloat16"). q, k, v, the mask, ek, ev, g and the outputs dq, dk, dv, dek,
+// dev are bf16; m, l, D, the partials and all arithmetic fp32. They round
+// where the TPU kernels do (attention_pallas.py:147-300): ds and p*ks are
+// rounded to bf16 only as operands of the t x t products (dS K, dS^T Q,
+// Pd^T G), whose sums are fp32; the band terms take the fp32 ds and p*ks
+// against the table; dq, dk, dv are rounded at the end, dek and dev after
+// the block-order reduction of fp32 partials. The tiling is the fp32
+// kernels' with one wgmma m64nNk16 bf16 product per 16 head dims (or 16
+// keys) where 3xTF32 issues three per 8: S and G V^T from shared memory,
+// dS K (B5), Pd^T G and dS^T Q (B6) with the accumulators rounded to bf16
+// as the A fragments straight from registers (the fragment of k16 step kk
+// is the accumulator's 8-column tiles 2kk and 2kk + 1, as in K1's bf16
+// mode). Operands lie in shared memory as K-major bf16 core matrices
+// (kmajor_bf16): the block's 64 rows and each tile's rows with the head
+// dims as K (16-byte stores), and each tile's K (B5) or Q and G (B6) once
+// more transposed, the tile's rows as K (2-byte stores). The tile is 32
+// rows at every d (bf16 halves the fp32 kernels' shared memory) and B6
+// takes one warpgroup. The band logits and the band products run on the
+// CUDA cores in fp32 (2w+1 columns, once per block). The bound is FLOP at
+// the bf16 tensor-core rate, 989 TFLOP/s.
 
 #include "banded_attn_hash.cuh"
 #include "banded_attn_tc.cuh"
@@ -341,18 +364,475 @@ attn_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // dek, dev [nb][d] = the sum of the blocks' partials, in block order
+// (stored as T: float, or bf16 rounded from the fp32 sum)
+template <typename T>
 __global__ void band_tables_reduce(const float* __restrict__ partials,
-                                   int n_blocks, int n, float* __restrict__ dek,
-                                   float* __restrict__ dev) {
+                                   int n_blocks, int n, T* __restrict__ dek,
+                                   T* __restrict__ dev) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= 2 * n) return;
   float sum = 0.f;
 #pragma unroll 16
   for (int blk = 0; blk < n_blocks; ++blk) sum += partials[(size_t)blk * 2 * n + idx];
   if (idx < n)
-    dek[idx] = sum;
+    dek[idx] = from_f<T>(sum);
   else
-    dev[idx - n] = sum;
+    dev[idx - n] = from_f<T>(sum);
+}
+
+// ---- bf16 modes ----
+
+constexpr int TNB = 32;  // bf16 modes: rows (B6) or keys (B5) per tile
+constexpr int NTB = TNB / 8;
+
+// Shared memory of a bf16-mode block: bf16 operands, then fp32 scratch.
+// B5: Q, G (64 rows, dims as K); K, V tiles (dims as K); K tile transposed
+// (keys as K); q.ek, g.ev of each warp's rows [2][4][16][16]; the band of
+// ds and of p*ks [2][64][12]; the tile's key mask.
+// B6: K, V (64 keys, dims as K); Q, G tiles (dims as K) and transposed
+// (rows as K); q.ek, g.ev [2][KBR][NBAND]; m, 1/l, D of the tile's rows.
+template <int DK>
+struct TilesBf16 {
+  static constexpr int ND = 8 * DK;  // padded head width
+  static constexpr int A = 64 * ND;  // bf16 elements
+  static constexpr int B = TNB * ND;
+  static constexpr size_t q_bytes = 2 * (2 * A + 3 * B) + 4 * (2 * 1024 + 2 * 64 * 12 + TNB);
+  static constexpr size_t k_bytes = 2 * (2 * A + 4 * B) + 4 * (2 * KBR * NBAND + 3 * TNB);
+};
+
+// rows [r0, r0 + 64) of a [t, d] bf16 matrix to shared memory, K-major with
+// the dims as K (one 16-byte store of 8 dims)
+template <int DK>
+__device__ __forceinline__ void stage_rows_bf16(bf16* a, const bf16* __restrict__ x, int r0,
+                                                int t, int d, bool vec, int tid) {
+#pragma unroll
+  for (int it = 0; it < DK / 2; ++it) {
+    const int idx = tid + 128 * it;
+    const int row = idx % 64, c8 = idx / 64;
+    *reinterpret_cast<uint4*>(a + kmajor_bf16<64>(row, 8 * c8)) =
+        load8(x, r0 + row, 8 * c8, t, d, vec);
+  }
+}
+
+// one tile row's 8 dims from `v` into the tile (dims as K) and, with
+// TRANS, into its transpose (the tile's rows as K)
+template <int DK, bool TRANS>
+__device__ __forceinline__ void store_tile_bf16(bf16* tile, bf16* trans, int row, int c8,
+                                                uint4 v) {
+  *reinterpret_cast<uint4*>(tile + kmajor_bf16<TNB>(row, 8 * c8)) = v;
+  if (TRANS) {
+    const uint32_t vw[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      trans[kmajor_bf16<8 * DK>(8 * c8 + e, row)] =
+          __ushort_as_bfloat16((unsigned short)(vw[e / 2] >> (16 * (e % 2))));
+  }
+}
+
+// the A fragments of k16 step kk from an accumulator of NTB 8-column tiles,
+// rounded to bf16
+__device__ __forceinline__ void acc_frags_bf16(const float (&acc)[4 * NTB],
+                                               uint32_t (&a)[NTB / 2][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NTB / 2; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[kk][e] = pack_bf16(acc[8 * kk + 2 * e], acc[8 * kk + 2 * e + 1]);
+}
+
+// d += A B^T over the head dims, bf16, both from shared memory (K-major
+// along the dims): A the block's 64 rows, B a tile's TNB rows
+template <int DK>
+__device__ __forceinline__ void wgmma_rows_dot_bf16(float (&d)[4 * NTB], const bf16* a,
+                                                    const bf16* b) {
+#pragma unroll
+  for (int ks = 0; ks < DK / 2; ++ks)
+    wgmma_bf16_ss<NTB>(d, smem_desc(a + ks * 64 * 16, 128, 256),
+                       smem_desc(b + ks * TNB * 16, 128, 256));
+}
+
+// d += acc * B, bf16: acc's fragments from registers, B a transposed tile
+// (the tile's rows as K, the head dims as N)
+template <int DK>
+__device__ __forceinline__ void wgmma_frags_times_bf16(float (&d)[4 * DK],
+                                                       const uint32_t (&a)[NTB / 2][4],
+                                                       const bf16* trans) {
+#pragma unroll
+  for (int kk = 0; kk < NTB / 2; ++kk)
+    wgmma_bf16_rs<DK>(d, a[kk], smem_desc(trans + kk * 8 * DK * 16, 128, 256));
+}
+
+// rows row[0], row[1] of out [t, d] from an accumulator, rounded to T
+template <int DK, typename T>
+__device__ __forceinline__ void store_acc_rows_t(T* out, const float (&acc)[4 * DK],
+                                                 const int (&row)[2], int t, int d, int i4) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= t) continue;
+    T* p = out + (size_t)row[r] * d;
+#pragma unroll
+    for (int nt = 0; nt < DK; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = nt * 8 + 2 * i4 + e;
+        if (col < d) p[col] = from_f<T>(acc[4 * nt + 2 * r + e]);
+      }
+  }
+}
+
+// B5 on bf16 operands: one warpgroup per (64 query rows, batch*head), key
+// tiles of TNB; DK even.
+template <int DK>
+__global__ void __launch_bounds__(128)
+attn_bwd_q_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ mask,
+                       const bf16* __restrict__ ek, const bf16* __restrict__ ev,
+                       const bf16* __restrict__ g, const float* __restrict__ m,
+                       const float* __restrict__ l, const float* __restrict__ dd,
+                       bf16* __restrict__ dq, float* __restrict__ partials, int h, int t,
+                       int d, int w, Drop drop) {
+  static_assert(DK % 2 == 0, "k16 steps of the head width");
+  using L = TilesBf16<DK>;
+  constexpr int KCH = (TNB * DK + 127) / 128;  // 8-dim chunks of a tile a thread stages
+  extern __shared__ __align__(16) float4 smem4[];
+  bf16* Qa = reinterpret_cast<bf16*>(smem4);
+  bf16* Ga = Qa + L::A;
+  bf16* Kb = Ga + L::A;
+  bf16* Vb = Kb + L::B;
+  bf16* Kt = Vb + L::B;
+  float* Rs = reinterpret_cast<float*>(Kt + L::B);  // [2][4 warps][16][16]
+  float* Bs = Rs + 2 * 1024;                        // [2][64][12]
+  float* Mk = Bs + 2 * 64 * 12;                     // [TNB]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, i4 = lane % 4;
+  const int bh = blockIdx.y;
+  const int b = bh / h;
+  const int q0 = blockIdx.x * 64;
+  const int r0 = q0 + 16 * warp;  // this warp's first row
+  const size_t base = (size_t)bh * t * d;
+  const bf16* mrow = mask + (size_t)b * t;
+  const int nb = 2 * w + 1;
+  const bool vec = d % 8 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                     reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g)) & 15) == 0;
+
+  stage_rows_bf16<DK>(Qa, q + base, q0, t, d, vec, tid);
+  stage_rows_bf16<DK>(Ga, g + base, q0, t, d, vec, tid);
+  for (int idx = tid; idx < 2 * 64 * 12; idx += 128) Bs[idx] = 0.f;
+  // band logits q_r . ek[c] and g_r . ev[c] of the warp's rows, fp32, c < 16
+  float* rk = Rs + warp * 256;
+  float* rv = Rs + 1024 + warp * 256;
+  for (int e = lane; e < 2 * 256; e += 32) {
+    const int which = e / 256, r = (e / 16) % 16, c = e % 16;
+    const bf16* row = (which ? g : q) + base + (size_t)(r0 + r) * d;
+    const bf16* tab = (which ? ev : ek) + (size_t)c * d;
+    float sum = 0.f;
+    if (c < nb && r0 + r < t)
+      for (int x = 0; x < d; ++x) sum = fmaf(to_f(row[x]), to_f(tab[x]), sum);
+    (which ? rv : rk)[e % 256] = sum;
+  }
+
+  float mi[2], linv[2], di[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = r0 + gq + 8 * r;
+    const size_t s = (size_t)bh * t + (i < t ? i : 0);
+    mi[r] = i < t ? m[s] : 0.f;
+    linv[r] = i < t ? 1.f / l[s] : 0.f;
+    di[r] = i < t ? dd[s] : 0.f;
+  }
+  float acc[4 * DK];  // dq: element 4n + e: row gq + 8(e/2), dim 8n + 2i + e%2
+#pragma unroll
+  for (int e = 0; e < 4 * DK; ++e) acc[e] = 0.f;
+
+  // K and V rows of a tile, 8 dims at a time, loaded one tile ahead
+  uint4 kpre[KCH], vpre[KCH];
+  float mpre = 0.f;
+  auto load = [&](int j0) {
+#pragma unroll
+    for (int it = 0; it < KCH; ++it) {
+      const int idx = tid + 128 * it;
+      if (idx >= TNB * DK) break;
+      const int key = idx % TNB, c8 = idx / TNB;
+      kpre[it] = load8(k + base, j0 + key, 8 * c8, t, d, vec);
+      vpre[it] = load8(v + base, j0 + key, 8 * c8, t, d, vec);
+    }
+    if (tid < TNB) mpre = j0 + tid < t ? to_f(mrow[j0 + tid]) : 0.f;
+  };
+  load(0);
+
+  for (int j0 = 0; j0 < t; j0 += TNB) {
+    __syncthreads();  // the previous tile's readers are done; Q, G, Rs, Bs visible
+#pragma unroll
+    for (int it = 0; it < KCH; ++it) {
+      const int idx = tid + 128 * it;
+      if (idx >= TNB * DK) break;
+      const int key = idx % TNB, c8 = idx / TNB;
+      store_tile_bf16<DK, true>(Kb, Kt, key, c8, kpre[it]);
+      store_tile_bf16<DK, false>(Vb, nullptr, key, c8, vpre[it]);
+    }
+    if (tid < TNB) Mk[tid] = mpre;
+    fence_async_smem();
+    __syncthreads();
+    if (j0 + TNB < t) load(j0 + TNB);  // in flight while this tile is computed
+
+    // S = Q K^T and G V^T; element 4n + e: row gq + 8(e/2), key j0 + 8n + 2i + e%2
+    float sc[4 * NTB], gv[4 * NTB];
+#pragma unroll
+    for (int e = 0; e < 4 * NTB; ++e) sc[e] = gv[e] = 0.f;
+    wg_fence();
+    wgmma_rows_dot_bf16<DK>(sc, Qa, Kb);
+    wgmma_rows_dot_bf16<DK>(gv, Ga, Vb);
+    wg_commit();
+    wg_wait<0>();
+    fence_operands(sc);
+    fence_operands(gv);
+
+    // ds = p (dp - D) in place of S (0 for a masked key or past t); the
+    // band entries of ds and p*ks (fp32) to Bs
+    const bool in_band = j0 <= r0 + 15 + w && j0 + TNB - 1 >= r0 - w;
+#pragma unroll
+    for (int e4 = 0; e4 < 4 * NTB; ++e4) {
+      const int e = e4 % 4, r = e / 2;
+      const int jj = (e4 / 4) * 8 + 2 * i4 + e % 2;
+      const int rr = gq + 8 * r;
+      const int i = r0 + rr, j = j0 + jj;
+      float ds = 0.f;
+      if (i < t && j < t) {
+        const int c = j - i + w;
+        const bool band = in_band && c >= 0 && c < nb;
+        float x = sc[e4], dpv = gv[e4];
+        if (band) {
+          x += rk[rr * 16 + c];
+          dpv += rv[rr * 16 + c];
+        }
+        const bool key = Mk[jj] != 0.f;
+        if (!key) x = NEG_FILL;
+        const float p = expf(x - mi[r]) * linv[r];
+        float pd = p;
+        if (drop.on) {
+          const float ks = hash_keep(i, j, bh, drop.seed, drop.thr) ? drop.scale : 0.f;
+          pd = p * ks;
+          dpv *= ks;
+        }
+        ds = key ? p * (dpv - di[r]) : 0.f;
+        if (band) {
+          Bs[(16 * warp + rr) * 12 + c] = ds;
+          Bs[(64 + 16 * warp + rr) * 12 + c] = pd;
+        }
+      }
+      sc[e4] = ds;
+    }
+
+    // dQ += dS K: dS rounded to bf16 straight from the accumulator registers
+    uint32_t da[NTB / 2][4];
+    acc_frags_bf16(sc, da);
+    wg_fence();
+    wgmma_frags_times_bf16<DK>(acc, da, Kt);
+    wg_commit();
+    wg_wait<0>();
+    fence_operands(acc);
+  }
+
+  // dq += band_ds . ek in fp32: the warp's own rows of Bs (it wrote them)
+  __syncwarp();
+#pragma unroll
+  for (int nt = 0; nt < DK; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = nt * 8 + 2 * i4 + e;
+      if (col >= d) continue;
+      float a0 = 0.f, a1 = 0.f;
+      for (int c = 0; c < nb; ++c) {
+        const float ekc = to_f(ek[(size_t)c * d + col]);
+        a0 = fmaf(Bs[(16 * warp + gq) * 12 + c], ekc, a0);
+        a1 = fmaf(Bs[(16 * warp + gq + 8) * 12 + c], ekc, a1);
+      }
+      acc[4 * nt + e] += a0;
+      acc[4 * nt + 2 + e] += a1;
+    }
+  const int rows[2] = {r0 + gq, r0 + gq + 8};
+  store_acc_rows_t<DK>(dq + base, acc, rows, t, d, i4);
+  __syncthreads();  // every warp's band rows in Bs
+  // this block's partial dek (which 0) and dev (which 1), [2][nb][d] =
+  // band^T [nb x 64 rows] . Q or G [64 rows x d], fp32, a thread per entry
+  float* part = partials + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 2 * nb * d;
+  for (int idx = tid; idx < 2 * nb * d; idx += 128) {
+    const int which = idx / (nb * d), c = (idx / d) % nb, col = idx % d;
+    const bf16* rows_s = which ? Ga : Qa;
+    const float* band = Bs + which * 64 * 12;
+    float sum = 0.f;
+    for (int r = 0; r < 64; ++r)
+      sum = fmaf(band[r * 12 + c], to_f(rows_s[kmajor_bf16<64>(r, col)]), sum);
+    part[idx] = sum;
+  }
+}
+
+// B6 on bf16 operands: one warpgroup per (64 keys, batch*head), query-row
+// tiles of TNB; DK even.
+template <int DK>
+__global__ void __launch_bounds__(128)
+attn_bwd_k_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ mask,
+                       const bf16* __restrict__ ek, const bf16* __restrict__ ev,
+                       const bf16* __restrict__ g, const float* __restrict__ m,
+                       const float* __restrict__ l, const float* __restrict__ dd,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv, int h, int t, int d,
+                       int w, Drop drop) {
+  static_assert(DK % 2 == 0, "k16 steps of the head width");
+  using L = TilesBf16<DK>;
+  constexpr int KCH = (TNB * DK + 127) / 128;
+  extern __shared__ __align__(16) float4 smem4[];
+  bf16* Ka = reinterpret_cast<bf16*>(smem4);
+  bf16* Va = Ka + L::A;
+  bf16* Qb = Va + L::A;
+  bf16* Gb = Qb + L::B;
+  bf16* Qt = Gb + L::B;
+  bf16* Gt = Qt + L::B;
+  float* Rk = reinterpret_cast<float*>(Gt + L::B);  // [KBR][NBAND]: q_i . ek[c]
+  float* Rv = Rk + KBR * NBAND;                     // [KBR][NBAND]: g_i . ev[c]
+  float* Ms = Rv + KBR * NBAND;                     // [TNB] row max
+  float* Li = Ms + TNB;                             // [TNB] 1 / row sum
+  float* Dr = Li + TNB;                             // [TNB] D_i
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, i4 = lane % 4;
+  const int bh = blockIdx.y;
+  const int b = bh / h;
+  const int k0 = blockIdx.x * 64;
+  const size_t base = (size_t)bh * t * d;
+  const size_t sbase = (size_t)bh * t;
+  const int nb = 2 * w + 1;
+  const int r0 = k0 - w;  // the first query row whose band reaches key k0
+  const bool vec = d % 8 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                     reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g)) & 15) == 0;
+
+  stage_rows_bf16<DK>(Ka, k + base, k0, t, d, vec, tid);
+  stage_rows_bf16<DK>(Va, v + base, k0, t, d, vec, tid);
+  // q_i . ek[c] and g_i . ev[c] of the KBR rows around the block's keys,
+  // fp32, a thread per (table, row, column)
+  for (int task = tid; task < 2 * KBR * nb; task += 128) {
+    const int which = task / (KBR * nb), rr = (task / nb) % KBR, c = task % nb;
+    const int i = r0 + rr;
+    float sum = 0.f;
+    if (i >= 0 && i < t) {
+      const bf16* row = (which ? g : q) + base + (size_t)i * d;
+      const bf16* tab = (which ? ev : ek) + (size_t)c * d;
+      for (int x = 0; x < d; ++x) sum = fmaf(to_f(row[x]), to_f(tab[x]), sum);
+    }
+    (which ? Rv : Rk)[rr * NBAND + c] = sum;
+  }
+
+  int jr[2];  // this lane's two keys
+  bool key[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    jr[r] = k0 + 16 * warp + gq + 8 * r;
+    key[r] = jr[r] < t && to_f(mask[(size_t)b * t + jr[r]]) != 0.f;
+  }
+  float adk[4 * DK], adv[4 * DK];  // element 4n + e: key gq + 8(e/2), dim 8n + 2i + e%2
+#pragma unroll
+  for (int e = 0; e < 4 * DK; ++e) adk[e] = adv[e] = 0.f;
+
+  // Q and G rows of a tile and their statistics, loaded one tile ahead
+  uint4 qpre[KCH], gpre[KCH];
+  float mpre = 0.f, lpre = 0.f, dpre = 0.f;
+  auto load = [&](int i0) {
+#pragma unroll
+    for (int it = 0; it < KCH; ++it) {
+      const int idx = tid + 128 * it;
+      if (idx >= TNB * DK) break;
+      const int row = idx % TNB, c8 = idx / TNB;
+      qpre[it] = load8(q + base, i0 + row, 8 * c8, t, d, vec);
+      gpre[it] = load8(g + base, i0 + row, 8 * c8, t, d, vec);
+    }
+    if (tid < TNB) {
+      const int i = i0 + tid;
+      const bool in = i < t;
+      mpre = in ? m[sbase + i] : 0.f;
+      lpre = in ? 1.f / l[sbase + i] : 0.f;  // rows past t: p = 0
+      dpre = in ? dd[sbase + i] : 0.f;
+    }
+  };
+  load(0);
+
+  for (int i0 = 0; i0 < t; i0 += TNB) {
+    __syncthreads();  // the previous tile's readers are done; K, V, Rk, Rv visible
+#pragma unroll
+    for (int it = 0; it < KCH; ++it) {
+      const int idx = tid + 128 * it;
+      if (idx >= TNB * DK) break;
+      const int row = idx % TNB, c8 = idx / TNB;
+      store_tile_bf16<DK, true>(Qb, Qt, row, c8, qpre[it]);
+      store_tile_bf16<DK, true>(Gb, Gt, row, c8, gpre[it]);
+    }
+    if (tid < TNB) {
+      Ms[tid] = mpre;
+      Li[tid] = lpre;
+      Dr[tid] = dpre;
+    }
+    fence_async_smem();
+    __syncthreads();
+    if (i0 + TNB < t) load(i0 + TNB);  // in flight while this tile is computed
+
+    // S^T = K Q^T and (G V^T)^T = V G^T; element 4n + e: key gq + 8(e/2),
+    // row i0 + 8n + 2i + e%2
+    float sc[4 * NTB], gv[4 * NTB];
+#pragma unroll
+    for (int e = 0; e < 4 * NTB; ++e) sc[e] = gv[e] = 0.f;
+    wg_fence();
+    wgmma_rows_dot_bf16<DK>(sc, Ka, Qb);
+    wgmma_rows_dot_bf16<DK>(gv, Va, Gb);
+    wg_commit();
+    wg_wait<0>();
+    fence_operands(sc);
+    fence_operands(gv);
+
+    // p*ks in place of S^T and ds = p (dp - D) in place of V G^T (0 for a
+    // masked key, past t, or a row past t)
+    const bool in_band = i0 <= k0 + 63 + w && i0 + TNB - 1 >= k0 - w;
+#pragma unroll
+    for (int e4 = 0; e4 < 4 * NTB; ++e4) {
+      const int e = e4 % 4, r = e / 2;
+      const int ii = (e4 / 4) * 8 + 2 * i4 + e % 2;
+      const int i = i0 + ii, j = jr[r];
+      const int c = j - i + w;
+      const bool band = in_band && c >= 0 && c < nb;
+      float x = sc[e4], dpv = gv[e4];
+      if (band) {
+        x += Rk[(i - r0) * NBAND + c];
+        dpv += Rv[(i - r0) * NBAND + c];
+      }
+      if (!key[r]) x = NEG_FILL;
+      const float p = i < t && j < t ? expf(x - Ms[ii]) * Li[ii] : 0.f;
+      float pd = p;
+      if (drop.on) {
+        const float ks = hash_keep(i, j, bh, drop.seed, drop.thr) ? drop.scale : 0.f;
+        pd = p * ks;
+        dpv *= ks;
+      }
+      sc[e4] = pd;
+      gv[e4] = key[r] ? p * (dpv - Dr[ii]) : 0.f;
+    }
+
+    // dV += Pd^T G and dK += dS^T Q: Pd^T and dS^T rounded to bf16 from
+    // the registers
+    uint32_t pa[NTB / 2][4], da[NTB / 2][4];
+    acc_frags_bf16(sc, pa);
+    acc_frags_bf16(gv, da);
+    wg_fence();
+    wgmma_frags_times_bf16<DK>(adv, pa, Gt);
+    wgmma_frags_times_bf16<DK>(adk, da, Qt);
+    wg_commit();
+    wg_wait<0>();
+    fence_operands(adv);
+    fence_operands(adk);
+  }
+  store_acc_rows_t<DK>(dk + base, adk, jr, t, d, i4);
+  store_acc_rows_t<DK>(dv + base, adv, jr, t, d, i4);
 }
 
 template <int DK, int TN, int WGS>
@@ -623,7 +1103,7 @@ int launch_q(const Args& a, float* dq, float* partials, float* dek, float* dev,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n = (2 * a.w + 1) * a.d;
-  band_tables_reduce<<<(2 * n + 255) / 256, 256, 0, a.stream>>>(
+  band_tables_reduce<float><<<(2 * n + 255) / 256, 256, 0, a.stream>>>(
       partials, grid.x * grid.y, n, dek, dev);
   return (int)cudaGetLastError();
 }
@@ -639,6 +1119,49 @@ int launch_k(const Args& a, float* dk, float* dv, int device) {
   attn_bwd_k_kernel<DK, TN, WGS><<<grid, 128 * WGS, bytes, a.stream>>>(
       a.q, a.k, a.v, a.mask, a.ek, a.ev, a.g, a.m, a.l, a.dd, dk, dv, a.h, a.t,
       a.d, a.w, a.drop);
+  return (int)cudaGetLastError();
+}
+
+// bf16 modes: the same arguments, bf16 operands and outputs
+struct ArgsBf16 {
+  const bf16 *q, *k, *v, *mask, *ek, *ev, *g;
+  const float *m, *l, *dd;
+  int b, h, t, d, w;
+  Drop drop;
+  cudaStream_t stream;
+};
+
+template <int DK>
+int launch_q_bf16(const ArgsBf16& a, bf16* dq, float* partials, bf16* dek, bf16* dev,
+                  int device) {
+  static size_t configured[MAXDEV] = {};
+  const size_t bytes = TilesBf16<DK>::q_bytes;
+  cudaError_t err = allow_smem((const void*)attn_bwd_q_bf16_kernel<DK>, bytes, configured,
+                               device);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.t + 63) / 64, a.b * a.h);
+  attn_bwd_q_bf16_kernel<DK><<<grid, 128, bytes, a.stream>>>(
+      a.q, a.k, a.v, a.mask, a.ek, a.ev, a.g, a.m, a.l, a.dd, dq, partials, a.h, a.t, a.d,
+      a.w, a.drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int n = (2 * a.w + 1) * a.d;
+  band_tables_reduce<bf16><<<(2 * n + 255) / 256, 256, 0, a.stream>>>(
+      partials, grid.x * grid.y, n, dek, dev);
+  return (int)cudaGetLastError();
+}
+
+template <int DK>
+int launch_k_bf16(const ArgsBf16& a, bf16* dk, bf16* dv, int device) {
+  static size_t configured[MAXDEV] = {};
+  const size_t bytes = TilesBf16<DK>::k_bytes;
+  const cudaError_t err = allow_smem((const void*)attn_bwd_k_bf16_kernel<DK>, bytes,
+                                     configured, device);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.t + 63) / 64, a.b * a.h);
+  attn_bwd_k_bf16_kernel<DK><<<grid, 128, bytes, a.stream>>>(
+      a.q, a.k, a.v, a.mask, a.ek, a.ev, a.g, a.m, a.l, a.dd, dk, dv, a.h, a.t, a.d, a.w,
+      a.drop);
   return (int)cudaGetLastError();
 }
 
@@ -709,4 +1232,52 @@ extern "C" int banded_attn_bwd_k(const float* q, const float* k, const float* v,
 #define B6_CALL(DK, TN, WGS) launch_k<DK, TN, WGS>(a, dk, dv, device)
   BANDED_ATTN_BWD_DISPATCH(B6_CALL);
 #undef B6_CALL
+}
+
+// the bf16 modes' instantiation by k16 steps of d
+#define BANDED_ATTN_BWD_BF16_DISPATCH(CALL) \
+  const int steps = (d + 15) / 16;          \
+  if (steps <= 1) return CALL(2);           \
+  if (steps <= 2) return CALL(4);           \
+  if (steps <= 4) return CALL(8);           \
+  if (steps <= 6) return CALL(12);          \
+  return CALL(16)
+
+// B5 on bf16 operands, then the reduction of its fp32 partials into bf16
+// dek, dev: q, k, v, mask, ek, ev, g, dq, dek, dev bf16; m, l, D, partials
+// fp32.
+extern "C" int banded_attn_bwd_q_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                      const bf16* mask, const bf16* ek, const bf16* ev,
+                                      const bf16* g, const float* m, const float* l,
+                                      const float* dd, bf16* dq, float* partials,
+                                      bf16* dek, bf16* dev, int b, int h, int t, int d,
+                                      int w, int drop, int thr, int seed, float scale,
+                                      int device, void* stream) {
+  if (bad_attn_shape(b, h, t, d, w, device)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  const ArgsBf16 a{q, k, v, mask, ek, ev, g, m, l, dd, b, h, t, d, w,
+                   Drop{drop != 0, (uint32_t)thr, (uint32_t)seed, scale},
+                   (cudaStream_t)stream};
+#define B5_BF16_CALL(DK) launch_q_bf16<DK>(a, dq, partials, dek, dev, device)
+  BANDED_ATTN_BWD_BF16_DISPATCH(B5_BF16_CALL);
+#undef B5_BF16_CALL
+}
+
+// B6 on bf16 operands: dk, dv [b,h,t,d] bf16.
+extern "C" int banded_attn_bwd_k_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                      const bf16* mask, const bf16* ek, const bf16* ev,
+                                      const bf16* g, const float* m, const float* l,
+                                      const float* dd, bf16* dk, bf16* dv, int b, int h,
+                                      int t, int d, int w, int drop, int thr, int seed,
+                                      float scale, int device, void* stream) {
+  if (bad_attn_shape(b, h, t, d, w, device)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  const ArgsBf16 a{q, k, v, mask, ek, ev, g, m, l, dd, b, h, t, d, w,
+                   Drop{drop != 0, (uint32_t)thr, (uint32_t)seed, scale},
+                   (cudaStream_t)stream};
+#define B6_BF16_CALL(DK) launch_k_bf16<DK>(a, dk, dv, device)
+  BANDED_ATTN_BWD_BF16_DISPATCH(B6_BF16_CALL);
+#undef B6_BF16_CALL
 }

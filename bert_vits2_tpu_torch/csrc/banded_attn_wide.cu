@@ -12,12 +12,14 @@
 // -1e4 fill and the position-hash dropout are those of banded_attn.cu and
 // banded_attn_bwd.cu (see their notes).
 //
-// The inference forward also takes bf16 q, k, v, mask, ek, ev and out
-// (`banded_attn_wide_fwd_bf16`, K1's bf16 mode outside its range): the
-// loads convert to fp32, the arithmetic is the fp32 kernel's, P is rounded
-// to bf16 where it multiplies v (the band term takes the fp32 P), and the
-// output is rounded to bf16, the TPU kernel's rounding points. The train
-// mode and the backward kernels take fp32 only.
+// Each also takes bf16 operands (`*_bf16`: K1's, B5's and B6's bf16 modes
+// outside their range): q, k, v, mask, ek, ev, g and the outputs bf16, the
+// row statistics m, l, D and the band scratch fp32. The loads convert to
+// fp32 and the arithmetic is the fp32 kernels'; the values that multiply a
+// t-long row are rounded to bf16 where the TPU kernels round them (P where
+// it multiplies v; ds where it multiplies k and q; p*ks where it
+// multiplies g), the band terms take the fp32 values, and the outputs are
+// rounded to bf16 (dek and dev from their fp32 sums).
 //
 // What bounds them: nothing the main path measures. The V2.3 widths (d =
 // 96, w = 4) never reach them, so they are written to be exact and simple,
@@ -68,11 +70,11 @@ __device__ __forceinline__ float keep_scale(const Drop& dr, int i, int j, int bh
                                                                            : 0.f;
 }
 
-// a . b over n values by one warp (b float or bf16); every lane gets the sum
-template <typename T>
-__device__ __forceinline__ float warp_dot(const float* a, const T* b, int n, int lane) {
+// a . b over n values by one warp (each float or bf16); every lane gets the sum
+template <typename A, typename B>
+__device__ __forceinline__ float warp_dot(const A* a, const B* b, int n, int lane) {
   float s = 0.f;
-  for (int x = lane; x < n; x += 32) s = fmaf(a[x], to_f(b[x]), s);
+  for (int x = lane; x < n; x += 32) s = fmaf(to_f(a[x]), to_f(b[x]), s);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULLMASK, s, o);
   return s;
@@ -97,7 +99,7 @@ __device__ __forceinline__ float block_reduce(float x, float* red) {
 }
 
 // grid (t, min(b*h, 65535)); shared memory: 2d + 2(2w+1) + TILE + WARPS
-// floats; T: the operands' type (float, or bf16 when not TRAIN)
+// floats; T: the operands' type (float or bf16)
 template <bool TRAIN, typename T>
 __global__ void __launch_bounds__(THREADS)
 wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -180,13 +182,14 @@ wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // B5: dq and each row's band entries of ds and p*ks (for dek, dev).
 // grid (t, min(b*h, 65535)); shared memory: 3d + 4(2w+1) + TILE floats
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-wide_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ mask,
-                  const float* __restrict__ ek, const float* __restrict__ ev,
-                  const float* __restrict__ g, const float* __restrict__ m,
+wide_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ mask,
+                  const T* __restrict__ ek, const T* __restrict__ ev,
+                  const T* __restrict__ g, const float* __restrict__ m,
                   const float* __restrict__ l, const float* __restrict__ D,
-                  float* __restrict__ dq, float* __restrict__ band_ds,
+                  T* __restrict__ dq, float* __restrict__ band_ds,
                   float* __restrict__ band_pd, int bhs, int h, int t, int d, int w,
                   Drop dr) {
   extern __shared__ float sm[];
@@ -202,12 +205,12 @@ wide_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int i = blockIdx.x, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   for (int bh = blockIdx.y; bh < bhs; bh += gridDim.y) {
     const size_t base = (size_t)bh * t * d, row = (size_t)bh * t + i;
-    const float* kb = k + base;
-    const float* vb = v + base;
-    const float* mrow = mask + (size_t)(bh / h) * t;
+    const T* kb = k + base;
+    const T* vb = v + base;
+    const T* mrow = mask + (size_t)(bh / h) * t;
     for (int x = tid; x < d; x += THREADS) {
-      qs[x] = q[base + (size_t)i * d + x];
-      gs[x] = g[base + (size_t)i * d + x];
+      qs[x] = to_f(q[base + (size_t)i * d + x]);
+      gs[x] = to_f(g[base + (size_t)i * d + x]);
       acc[x] = 0.f;
     }
     for (int c = tid; c < nb; c += THREADS) bds[c] = bpd[c] = 0.f;
@@ -229,7 +232,7 @@ wide_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const int c = j - i + w;
           const bool band = c >= 0 && c < nb;
           if (band) s += bl[c], gv += gl[c];
-          const bool masked = mrow[j] == 0.f;
+          const bool masked = to_f(mrow[j]) == 0.f;
           const float p = expf((masked ? NEG_FILL : s) - mi) / li;
           const float ks = keep_scale(dr, i, j, bh);
           const float dsv = masked ? 0.f : p * (gv * ks - Di);
@@ -240,15 +243,17 @@ wide_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
       for (int x = tid; x < d; x += THREADS) {
         float a = acc[x];
-        for (int jj = 0; jj < n; ++jj) a = fmaf(ds[jj], kb[(size_t)(j0 + jj) * d + x], a);
+        // ds as the operand type holds it where it multiplies k
+        for (int jj = 0; jj < n; ++jj)
+          a = fmaf(rnd<T>(ds[jj]), to_f(kb[(size_t)(j0 + jj) * d + x]), a);
         acc[x] = a;
       }
       __syncthreads();
     }
     for (int x = tid; x < d; x += THREADS) {
       float a = acc[x];
-      for (int c = 0; c < nb; ++c) a = fmaf(bds[c], ek[(size_t)c * d + x], a);
-      dq[base + (size_t)i * d + x] = a;
+      for (int c = 0; c < nb; ++c) a = fmaf(bds[c], to_f(ek[(size_t)c * d + x]), a);
+      dq[base + (size_t)i * d + x] = from_f<T>(a);
     }
     for (int c = tid; c < nb; c += THREADS) {
       band_ds[row * nb + c] = bds[c];
@@ -259,35 +264,38 @@ wide_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // dek[c] = sum_r band_ds[r][c] q_r, dev[c] = sum_r band_pd[r][c] g_r over the
-// rows r of every batch*head, in row order. grid (ceil(d / 128), 2w+1, 2)
+// rows r of every batch*head, in row order (fp32 sums, stored as T). grid
+// (ceil(d / 128), 2w+1, 2)
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-wide_tables_kernel(const float* __restrict__ q, const float* __restrict__ g,
+wide_tables_kernel(const T* __restrict__ q, const T* __restrict__ g,
                    const float* __restrict__ band_ds, const float* __restrict__ band_pd,
-                   float* __restrict__ dek, float* __restrict__ dev, size_t rows, int d,
+                   T* __restrict__ dek, T* __restrict__ dev, size_t rows, int d,
                    int nb) {
   const int x = blockIdx.x * THREADS + threadIdx.x, c = blockIdx.y;
   if (x >= d) return;
-  const float* src = blockIdx.z ? g : q;
+  const T* src = blockIdx.z ? g : q;
   const float* band = blockIdx.z ? band_pd : band_ds;
   float a[4] = {0.f, 0.f, 0.f, 0.f};  // four chains, added in a fixed order
   size_t r = 0;
   for (; r + 4 <= rows; r += 4)
 #pragma unroll
     for (int u = 0; u < 4; ++u)
-      a[u] = fmaf(band[(r + u) * nb + c], src[(r + u) * d + x], a[u]);
-  for (; r < rows; ++r) a[0] = fmaf(band[r * nb + c], src[r * d + x], a[0]);
-  (blockIdx.z ? dev : dek)[(size_t)c * d + x] = (a[0] + a[1]) + (a[2] + a[3]);
+      a[u] = fmaf(band[(r + u) * nb + c], to_f(src[(r + u) * d + x]), a[u]);
+  for (; r < rows; ++r) a[0] = fmaf(band[r * nb + c], to_f(src[r * d + x]), a[0]);
+  (blockIdx.z ? dev : dek)[(size_t)c * d + x] = from_f<T>((a[0] + a[1]) + (a[2] + a[3]));
 }
 
 // B6: dk, dv of one key. grid (t, min(b*h, 65535)); shared memory:
 // 4d + 2 TILE floats
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-wide_bwd_k_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ mask,
-                  const float* __restrict__ ek, const float* __restrict__ ev,
-                  const float* __restrict__ g, const float* __restrict__ m,
+wide_bwd_k_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ mask,
+                  const T* __restrict__ ek, const T* __restrict__ ev,
+                  const T* __restrict__ g, const float* __restrict__ m,
                   const float* __restrict__ l, const float* __restrict__ D,
-                  float* __restrict__ dk, float* __restrict__ dv, int bhs, int h,
+                  T* __restrict__ dk, T* __restrict__ dv, int bhs, int h,
                   int t, int d, int w, Drop dr) {
   extern __shared__ float sm[];
   const int nb = 2 * w + 1;
@@ -300,12 +308,12 @@ wide_bwd_k_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int j = blockIdx.x, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   for (int bh = blockIdx.y; bh < bhs; bh += gridDim.y) {
     const size_t base = (size_t)bh * t * d, rows = (size_t)bh * t;
-    const float* qb = q + base;
-    const float* gb = g + base;
-    const bool masked = mask[(size_t)(bh / h) * t + j] == 0.f;
+    const T* qb = q + base;
+    const T* gb = g + base;
+    const bool masked = to_f(mask[(size_t)(bh / h) * t + j]) == 0.f;
     for (int x = tid; x < d; x += THREADS) {
-      ks_[x] = k[base + (size_t)j * d + x];
-      vs[x] = v[base + (size_t)j * d + x];
+      ks_[x] = to_f(k[base + (size_t)j * d + x]);
+      vs[x] = to_f(v[base + (size_t)j * d + x]);
       adk[x] = adv[x] = 0.f;
     }
     __syncthreads();
@@ -313,8 +321,8 @@ wide_bwd_k_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int n = min(TILE, t - i0);
       for (int ii = warp; ii < n; ii += WARPS) {
         const int i = i0 + ii;
-        const float* qi = qb + (size_t)i * d;
-        const float* gi = gb + (size_t)i * d;
+        const T* qi = qb + (size_t)i * d;
+        const T* gi = gb + (size_t)i * d;
         float s = warp_dot(qi, ks_, d, lane);
         float gv = warp_dot(gi, vs, d, lane);
         const int c = j - i + w;
@@ -332,17 +340,19 @@ wide_bwd_k_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
       for (int x = tid; x < d; x += THREADS) {
         float a = adk[x], b = adv[x];
+        // ds and p*ks as the operand type holds them where they multiply
+        // q and g
         for (int ii = 0; ii < n; ++ii) {
-          a = fmaf(ds[ii], qb[(size_t)(i0 + ii) * d + x], a);
-          b = fmaf(pd[ii], gb[(size_t)(i0 + ii) * d + x], b);
+          a = fmaf(rnd<T>(ds[ii]), to_f(qb[(size_t)(i0 + ii) * d + x]), a);
+          b = fmaf(rnd<T>(pd[ii]), to_f(gb[(size_t)(i0 + ii) * d + x]), b);
         }
         adk[x] = a, adv[x] = b;
       }
       __syncthreads();
     }
     for (int x = tid; x < d; x += THREADS) {
-      dk[base + (size_t)j * d + x] = adk[x];
-      dv[base + (size_t)j * d + x] = adv[x];
+      dk[base + (size_t)j * d + x] = from_f<T>(adk[x]);
+      dv[base + (size_t)j * d + x] = from_f<T>(adv[x]);
     }
     __syncthreads();
   }
@@ -372,6 +382,46 @@ int launch_fwd(const T* q, const T* k, const T* v, const T* mask, const T* ek,
   if (err != cudaSuccess) return (int)err;
   wide_fwd_kernel<TRAIN, T><<<row_grid(b, h, t), THREADS, bytes, (cudaStream_t)stream>>>(
       q, k, v, mask, ek, ev, out, m, l, b * h, h, t, d, w, dr);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_q(const T* q, const T* k, const T* v, const T* mask, const T* ek,
+                 const T* ev, const T* g, const float* m, const float* l, const float* D,
+                 T* dq, float* band_ds, float* band_pd, T* dek, T* dev, int b, int h,
+                 int t, int d, int w, Drop dr, int device, void* stream) {
+  if (bad_wide_shape(b, h, t, d, w, device)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  static size_t configured[MAXDEV] = {};
+  const int nb = 2 * w + 1;
+  const size_t bytes = sizeof(float) * (3 * d + 4 * nb + TILE);
+  err = allow_smem((const void*)wide_bwd_q_kernel<T>, bytes, configured, device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  wide_bwd_q_kernel<T><<<row_grid(b, h, t), THREADS, bytes, s>>>(
+      q, k, v, mask, ek, ev, g, m, l, D, dq, band_ds, band_pd, b * h, h, t, d, w, dr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  wide_tables_kernel<T><<<dim3((d + THREADS - 1) / THREADS, nb, 2), THREADS, 0, s>>>(
+      q, g, band_ds, band_pd, dek, dev, (size_t)b * h * t, d, nb);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_k(const T* q, const T* k, const T* v, const T* mask, const T* ek,
+                 const T* ev, const T* g, const float* m, const float* l, const float* D,
+                 T* dk, T* dv, int b, int h, int t, int d, int w, Drop dr, int device,
+                 void* stream) {
+  if (bad_wide_shape(b, h, t, d, w, device)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  static size_t configured[MAXDEV] = {};
+  const size_t bytes = sizeof(float) * (4 * d + 2 * TILE);
+  err = allow_smem((const void*)wide_bwd_k_kernel<T>, bytes, configured, device);
+  if (err != cudaSuccess) return (int)err;
+  wide_bwd_k_kernel<T><<<row_grid(b, h, t), THREADS, bytes, (cudaStream_t)stream>>>(
+      q, k, v, mask, ek, ev, g, m, l, D, dk, dv, b * h, h, t, d, w, dr);
   return (int)cudaGetLastError();
 }
 
@@ -406,6 +456,17 @@ extern "C" int banded_attn_wide_fwd_train(const float* q, const float* k,
                           drop_of(drop, thr, seed, scale), device, stream);
 }
 
+// Train mode on bf16 operands: out bf16, m, l fp32.
+extern "C" int banded_attn_wide_fwd_train_bf16(const bf16* q, const bf16* k,
+                                               const bf16* v, const bf16* mask,
+                                               const bf16* ek, const bf16* ev, bf16* out,
+                                               float* m, float* l, int b, int h, int t,
+                                               int d, int w, int drop, int thr, int seed,
+                                               float scale, int device, void* stream) {
+  return launch_fwd<true>(q, k, v, mask, ek, ev, out, m, l, b, h, t, d, w,
+                          drop_of(drop, thr, seed, scale), device, stream);
+}
+
 // B5: dq [b, h, t, d] and dek, dev [2w+1, d]; band_ds, band_pd: scratch
 // [b*h*t, 2w+1] each.
 extern "C" int banded_attn_wide_bwd_q(const float* q, const float* k, const float* v,
@@ -416,23 +477,22 @@ extern "C" int banded_attn_wide_bwd_q(const float* q, const float* k, const floa
                                       float* dev, int b, int h, int t, int d, int w,
                                       int drop, int thr, int seed, float scale,
                                       int device, void* stream) {
-  if (bad_wide_shape(b, h, t, d, w, device)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = use_device(device);
-  if (err != cudaSuccess) return (int)err;
-  static size_t configured[MAXDEV] = {};
-  const int nb = 2 * w + 1;
-  const size_t bytes = sizeof(float) * (3 * d + 4 * nb + TILE);
-  err = allow_smem((const void*)wide_bwd_q_kernel, bytes, configured, device);
-  if (err != cudaSuccess) return (int)err;
-  const cudaStream_t s = (cudaStream_t)stream;
-  wide_bwd_q_kernel<<<row_grid(b, h, t), THREADS, bytes, s>>>(
-      q, k, v, mask, ek, ev, g, m, l, D, dq, band_ds, band_pd, b * h, h, t, d, w,
-      drop_of(drop, thr, seed, scale));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  wide_tables_kernel<<<dim3((d + THREADS - 1) / THREADS, nb, 2), THREADS, 0, s>>>(
-      q, g, band_ds, band_pd, dek, dev, (size_t)b * h * t, d, nb);
-  return (int)cudaGetLastError();
+  return launch_bwd_q(q, k, v, mask, ek, ev, g, m, l, D, dq, band_ds, band_pd, dek, dev,
+                      b, h, t, d, w, drop_of(drop, thr, seed, scale), device, stream);
+}
+
+// B5 on bf16 operands: q, k, v, mask, ek, ev, g, dq, dek, dev bf16; m, l, D
+// and the scratch fp32.
+extern "C" int banded_attn_wide_bwd_q_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                           const bf16* mask, const bf16* ek,
+                                           const bf16* ev, const bf16* g, const float* m,
+                                           const float* l, const float* D, bf16* dq,
+                                           float* band_ds, float* band_pd, bf16* dek,
+                                           bf16* dev, int b, int h, int t, int d, int w,
+                                           int drop, int thr, int seed, float scale,
+                                           int device, void* stream) {
+  return launch_bwd_q(q, k, v, mask, ek, ev, g, m, l, D, dq, band_ds, band_pd, dek, dev,
+                      b, h, t, d, w, drop_of(drop, thr, seed, scale), device, stream);
 }
 
 // B6: dk, dv [b, h, t, d].
@@ -443,15 +503,18 @@ extern "C" int banded_attn_wide_bwd_k(const float* q, const float* k, const floa
                                       float* dv, int b, int h, int t, int d, int w,
                                       int drop, int thr, int seed, float scale,
                                       int device, void* stream) {
-  if (bad_wide_shape(b, h, t, d, w, device)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = use_device(device);
-  if (err != cudaSuccess) return (int)err;
-  static size_t configured[MAXDEV] = {};
-  const size_t bytes = sizeof(float) * (4 * d + 2 * TILE);
-  err = allow_smem((const void*)wide_bwd_k_kernel, bytes, configured, device);
-  if (err != cudaSuccess) return (int)err;
-  wide_bwd_k_kernel<<<row_grid(b, h, t), THREADS, bytes, (cudaStream_t)stream>>>(
-      q, k, v, mask, ek, ev, g, m, l, D, dk, dv, b * h, h, t, d, w,
-      drop_of(drop, thr, seed, scale));
-  return (int)cudaGetLastError();
+  return launch_bwd_k(q, k, v, mask, ek, ev, g, m, l, D, dk, dv, b, h, t, d, w,
+                      drop_of(drop, thr, seed, scale), device, stream);
+}
+
+// B6 on bf16 operands: dk, dv bf16.
+extern "C" int banded_attn_wide_bwd_k_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                           const bf16* mask, const bf16* ek,
+                                           const bf16* ev, const bf16* g, const float* m,
+                                           const float* l, const float* D, bf16* dk,
+                                           bf16* dv, int b, int h, int t, int d, int w,
+                                           int drop, int thr, int seed, float scale,
+                                           int device, void* stream) {
+  return launch_bwd_k(q, k, v, mask, ek, ev, g, m, l, D, dk, dv, b, h, t, d, w,
+                      drop_of(drop, thr, seed, scale), device, stream);
 }

@@ -28,7 +28,9 @@ class _CouplingBlock(nn.Module):
             self.flows.append(Flip())
 
     def forward(self, x, x_mask, g=None, reverse=False):
-        """x: [b, c, t]; x_mask: [b, 1, t]; g: [b, gin]."""
+        """x: [b, c, t]; x_mask: [b, 1, t]; g: [b, gin]. Computes in x's
+        dtype (the mask is cast to it)."""
+        x_mask = x_mask.to(x.dtype)
         if reverse:
             for f in reversed(self.flows):
                 x = f(x, x_mask, g=g, reverse=True)

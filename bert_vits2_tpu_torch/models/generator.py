@@ -15,9 +15,10 @@ an entry run through the kernel K2 (`ops.mrf.fused_mrf`, inference only);
 the other stages, and every stage when `mrf_packed` is None (always so in
 training), run the ResBlock modules, which are differentiable.
 
-The forward runs in the dtype of its input and parameters: float32, or
-bfloat16 on the bf16 inference copy (`models/synthesizer.py:cast_copy`),
-where the frame mask is cast to the activation dtype up front (JAX
+The forward runs in the dtype of its input: float32, or bfloat16 in
+training under `train_compute_dtype` (the convs cast their float32
+parameters, `nn/conv.py`; the caller passes g in bf16) and on the bf16
+inference copy (`models/synthesizer.py:cast_copy`), where the frame mask is cast to the activation dtype up front (JAX
 generator.py:183), the upsample convs, the C >= 128 ResBlocks and
 `conv_post` compute in bf16, and K2 takes the stages packed by
 `pack_mrf(torch.bfloat16)` (from the float32 module: weights resolved in

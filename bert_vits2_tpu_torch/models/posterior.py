@@ -2,7 +2,9 @@
 
 Counterpart of `bert_vits2_tpu/models/posterior.py`: a 1x1 conv over the
 linear-spectrogram channels, a 16-layer WN, and (m_q, logs_q); z is sampled
-by reparameterization from an explicit generator.
+by reparameterization from an explicit generator. It computes in y's dtype:
+under the bf16 training policy y and g come in bf16, the mask is cast to
+bf16 and the noise is drawn in bf16 (JAX posterior.py:28, 42).
 """
 
 from __future__ import annotations

@@ -116,11 +116,6 @@ class Synthesizer(nn.Module):
                 "the vits1 flow (use_transformer_flow false) takes only "
                 f"n_flow_layer 4, not {cfg.n_flow_layer}: its reading of "
                 "n_flow_layer is unconfirmed (ROADMAP §C R.4)")
-        if cfg.train_compute_dtype != "float32":
-            raise NotImplementedError(
-                "only float32 training: the bf16 policy of train_compute_dtype "
-                "(and K1-train, B5 and B6 in bf16) is the next slice of the "
-                "port, ROADMAP §A.7; infer_compute_dtype takes bfloat16")
         self.cfg = cfg
         c = cfg
         gin = (c.gin_channels
@@ -197,14 +192,28 @@ class Synthesizer(nn.Module):
         (`TextEncoder.emotion_embedding`). Returns the JAX package's
         dictionary of outputs, in the layout [b, c, t] (attn [b, t_y, t_x],
         masks [b, 1, t], l_length [b], wave_slice [b, segment_samples],
-        ids_slice [b])."""
+        ids_slice [b]).
+
+        Under `train_compute_dtype` "bfloat16" (JAX synthesizer.py:143-230)
+        the posterior encoder gets y and g in bf16, the flow and the
+        decoder slice run in bf16 on the float32 parameters (`nn/conv.py`),
+        and z stays bf16; z_p, y_mask, m_q, logs_q and wave_slice come
+        back float32, and enc_p, MAS, both duration predictors and every
+        loss input stay float32. The decoder gets g in bf16 too: the JAX
+        package passes it the float32 g, which promotes its activations to
+        float32 after `cond` (ROADMAP §C R.6); the port runs the whole
+        vocoder slice in bf16, as the reference's autocast and the JAX
+        package's stated policy do."""
+        cdt = compute_dtype(self.cfg.train_compute_dtype)
         g = self._speaker(sid, y)
         x_h, m_p, logs_p, x_mask = self.enc_p(
             x, x_lengths, tone, language, bert.transpose(1, 2),
             ja_bert.transpose(1, 2), en_bert.transpose(1, 2), emo=emo, g=g)
-        z, m_q, logs_q, y_mask = self.enc_q(y.transpose(1, 2), y_lengths, g=g,
-                                            generator=generator)
-        z_p = self.flow(z, y_mask, g=g)
+        g_c = g.to(cdt)
+        z, m_q, logs_q, y_mask = self.enc_q(y.transpose(1, 2).to(cdt), y_lengths,
+                                            g=g_c, generator=generator)
+        z_p = self.flow(z, y_mask, g=g_c).float()
+        y_mask, m_q, logs_q = y_mask.float(), m_q.float(), logs_q.float()
 
         # monotonic alignment search, no gradients (models.py:960-989)
         with torch.no_grad():
@@ -241,7 +250,7 @@ class Synthesizer(nn.Module):
         z_slice, ids_slice = rand_slice_segments(
             z, y_lengths, self.cfg.segment_size, generator)
         return {
-            "wave_slice": self.dec(z_slice, g=g),
+            "wave_slice": self.dec(z_slice, g=g_c).float(),
             "l_length": l_length_dp + l_length_sdp,
             "attn": attn,
             "ids_slice": ids_slice,

@@ -18,14 +18,16 @@ path in plain PyTorch. Speaker conditioning enters before layer
 `cond_layer_idx`. Dropout sits where the JAX modules have it and is active
 in train() mode only.
 
-The modules compute in the dtype of their input and parameters: float32,
-or bfloat16 in the bf16 inference copy of the flow
-(`models/synthesizer.py:cast_copy`), with the JAX package's casts: the
-mask is cast to the activations' dtype up front, q is scaled in that dtype,
-the relative tables are cast to q's dtype, and the LayerNorms normalize in
-float32 and return the input's dtype. A bf16 call goes to K1's bf16 mode
-(or the wide kernel's) on the card, and the short-sequence path runs in
-bf16.
+The modules compute in the dtype of their input: float32, or bfloat16 in
+the bf16 inference copy of the flow (`models/synthesizer.py:cast_copy`)
+and in training under `train_compute_dtype` "bfloat16" (the convs cast the
+float32 parameters, `nn/conv.py`), with the JAX package's casts: the mask
+is cast to the activations' dtype up front, q is scaled in that dtype, the
+relative tables are cast to q's dtype, and the LayerNorms normalize in
+float32 and return the input's dtype. A bf16 call goes to the bf16 modes
+of K1 (inference and train mode), B5 and B6 (or the wide kernels') on the
+card, the dense training direction rounds where they do, and the
+short-sequence path runs in bf16.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bert_vits2_tpu_torch.nn.conv import conv1d
+from bert_vits2_tpu_torch.nn.conv import Linear, conv1d
 from bert_vits2_tpu_torch.nn.norm import LayerNorm
 from bert_vits2_tpu_torch.ops.attention import (
     NEG_FILL,
@@ -128,8 +130,8 @@ class MultiHeadAttention(nn.Module):
         else:
             # the training direction (the JAX package's deterministic=False)
             out = banded_attention_plain(
-                q, k, v, x_mask[:, 0], self.emb_rel_k[0], self.emb_rel_v[0], w,
-                dropout_p=p_drop)
+                q, k, v, x_mask[:, 0], self.emb_rel_k[0].to(q.dtype),
+                self.emb_rel_v[0].to(q.dtype), w, dropout_p=p_drop)
         out = out.transpose(2, 3).reshape(b, c, t)
         return self.conv_o(out)
 
@@ -184,7 +186,7 @@ class Encoder(nn.Module):
         self.cond_layer_idx = cond_layer_idx
         self.gin_channels = gin_channels
         if gin_channels > 0:
-            self.spk_emb_linear = nn.Linear(gin_channels, hidden_channels)
+            self.spk_emb_linear = Linear(gin_channels, hidden_channels)
         self.attn_layers = nn.ModuleList(
             MultiHeadAttention(hidden_channels, hidden_channels, n_heads,
                                window_size=window_size, p_dropout=p_dropout)

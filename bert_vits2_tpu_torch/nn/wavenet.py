@@ -6,6 +6,10 @@ Counterpart of `bert_vits2_tpu/nn/wavenet.py`, in the reference layout
 one 1x1 conv over g producing 2 * hidden * n_layers channels, sliced per
 layer; the last layer's `res_skip` conv has `hidden` outputs (no residual
 half).
+
+It computes in the dtype of x (the convs cast their float32 parameters,
+`nn/conv.py`): the mask is cast to it up front, and g is taken in the same
+dtype (the bf16 training policy casts both, JAX models/synthesizer.py:143-150).
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ class WN(nn.Module):
                 g: torch.Tensor | None = None) -> torch.Tensor:
         """x: [b, h, t]; x_mask: [b, 1, t]; g: [b, gin] or None."""
         h = self.hidden_channels
+        x_mask = x_mask.to(x.dtype)
         output = torch.zeros_like(x)
         g_all = None
         if g is not None and self.cond_layer is not None:

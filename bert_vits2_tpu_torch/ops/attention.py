@@ -32,13 +32,26 @@ Beside them:
   fp32 sum, the band term from the fp32 probabilities against the bf16
   table, the output rounded to bf16. (The JAX package's own CPU path, its
   XLA formula, softmaxes in bf16 instead; the port follows the kernel.)
+- `banded_attention_bwd_plain_bf16`, the plain version of B5 and B6 on
+  bf16 operands, written out where autograd of the bf16 forward would not
+  round as the TPU kernels do (attention_pallas.py:147-300, 396-431):
+  p, dp and ds in fp32 from the bf16 operands; ds and the dropped p
+  rounded to bf16 only as operands of the three t x t products (fp32
+  sums); the band terms from the fp32 ds and dropped p against the table;
+  dq, dk, dv rounded to bf16 at the end; dek, dev summed in fp32 and
+  rounded to the table's dtype.
 - `banded_rel_self_attention`, the public wrapper: the plain version for
-  CPU tensors; for CUDA tensors the inference launch of K1, or, when a
-  gradient is wanted or dropout is on, `BandedAttentionFn` (K1 in train
-  mode forward, B5 and B6 backward), each in the variant the shape takes;
-  an error for anything else. The inference launch takes float32 or
-  bfloat16 operands (K1's bf16 mode, `banded_attention_fwd_bf16`, and the
-  wide kernel's, `wide_fwd_bf16`); the training direction float32 only.
+  CPU tensors (in bf16 with a gradient wanted, `BandedAttentionFn` on the
+  plain versions, so the backward rounds as the kernels do); for CUDA
+  tensors the inference launch of K1, or, when a gradient is wanted or
+  dropout is on, `BandedAttentionFn` (K1 in train mode forward, B5 and B6
+  backward), each in the variant the shape takes; an error for anything
+  else. Every entry point takes float32 or bfloat16 operands: the bf16
+  modes are K1's (`banded_attention_fwd_bf16`,
+  `banded_attention_fwd_train_bf16`), B5's and B6's
+  (`banded_attention_bwd_q_bf16`, `banded_attention_bwd_k_bf16`) and the
+  wide kernels' (`wide_*_bf16`); the row statistics m, l and delta stay
+  float32.
 - `banded_kernels_support`, the tensor-core kernels' range of shapes.
 
 Each kernel launcher counts its launches in its `launches` attribute: the
@@ -64,7 +77,7 @@ NEG_FILL = -1e4  # the reference's mask fill: a fully masked row is uniform
 MAX_HEAD_DIM = 128  # the tensor-core kernels' widest head and window
 MAX_WINDOW = 4
 WIDE_MAX_HEAD_DIM = 8192  # csrc/banded_attn_wide.cu MAX_D
-INFERENCE_DTYPES = (torch.float32, torch.bfloat16)  # the inference launches'
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)  # the operand dtypes the kernels take
 _M32 = 0xFFFFFFFF
 
 
@@ -179,7 +192,9 @@ def banded_attention_plain(q, k, v, x_mask, emb_rel_k, emb_rel_v,
 
 def banded_attention_stats_plain(q, k, x_mask, emb_rel_k, window_size: int):
     """The softmax row statistics of the plain version: the row max m and
-    the sum l of exp(s - m), each [b, h, t] (K1's train-mode outputs)."""
+    the sum l of exp(s - m), each [b, h, t], float32 (K1's train-mode
+    outputs; fp32 scores from bf16 operands)."""
+    q, k, x_mask, emb_rel_k = (a.float() for a in (q, k, x_mask, emb_rel_k))
     s = banded_scores_plain(q, k, x_mask, emb_rel_k, window_size)
     m = s.amax(dim=-1)
     return m, torch.exp(s - m[..., None]).sum(dim=-1)
@@ -198,6 +213,37 @@ def banded_attention_bwd_plain(q, k, v, x_mask, emb_rel_k, emb_rel_v, g,
                                      leaves[3], leaves[4], window_size,
                                      dropout_p, dropout_seed)
         return torch.autograd.grad(out, leaves, g)
+
+
+def banded_attention_bwd_plain_bf16(q, k, v, x_mask, emb_rel_k, emb_rel_v, g,
+                                    m, l, delta, window_size: int,
+                                    dropout_p: float = 0.0, dropout_seed=None):
+    """The plain version of B5 and B6 on bf16 operands (module note) ->
+    (dq, dk, dv, dek, dev), the first three bf16, the tables' in their
+    dtype. m, l: the forward's row statistics; delta: rowsum(g * out) in
+    float32, each [b, h, t] (what the kernels take)."""
+    w = int(window_size)
+    dt, tdt = q.dtype, emb_rel_k.dtype
+    qf, kf, vf, ekf, evf, gf = (a.float() for a in
+                                (q, k, v, emb_rel_k, emb_rel_v, g))
+    s = banded_scores_plain(qf, kf, x_mask.float(), ekf, w)
+    p = torch.exp(s - m[..., None]) / l[..., None]
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    dp = dp + band_to_abs(torch.einsum("bhtd,cd->bhtc", gf, evf), w)
+    pd = p
+    if dropout_p:
+        scale = hash_dropout_probs(torch.ones_like(p), dropout_p, dropout_seed)
+        pd, dp = p * scale, dp * scale
+    key = (x_mask != 0)[:, None, None, :]
+    ds = torch.where(key, p * (dp - delta[..., None]), 0.0)
+    ds_r, pd_r = ds.to(dt).float(), pd.to(dt).float()  # the products' operands
+    ds_band = abs_to_band(ds, w)
+    dq = torch.matmul(ds_r, kf) + torch.einsum("bhtc,cd->bhtd", ds_band, ekf)
+    dk = torch.matmul(ds_r.transpose(-1, -2), qf)
+    dv = torch.matmul(pd_r.transpose(-1, -2), gf)
+    dek = torch.einsum("bhtc,bhtd->cd", ds_band, qf)
+    dev = torch.einsum("bhtc,bhtd->cd", abs_to_band(pd, w), gf)
+    return dq.to(dt), dk.to(dt), dv.to(dt), dek.to(tdt), dev.to(tdt)
 
 
 def _check_shapes(q, k, v, x_mask, emb_rel_k, emb_rel_v, w: int) -> None:
@@ -220,19 +266,20 @@ def _check_bwd_shapes(q, g, m, l, delta) -> None:
 def banded_kernels_support(b: int, h: int, t: int, d: int, w: int,
                            dtype: torch.dtype = torch.float32) -> bool:
     """Whether the tensor-core kernels (csrc/banded_attn.cu,
-    banded_attn_bwd.cu) take inputs of this shape and dtype: float32 (every
-    entry point) or bfloat16 (the inference launch, K1's bf16 mode), each
-    at d <= 128, w <= 4, t >= 2w, b*h <= 65535; the wrappers send every
-    other shape they accept to csrc/banded_attn_wide.cu."""
-    return (dtype in INFERENCE_DTYPES and 1 <= d <= MAX_HEAD_DIM
+    banded_attn_bwd.cu) take inputs of this shape and dtype: float32 or
+    bfloat16 (every entry point), at d <= 128, w <= 4, t >= 2w, b*h <=
+    65535; the wrappers send every other shape they accept to
+    csrc/banded_attn_wide.cu."""
+    return (dtype in KERNEL_DTYPES and 1 <= d <= MAX_HEAD_DIM
             and 0 <= w <= MAX_WINDOW and t >= 2 * w and b * h <= 65535)
 
 
-def _check_kernel_inputs(tensors, w: int,
-                         dtypes: tuple = (torch.float32,)) -> bool:
-    """Raise on what no kernel takes (CUDA tensors only): a device other
-    than one card, a dtype outside `dtypes`, operands of mixed dtypes (the
-    mask, tensors[3], may be float32 beside bf16 operands), a shape out of
+def _check_kernel_inputs(tensors, w: int) -> bool:
+    """Raise on what no kernel takes (CUDA tensors only; tensors: q, k, v,
+    x_mask, emb_rel_k, emb_rel_v, and for B5 and B6 g, m, l, delta): a
+    device other than one card, a dtype outside KERNEL_DTYPES, operands
+    (q, k, v, the tables, g) of mixed dtypes, a mask in neither their dtype
+    nor float32, statistics m, l, delta other than float32, a shape out of
     every kernel's range. True where the tensor-core kernels take the
     shape, False where the wide ones do."""
     q = tensors[0]
@@ -240,16 +287,16 @@ def _check_kernel_inputs(tensors, w: int,
         raise ValueError(f"no kernel for device {q.device}")
     if any(x.device != q.device for x in tensors):
         raise ValueError("all inputs must lie on one device")
-    if q.dtype not in dtypes:
-        raise ValueError(f"the kernel takes {' or '.join(map(str, dtypes))} "
-                         f"inputs, not {q.dtype}"
-                         + ("" if q.dtype != torch.bfloat16 else
-                            ": bf16 training is the next slice (ROADMAP §A.7)"))
-    if any(x.dtype != q.dtype for i, x in enumerate(tensors) if i != 3):
+    if q.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the kernels take {' or '.join(map(str, KERNEL_DTYPES))} "
+                         f"inputs, not {q.dtype}")
+    if any(x.dtype != q.dtype for i, x in enumerate(tensors[:7]) if i != 3):
         raise ValueError("the kernel takes operands of one dtype: "
                          f"{[x.dtype for x in tensors]}")
     if tensors[3].dtype not in (q.dtype, torch.float32):
         raise ValueError(f"the mask is {tensors[3].dtype}")
+    if any(x.dtype != torch.float32 for x in tensors[7:]):
+        raise ValueError("the row statistics m, l and delta are float32")
     if any(not x.is_contiguous() for x in tensors):
         raise ValueError("the kernel takes contiguous inputs")
     b, h, t, d = q.shape
@@ -279,27 +326,63 @@ def banded_attention_fwd_train(q, k, v, x_mask, emb_rel_k, emb_rel_v,
                                window_size: int, dropout_p: float = 0.0,
                                dropout_seed=None):
     """K1 in train mode -> (out [b, h, t, d], m [b, h, t], l [b, h, t]):
-    the output with the hash dropout applied, and the softmax row max and
-    sum that B5 and B6 rebuild the probabilities from."""
+    the output with the hash dropout applied (in the operands' dtype), and
+    the float32 softmax row max and sum that B5 and B6 rebuild the
+    probabilities from."""
     w = int(window_size)
     tensors = (q, k, v, x_mask, emb_rel_k, emb_rel_v)
     _check_shapes(*tensors, w)
     if q.device.type == "cpu":
         out = banded_attention_plain(*tensors, w, dropout_p, dropout_seed)
         return (out, *banded_attention_stats_plain(q, k, x_mask, emb_rel_k, w))
-    if not _check_kernel_inputs(tensors, w):
+    tensor_cores = _check_kernel_inputs(tensors, w)
+    if q.dtype == torch.bfloat16:
+        tensors = (q, k, v, x_mask.to(q.dtype), emb_rel_k, emb_rel_v)
+        return (banded_attention_fwd_train_bf16 if tensor_cores
+                else wide_fwd_train_bf16)(tensors, w, dropout_p, dropout_seed)
+    if not tensor_cores:
         return wide_fwd_train(tensors, w, dropout_p, dropout_seed)
+    out, m, l = _fwd_train_launch("banded_attn_fwd_train", tensors, w, dropout_p,
+                                  dropout_seed)
+    banded_attention_fwd_train.launches += 1
+    return out, m, l
+
+
+def _fwd_train_launch(entry: str, tensors, w: int, dropout_p: float, dropout_seed,
+                      source: str = "banded_attn.cu"):
+    """One train-mode forward launch of `entry` on checked inputs ->
+    (out in the operands' dtype, m, l float32)."""
+    q = tensors[0]
     b, h, t, d = q.shape
     drop, thr, seed, scale = _dropout_args(dropout_p, dropout_seed)
     out = torch.empty_like(q)
     m = torch.empty((b, h, t), device=q.device)
     l = torch.empty_like(m)
-    err = _build.library("banded_attn.cu").banded_attn_fwd_train(
+    err = getattr(_build.library(source), entry)(
         *(x.data_ptr() for x in (*tensors, out, m, l)),
         b, h, t, d, w, drop, thr, seed, scale, *_stream(q))
-    _build.check(err, "banded_attn_fwd_train")
-    banded_attention_fwd_train.launches += 1
+    _build.check(err, entry)
     return out, m, l
+
+
+def _bwd_args(q, k, v, x_mask, emb_rel_k, emb_rel_v, g, m, l, delta, w):
+    """The backward wrappers' checked inputs; bf16 operands take the mask
+    in their dtype."""
+    tensors = (q, k, v, x_mask, emb_rel_k, emb_rel_v, g, m, l, delta)
+    _check_shapes(*tensors[:6], w)
+    _check_bwd_shapes(q, g, m, l, delta)
+    if q.device.type == "cuda" and q.dtype == torch.bfloat16:
+        tensors = (*tensors[:3], x_mask.to(q.dtype), *tensors[4:])
+    return tensors
+
+
+def _bwd_plain(tensors, w: int, dropout_p: float, dropout_seed):
+    """B5's and B6's plain versions on the CPU -> (dq, dk, dv, dek, dev):
+    the autograd of the plain forward in float32, the explicit bf16
+    backward on bf16 operands."""
+    if tensors[0].dtype == torch.float32:
+        return banded_attention_bwd_plain(*tensors[:7], w, dropout_p, dropout_seed)
+    return banded_attention_bwd_plain_bf16(*tensors, w, dropout_p, dropout_seed)
 
 
 def banded_attention_bwd_q(q, k, v, x_mask, emb_rel_k, emb_rel_v, g, m, l,
@@ -307,29 +390,38 @@ def banded_attention_bwd_q(q, k, v, x_mask, emb_rel_k, emb_rel_v, g, m, l,
                            dropout_seed=None):
     """B5 -> (dq [b, h, t, d], dek [2w+1, d], dev [2w+1, d]) for the output
     gradient g, from K1's row statistics m, l and delta = rowsum(g * out)
-    [b, h, t]."""
+    [b, h, t] (all three float32)."""
     w = int(window_size)
-    tensors = (q, k, v, x_mask, emb_rel_k, emb_rel_v, g, m, l, delta)
-    _check_shapes(*tensors[:6], w)
-    _check_bwd_shapes(q, g, m, l, delta)
+    tensors = _bwd_args(q, k, v, x_mask, emb_rel_k, emb_rel_v, g, m, l, delta, w)
     if q.device.type == "cpu":
-        dq, _, _, dek, dev = banded_attention_bwd_plain(
-            *tensors[:7], w, dropout_p, dropout_seed)
+        dq, _, _, dek, dev = _bwd_plain(tensors, w, dropout_p, dropout_seed)
         return dq, dek, dev
-    if not _check_kernel_inputs(tensors, w):
+    tensor_cores = _check_kernel_inputs(tensors, w)
+    if q.dtype == torch.bfloat16:
+        return (banded_attention_bwd_q_bf16 if tensor_cores
+                else wide_bwd_q_bf16)(tensors, w, dropout_p, dropout_seed)
+    if not tensor_cores:
         return wide_bwd_q(tensors, w, dropout_p, dropout_seed)
+    out = _bwd_q_launch("banded_attn_bwd_q", tensors, w, dropout_p, dropout_seed)
+    banded_attention_bwd_q.launches += 1
+    return out
+
+
+def _bwd_q_launch(entry: str, tensors, w: int, dropout_p: float, dropout_seed):
+    """One launch of B5 (`entry` of csrc/banded_attn_bwd.cu, its partials
+    reduced in block order) on checked inputs -> (dq, dek, dev)."""
+    q = tensors[0]
     b, h, t, d = q.shape
     drop, thr, seed, scale = _dropout_args(dropout_p, dropout_seed)
     dq = torch.empty_like(q)
-    dek, dev = torch.empty_like(emb_rel_k), torch.empty_like(emb_rel_v)
+    dek, dev = torch.empty_like(tensors[4]), torch.empty_like(tensors[5])
     lib = _build.library("banded_attn_bwd.cu")
     n_blocks = lib.banded_attn_bwd_q_blocks(b, h, t)
     partials = torch.empty((n_blocks, 2, 2 * w + 1, d), device=q.device)
-    err = lib.banded_attn_bwd_q(
+    err = getattr(lib, entry)(
         *(x.data_ptr() for x in (*tensors, dq, partials, dek, dev)),
         b, h, t, d, w, drop, thr, seed, scale, *_stream(q))
-    _build.check(err, "banded_attn_bwd_q")
-    banded_attention_bwd_q.launches += 1
+    _build.check(err, entry)
     return dq, dek, dev
 
 
@@ -338,24 +430,57 @@ def banded_attention_bwd_k(q, k, v, x_mask, emb_rel_k, emb_rel_v, g, m, l,
                            dropout_seed=None):
     """B6 -> (dk, dv), each [b, h, t, d]; arguments as B5's."""
     w = int(window_size)
-    tensors = (q, k, v, x_mask, emb_rel_k, emb_rel_v, g, m, l, delta)
-    _check_shapes(*tensors[:6], w)
-    _check_bwd_shapes(q, g, m, l, delta)
+    tensors = _bwd_args(q, k, v, x_mask, emb_rel_k, emb_rel_v, g, m, l, delta, w)
     if q.device.type == "cpu":
-        _, dk, dv, _, _ = banded_attention_bwd_plain(
-            *tensors[:7], w, dropout_p, dropout_seed)
+        _, dk, dv, _, _ = _bwd_plain(tensors, w, dropout_p, dropout_seed)
         return dk, dv
-    if not _check_kernel_inputs(tensors, w):
+    tensor_cores = _check_kernel_inputs(tensors, w)
+    if q.dtype == torch.bfloat16:
+        return (banded_attention_bwd_k_bf16 if tensor_cores
+                else wide_bwd_k_bf16)(tensors, w, dropout_p, dropout_seed)
+    if not tensor_cores:
         return wide_bwd_k(tensors, w, dropout_p, dropout_seed)
-    b, h, t, d = q.shape
-    drop, thr, seed, scale = _dropout_args(dropout_p, dropout_seed)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _build.library("banded_attn_bwd.cu").banded_attn_bwd_k(
-        *(x.data_ptr() for x in (*tensors, dk, dv)),
-        b, h, t, d, w, drop, thr, seed, scale, *_stream(q))
-    _build.check(err, "banded_attn_bwd_k")
+    out = _bwd_k_launch("banded_attn_bwd_k", tensors, w, dropout_p, dropout_seed)
     banded_attention_bwd_k.launches += 1
+    return out
+
+
+def _bwd_k_launch(entry: str, tensors, w: int, dropout_p: float, dropout_seed,
+                  source: str = "banded_attn_bwd.cu"):
+    """One launch of B6 (`entry` of `source`) on checked inputs -> (dk, dv)."""
+    q = tensors[0]
+    drop, thr, seed, scale = _dropout_args(dropout_p, dropout_seed)
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    err = getattr(_build.library(source), entry)(
+        *(x.data_ptr() for x in (*tensors, dk, dv)), *q.shape, w, drop, thr, seed,
+        scale, *_stream(q))
+    _build.check(err, entry)
     return dk, dv
+
+
+def banded_attention_fwd_train_bf16(tensors, w: int, dropout_p: float, dropout_seed):
+    """K1's train mode on bf16 operands (checked; the mask in their dtype)
+    -> (out bf16, m, l float32)."""
+    out = _fwd_train_launch("banded_attn_fwd_train_bf16", tensors, w, dropout_p,
+                            dropout_seed)
+    banded_attention_fwd_train_bf16.launches += 1
+    return out
+
+
+def banded_attention_bwd_q_bf16(tensors, w: int, dropout_p: float, dropout_seed):
+    """B5 on bf16 operands (checked, as `banded_attention_bwd_q`'s) -> (dq
+    bf16, dek and dev in the tables' dtype: fp32 partials, reduced in block
+    order, then rounded)."""
+    out = _bwd_q_launch("banded_attn_bwd_q_bf16", tensors, w, dropout_p, dropout_seed)
+    banded_attention_bwd_q_bf16.launches += 1
+    return out
+
+
+def banded_attention_bwd_k_bf16(tensors, w: int, dropout_p: float, dropout_seed):
+    """B6 on bf16 operands (checked) -> (dk, dv), bf16."""
+    out = _bwd_k_launch("banded_attn_bwd_k_bf16", tensors, w, dropout_p, dropout_seed)
+    banded_attention_bwd_k_bf16.launches += 1
+    return out
 
 
 def wide_fwd(tensors, w: int) -> torch.Tensor:
@@ -398,55 +523,78 @@ def wide_fwd_bf16(tensors, w: int) -> torch.Tensor:
 
 def wide_fwd_train(tensors, w: int, dropout_p: float, dropout_seed):
     """The train-mode launch of csrc/banded_attn_wide.cu -> (out, m, l)."""
-    q = tensors[0]
-    drop, thr, seed, scale = _dropout_args(dropout_p, dropout_seed)
-    out = torch.empty_like(q)
-    m = torch.empty(q.shape[:3], device=q.device)
-    l = torch.empty_like(m)
-    err = _build.library("banded_attn_wide.cu").banded_attn_wide_fwd_train(
-        *(x.data_ptr() for x in (*tensors, out, m, l)), *q.shape, w, drop, thr,
-        seed, scale, *_stream(q))
-    _build.check(err, "banded_attn_wide_fwd_train")
+    out = _fwd_train_launch("banded_attn_wide_fwd_train", tensors, w, dropout_p,
+                            dropout_seed, "banded_attn_wide.cu")
     wide_fwd_train.launches += 1
-    return out, m, l
+    return out
 
 
-def wide_bwd_q(tensors, w: int, dropout_p: float, dropout_seed):
-    """B5 of csrc/banded_attn_wide.cu on checked inputs (q, k, v, x_mask,
-    emb_rel_k, emb_rel_v, g, m, l, delta) -> (dq, dek, dev)."""
+def wide_fwd_train_bf16(tensors, w: int, dropout_p: float, dropout_seed):
+    """The train-mode launch of csrc/banded_attn_wide.cu on bf16 operands
+    -> (out bf16, m, l float32)."""
+    out = _fwd_train_launch("banded_attn_wide_fwd_train_bf16", tensors, w,
+                            dropout_p, dropout_seed, "banded_attn_wide.cu")
+    wide_fwd_train_bf16.launches += 1
+    return out
+
+
+def _wide_bwd_q_launch(entry: str, tensors, w: int, dropout_p: float, dropout_seed):
+    """One launch of the wide B5 (`entry`) on checked inputs -> (dq, dek,
+    dev); its band scratch float32."""
     q = tensors[0]
     b, h, t, _ = q.shape
     drop, thr, seed, scale = _dropout_args(dropout_p, dropout_seed)
     dq = torch.empty_like(q)
     dek, dev = torch.empty_like(tensors[4]), torch.empty_like(tensors[5])
     band = torch.empty((2, b * h * t, 2 * w + 1), device=q.device)
-    err = _build.library("banded_attn_wide.cu").banded_attn_wide_bwd_q(
+    err = getattr(_build.library("banded_attn_wide.cu"), entry)(
         *(x.data_ptr() for x in (*tensors, dq, band[0], band[1], dek, dev)),
         *q.shape, w, drop, thr, seed, scale, *_stream(q))
-    _build.check(err, "banded_attn_wide_bwd_q")
-    wide_bwd_q.launches += 1
+    _build.check(err, entry)
     return dq, dek, dev
+
+
+def wide_bwd_q(tensors, w: int, dropout_p: float, dropout_seed):
+    """B5 of csrc/banded_attn_wide.cu on checked inputs (q, k, v, x_mask,
+    emb_rel_k, emb_rel_v, g, m, l, delta) -> (dq, dek, dev)."""
+    out = _wide_bwd_q_launch("banded_attn_wide_bwd_q", tensors, w, dropout_p,
+                             dropout_seed)
+    wide_bwd_q.launches += 1
+    return out
+
+
+def wide_bwd_q_bf16(tensors, w: int, dropout_p: float, dropout_seed):
+    """B5 of csrc/banded_attn_wide.cu on bf16 operands -> (dq, dek, dev) in
+    the operands' and the tables' dtype."""
+    out = _wide_bwd_q_launch("banded_attn_wide_bwd_q_bf16", tensors, w, dropout_p,
+                             dropout_seed)
+    wide_bwd_q_bf16.launches += 1
+    return out
 
 
 def wide_bwd_k(tensors, w: int, dropout_p: float, dropout_seed):
     """B6 of csrc/banded_attn_wide.cu on checked inputs (as `wide_bwd_q`'s)
     -> (dk, dv)."""
-    q = tensors[0]
-    drop, thr, seed, scale = _dropout_args(dropout_p, dropout_seed)
-    dk, dv = torch.empty_like(q), torch.empty_like(q)
-    err = _build.library("banded_attn_wide.cu").banded_attn_wide_bwd_k(
-        *(x.data_ptr() for x in (*tensors, dk, dv)), *q.shape, w, drop, thr, seed,
-        scale, *_stream(q))
-    _build.check(err, "banded_attn_wide_bwd_k")
+    out = _bwd_k_launch("banded_attn_wide_bwd_k", tensors, w, dropout_p,
+                        dropout_seed, "banded_attn_wide.cu")
     wide_bwd_k.launches += 1
-    return dk, dv
+    return out
+
+
+def wide_bwd_k_bf16(tensors, w: int, dropout_p: float, dropout_seed):
+    """B6 of csrc/banded_attn_wide.cu on bf16 operands -> (dk, dv), bf16."""
+    out = _bwd_k_launch("banded_attn_wide_bwd_k_bf16", tensors, w, dropout_p,
+                        dropout_seed, "banded_attn_wide.cu")
+    wide_bwd_k_bf16.launches += 1
+    return out
 
 
 class BandedAttentionFn(torch.autograd.Function):
     """The attention's training direction on the kernels: K1 in train mode
     forward, B5 and B6 backward (the JAX package's `_banded_core` custom
-    VJP, attention_pallas.py:355-443). Gradients flow to q, k, v and the
-    two relative tables; none to the mask or the seed."""
+    VJP, attention_pallas.py:355-443), in float32 or on bf16 operands; on
+    the CPU the same wrappers run the plain versions. Gradients flow to q,
+    k, v and the two relative tables; none to the mask or the seed."""
 
     @staticmethod
     def forward(ctx, q, k, v, x_mask, emb_rel_k, emb_rel_v, window_size,
@@ -464,8 +612,9 @@ class BandedAttentionFn(torch.autograd.Function):
         q, k, v, x_mask, ek, ev, m, l, out = ctx.saved_tensors
         g = g.contiguous()
         # D_i = g_i . out_i: the softmax backward's rowsum(dp * p), with
-        # the band term and the dropout folded in (attention_pallas.py:396)
-        delta = (g * out).sum(dim=-1)
+        # the band term and the dropout folded in, summed in float32 from
+        # the operands' dtype (attention_pallas.py:396-401)
+        delta = (g.float() * out.float()).sum(dim=-1)
         args = (q, k, v, x_mask, ek, ev, g, m, l, delta, *ctx.args)
         dq, dek, dev = banded_attention_bwd_q(*args)
         dk, dv = banded_attention_bwd_k(*args)
@@ -487,14 +636,17 @@ def banded_rel_self_attention(q, k, v, x_mask, emb_rel_k, emb_rel_v,
     if dropout_p and dropout_seed is None:
         raise ValueError("dropout_p > 0 needs a dropout_seed: the hash "
                          "dropout of the kernels (and of their plain version)")
-    if q.device.type == "cpu":
-        return banded_attention_plain(*tensors, w, dropout_p, dropout_seed)
     grad = torch.is_grad_enabled() and any(
         x.requires_grad for x in (q, k, v, emb_rel_k, emb_rel_v))
+    if q.device.type == "cpu":
+        if grad and q.dtype == torch.bfloat16:  # the explicit bf16 backward
+            return BandedAttentionFn.apply(*tensors, w, float(dropout_p),
+                                           dropout_seed)
+        return banded_attention_plain(*tensors, w, dropout_p, dropout_seed)
     if grad or dropout_p:
         return BandedAttentionFn.apply(*tensors, w, float(dropout_p),
                                        dropout_seed)
-    tensor_cores = _check_kernel_inputs(tensors, w, INFERENCE_DTYPES)
+    tensor_cores = _check_kernel_inputs(tensors, w)
     if q.dtype == torch.bfloat16:
         tensors = (q, k, v, x_mask.to(q.dtype), emb_rel_k, emb_rel_v)
         return (banded_attention_fwd_bf16 if tensor_cores else wide_fwd_bf16)(
@@ -515,8 +667,14 @@ banded_attention_fwd_train.launches = 0
 banded_attention_bwd_q.launches = 0
 banded_attention_bwd_k.launches = 0
 banded_attention_fwd_bf16.launches = 0
+banded_attention_fwd_train_bf16.launches = 0
+banded_attention_bwd_q_bf16.launches = 0
+banded_attention_bwd_k_bf16.launches = 0
 wide_fwd.launches = 0
 wide_fwd_bf16.launches = 0
 wide_fwd_train.launches = 0
+wide_fwd_train_bf16.launches = 0
 wide_bwd_q.launches = 0
+wide_bwd_q_bf16.launches = 0
 wide_bwd_k.launches = 0
+wide_bwd_k_bf16.launches = 0

@@ -4,7 +4,8 @@
 
 with the JAX package's flags, `bert_vits2_tpu/train/__main__.py`). One
 device: the card unless `--device cpu`. Set BV2_FUSED_ATTENTION_TRAIN=1 to
-train the attention on the hand-written forward and backward kernels.
+train the attention on the hand-written forward and backward kernels;
+config.json's `"bf16_run": true` (its `train` section) trains in bf16.
 """
 
 from __future__ import annotations

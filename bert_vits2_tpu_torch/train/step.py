@@ -17,8 +17,16 @@ modules of `Models` and are updated in place, the optimizers are
 state it was given with its counter advanced. Metrics are 0-d tensors on
 the device, so the step itself never waits for the card.
 
-Only float32 training is ported: `bf16_run` and a bfloat16
-`train_compute_dtype` raise (bf16 policy: ROADMAP §A.7).
+With `bf16_run` (the reference's autocast(bf16), train_ms.py:458-480) the
+step follows the JAX step's bf16 policy (bert_vits2_tpu/train/step.py:
+132-137, 220-226): the synthesizer computes its hot stages in bf16 when its
+config's `train_compute_dtype` is "bfloat16" (`Trainer` sets both from
+config.json's `bf16_run`), the multi-period discriminator takes y and
+y_hat in bf16 in both of its passes, the duration and WavLM
+discriminators, the SLM and every loss stay float32, and each optimizer
+first clips its gradients by their global norm (`grad_clip_g` for the
+generator, `grad_clip_d` for the three discriminators) as optax's
+`clip_by_global_norm` does. The parameters stay float32 either way.
 """
 
 from __future__ import annotations
@@ -113,24 +121,18 @@ class TrainState:
     opt_wd: torch.optim.Optimizer | None = None
 
 
-def _check_fp32(cfg: TrainConfig) -> None:
-    if cfg.bf16_run:
-        raise NotImplementedError(
-            "bf16_run is not ported yet: the bf16 training policy (autocast "
-            "of the hot stages, global-norm clipping, K1-train, B5 and B6 in "
-            "bf16) is the next slice of the port, ROADMAP §A.7; this step "
-            "trains in float32 only (bf16 serves: infer_compute_dtype)")
-
-
 def make_optimizer(cfg: TrainConfig, module: nn.Module,
-                   frozen: tuple[tuple[str, ...], ...] = ()) -> torch.optim.AdamW:
+                   frozen: tuple[tuple[str, ...], ...] = (),
+                   clip: float | None = None) -> torch.optim.AdamW:
     """AdamW over the module's parameters, the learning rate set per step.
 
     Parameters under a `frozen` submodule path form a second group whose
     learning rate stays 0: their update is zero (the weight decay too, which
     scales with the rate) while their moments are kept, so the optimizer
-    state has the same entries whether or not anything is frozen."""
-    _check_fp32(cfg)
+    state has the same entries whether or not anything is frozen. With
+    `bf16_run`, `clip` is the global norm the step clips the gradients to
+    first (the optimizer's `clip` attribute; None without bf16_run, as the
+    JAX `make_optimizer` chains `clip_by_global_norm` only then)."""
     prefixes = tuple(".".join(p) + "." for p in frozen)
     free, held = [], []
     for name, p in module.named_parameters():
@@ -138,20 +140,24 @@ def make_optimizer(cfg: TrainConfig, module: nn.Module,
     groups = [{"params": free, "frozen": False}]
     if held:
         groups.append({"params": held, "frozen": True, "lr": 0.0})
-    return torch.optim.AdamW(groups, lr=cfg.learning_rate, betas=cfg.betas,
-                             eps=cfg.eps, weight_decay=WEIGHT_DECAY)
+    opt = torch.optim.AdamW(groups, lr=cfg.learning_rate, betas=cfg.betas,
+                            eps=cfg.eps, weight_decay=WEIGHT_DECAY)
+    opt.clip = clip if cfg.bf16_run else None
+    return opt
 
 
 def init_train_state(models: Models, cfg: TrainConfig) -> TrainState:
     """The duration and WavLM discriminators take the discriminator's
     optimizer (grad_clip_d), as in the JAX step."""
+    d_clip = cfg.grad_clip_d
     return TrainState(
         step=0,
-        opt_g=make_optimizer(cfg, models.synthesizer, cfg.frozen_subtrees),
-        opt_d=make_optimizer(cfg, models.mpd),
-        opt_dd=(make_optimizer(cfg, models.dur_disc)
+        opt_g=make_optimizer(cfg, models.synthesizer, cfg.frozen_subtrees,
+                             cfg.grad_clip_g),
+        opt_d=make_optimizer(cfg, models.mpd, clip=d_clip),
+        opt_dd=(make_optimizer(cfg, models.dur_disc, clip=d_clip)
                 if models.dur_disc is not None else None),
-        opt_wd=(make_optimizer(cfg, models.wavlm_disc)
+        opt_wd=(make_optimizer(cfg, models.wavlm_disc, clip=d_clip)
                 if models.wavlm_disc is not None else None),
     )
 
@@ -162,14 +168,28 @@ def _set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
             group["lr"] = lr
 
 
+def clip_by_global_norm(grads: list[torch.Tensor], norm: torch.Tensor,
+                        clip: float) -> None:
+    """Scale the gradients in place to a global norm of at most `clip`, by
+    optax's formula (`clip_by_global_norm`: g where norm < clip, else
+    g / norm * clip); on the device, with no host sync. Unlike
+    `torch.nn.utils.clip_grad_norm_` it adds no 1e-6 to the norm."""
+    scale = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
+    torch._foreach_mul_(grads, scale)
+
+
 def _update(opt: torch.optim.Optimizer, loss: torch.Tensor,
             lr: float) -> torch.Tensor:
-    """One optimizer update from `loss` -> the gradients' global norm."""
+    """One optimizer update from `loss` -> the gradients' global norm,
+    before any clipping. The norm covers the frozen group's gradients too,
+    as optax's clip runs before its `masked(set_to_zero)`."""
     opt.zero_grad(set_to_none=True)
     loss.backward()
     grads = [p.grad for g in opt.param_groups for p in g["params"]
              if p.grad is not None]
     norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if opt.clip is not None:
+        clip_by_global_norm(grads, norm, opt.clip)
     _set_lr(opt, lr)
     opt.step()
     return norm
@@ -225,14 +245,18 @@ def make_train_step(models: Models, train_cfg: TrainConfig,
 
     slm: the frozen `models.slm.SLM` (wave at the data's rate -> WavLM
     hidden states) of the SLM losses. It comes with `models.wavlm_disc`:
-    each needs the other."""
-    _check_fp32(train_cfg)
+    each needs the other.
+
+    With `train_cfg.bf16_run` the multi-period discriminator takes its
+    waves in bf16 and the optimizers clip (module note); the synthesizer's
+    own `train_compute_dtype` decides its dtype."""
     synth, mpd, dur_disc, wavlm_disc = models
     if (slm is None) != (wavlm_disc is None):
         raise ValueError("the SLM losses need both the frozen SLM and the WavLM "
                          "discriminator (Models.wavlm_disc), or neither")
     dc = data_cfg
     hop, seg = dc.hop_length, segment_size_frames
+    disc_dtype = torch.bfloat16 if train_cfg.bf16_run else torch.float32
     mel_args = (dc.filter_length, dc.n_mel_channels, dc.sampling_rate)
 
     def dur_disc_pairs(out, detach):
@@ -264,7 +288,7 @@ def make_train_step(models: Models, train_cfg: TrainConfig,
         y = slice_segments(batch["wave"], ids_slice * hop, seg * hop)
 
         # ---- 2a. waveform discriminators (train_ms.py:508-556) ----
-        y_d_r, y_d_g, _, _ = mpd(y, y_hat.detach())
+        y_d_r, y_d_g, _, _ = mpd(y.to(disc_dtype), y_hat.detach().to(disc_dtype))
         loss_disc, _, _ = discriminator_loss(y_d_r, y_d_g)
         metrics["loss/d/total"] = loss_disc.detach()
         metrics["grad_norm_d"] = _update(state.opt_d, loss_disc, lr)
@@ -291,7 +315,7 @@ def make_train_step(models: Models, train_cfg: TrainConfig,
         with _no_param_grads(mpd, dur_disc, wavlm_disc):
             y_hat_mel = mel_spectrogram(y_hat.float(), *mel_args, hop,
                                         dc.win_length, dc.mel_fmin, dc.mel_fmax)
-            _, y_d_g, fmap_r, fmap_g = mpd(y, y_hat)
+            _, y_d_g, fmap_r, fmap_g = mpd(y.to(disc_dtype), y_hat.to(disc_dtype))
             loss_gen, _ = generator_loss(y_d_g)
             loss_fm = feature_loss(fmap_r, fmap_g)
             loss_mel = torch.mean(torch.abs(y_mel - y_hat_mel)) * train_cfg.c_mel

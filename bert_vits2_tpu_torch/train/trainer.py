@@ -15,8 +15,11 @@ V2.3 trains with the SLM losses whenever config.json declares
 checkpoint directory) and the WavLM discriminator trains beside the
 others. `slm_path=None` (the CLI's --no-slm) trains without them.
 
-One device, float32. Left for later slices, each of which raises: bf16
-training (ROADMAP §A.7) and data or model parallelism (§A.9).
+One device. config.json's `train.bf16_run` trains with the reference's
+autocast(bf16) policy, the JAX package's `train_compute_dtype` "bfloat16"
+and `bf16_run` (`train/step.py`): float32 parameters and checkpoints, so a
+run resumes under either dtype. Left for a later slice, and raising: data
+or model parallelism (ROADMAP §A.9).
 """
 
 from __future__ import annotations
@@ -175,7 +178,8 @@ class Trainer:
         self.logger = get_logger(model_dir)
         check_git_hash(model_dir)
         # bf16_run (config.json train.bf16_run) is the reference's
-        # autocast(bf16): not ported, and make_train_step refuses it
+        # autocast(bf16): the synthesizer's hot stages in bf16, and the
+        # step's bf16 policy through self.tcfg.bf16_run
         mcfg_kw = ({"train_compute_dtype": "bfloat16"}
                    if self.hps.train.get("bf16_run", False) else {})
         self.mcfg = model_config_from_hparams(self.hps, **mcfg_kw)

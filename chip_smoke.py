@@ -5,6 +5,7 @@ and check them.
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1-3: the kernels alone
     python3 chip_smoke.py --bf16      # the build and phase 6b' alone
+    python3 chip_smoke.py --train-bf16  # the build and phases 7a and 9c alone
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -110,6 +111,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    step, peak memory, a profiler breakdown of one step; then the same
    batch and weights with the fused attention (BV2_FUSED_ATTENTION_TRAIN=1)
    and the dense one in turns: both medians and peak memories.
+7a. bf16 training ([train-bf16]): K1's train mode, B5 and B6 on bf16
+   operands at the flow's [16, 2, 512, 96] and a ragged [2, 2, 1001, 96],
+   and the wide kernels' bf16 modes at [4, 1, 200, 160], against their
+   plain bf16 versions without and with the hash dropout (BWD_BF16_ULPS
+   bf16 ulps of the largest reference entry; m, l within BWD_REL_BOUND),
+   timed, the least time at 989 TFLOP/s bf16 or the bytes; a bf16
+   MultiHeadAttention of d = 160 in fused training card against CPU
+   (the wide bf16 kernels, once each); then the default V2.3 models at
+   init_params(seed=1234) twice, fp32 and train_compute_dtype "bfloat16"
+   with bf16_run, on the [train] batch with fused attention: the first
+   step of each from the same weights, noise and dropout seeds (launches:
+   fp32 K1-train/B5/B6 22 each, bf16 6 fp32 + 16 bf16 each, K3 1; losses
+   within BF16_LOSS_REL of fp32's; finite grad norms; float32 master
+   parameters), steps in turns (F B B F): medians, peak memory, a profile
+   of one step each with device time by group; and the bf16 training
+   forward at a cut depth, zero MAS noise, card against CPU.
 7b. the training step with the SLM losses ([train-slm]): a random WavLM at
    the wavlm-base-plus widths (frozen, behind the 44.1 -> 16 kHz
    resampler) and WavLMDiscriminator(768, 13, 64) beside the same
@@ -135,6 +152,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    kernels' launches per step, finite SLM metrics, WD_3.pth beside
    G_/D_/DUR_3.pth, and a second Trainer that resumes (the WavLM
    discriminator as saved) and runs a fourth step.
+9c. the Trainer from a config.json with "bf16_run": true ([trainer-bf16]):
+   TRAINER_BF16_STEPS steps with fused attention, the kernels' launches
+   per step (K1-train/B5/B6 6 fp32 + 16 bf16 each, K3 1), finite metrics,
+   float32 checkpoints, and the CLI resuming for one more step.
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -211,6 +232,29 @@ SLM_CHECK_BATCH = 2  # the card-vs-CPU check of the SLM pieces
 WAVLM_BOUND = 1e-3
 SLM_REL_BOUND = 1e-3
 TRAINER_SLM_WARMUP, TRAINER_SLM_TIMED = 1, 2
+# [train-bf16]: K1's train mode, B5 and B6 on bf16 operands against their
+# plain bf16 versions (which round where the TPU kernels round), in bf16
+# ulps of the largest reference entry: a reordered fp32 sum can flip the
+# rounding of ds or p*ks to bf16 (each 2**-9 of an entry) before the
+# products, and of each output at the end; dek and dev round once after
+# their fp32 sums. m and l stay within BWD_REL_BOUND.
+BWD_BF16_ULPS = 4
+TC_BF16_KEYS = ("banded_attn_fwd_train_bf16", "banded_attn_bwd_q_bf16",
+                "banded_attn_bwd_k_bf16")
+WIDE_BF16_KEYS = ("banded_attn_wide_fwd_train_bf16", "banded_attn_wide_bwd_q_bf16",
+                  "banded_attn_wide_bwd_k_bf16")
+# the first bf16 step's losses against the fp32 step's from the same
+# weights, batch and noise, |a - b| / (|b| + 1e-3): the JAX package's own
+# bounds (tests/test_train.py TestBf16TrainStep)
+BF16_LOSS_REL = {"loss/g/mel": 0.15, "loss/d/total": 0.15, "loss/g/kl": 0.35}
+TRAIN_BF16_ROUNDS = 2  # fp32 and bf16 steps in turns, F B B F a round
+# card vs CPU in bf16 (cuDNN's and the CPU's bf16 convs, the kernels and the
+# plain versions round at different points through 16 WN layers, the flow
+# and the vocoder slice): each output within this share of its largest
+# entry (~5 bf16 ulps); parameter gradients of a bf16 attention module
+# within it of the largest gradient entry
+BF16_CPU_REL = 2e-2
+TRAINER_BF16_STEPS = 3
 
 
 def log(*a):
@@ -349,22 +393,28 @@ def check_attention(dev, cases=None, label="K1", design=bound_3xtf32,
     return rows
 
 
-def check_attention_bwd(dev, cases=None, keys=TC_KEYS, design=bound_3xtf32):
+def check_attention_bwd(dev, cases=None, keys=TC_KEYS, design=bound_3xtf32,
+                        dtype=torch.float32):
     """K1 in train mode, B5 and B6 (or, with cases and keys, the wide
     kernels) against the plain version's autograd on the card: out, the
     row statistics and the five gradients on valid rows, without and with
-    the hash dropout (one seed)."""
+    the hash dropout (one seed). With dtype bfloat16 their bf16 modes on
+    bf16 operands against the plain bf16 versions (the backward's given the
+    kernels' m, l and delta): out and the gradients within BWD_BF16_ULPS
+    bf16 ulps of the largest reference entry, m and l within BWD_REL_BOUND;
+    the least time at 989 TFLOP/s and 2-byte operands."""
     from bert_vits2_tpu_torch.ops.attention import (
-        banded_attention_bwd_plain, banded_attention_bwd_q,
-        banded_attention_bwd_k, banded_attention_fwd_train,
+        banded_attention_bwd_plain, banded_attention_bwd_plain_bf16,
+        banded_attention_bwd_q, banded_attention_bwd_k, banded_attention_fwd_train,
         banded_attention_plain, banded_attention_stats_plain)
+    bf16 = dtype == torch.bfloat16
     rows = {key: [] for key in keys}
     seed = -1234567
     # the flow and enc_p of the training batch, launches per step; one
     # ragged odd length over several key tiles
     for name, b, h, t, d, w, n_main in cases or (
             ("flow", TRAIN_BATCH, 2, TRAIN_TY, 96, 4, N_FLOW_ATTN),
-            ("enc_p", TRAIN_BATCH, 2, TRAIN_TX, 96, 4, N_ENC_ATTN),
+            *(() if bf16 else (("enc_p", TRAIN_BATCH, 2, TRAIN_TX, 96, 4, N_ENC_ATTN),)),
             ("ragged", 2, 2, 1001, 96, 4, 0)):
         g = torch.Generator(device=dev).manual_seed(t)
         q, k, v = (torch.randn(b, h, t, d, device=dev, generator=g)
@@ -374,39 +424,52 @@ def check_attention_bwd(dev, cases=None, keys=TC_KEYS, design=bound_3xtf32):
                   / math.sqrt(d) for _ in range(2))
         m = lens_mask([t - (t // 16) * i for i in range(b)], t, dev)
         go = torch.randn(b, h, t, d, device=dev, generator=g) * m[:, None, :, None]
+        q, k, v, ek, ev, go = (a.to(dtype) for a in (q, k, v, ek, ev, go))
         valid = m.bool()[:, None, :]
         for p_drop in (0.0, 0.1):
             args = (q, k, v, m, ek, ev, w, p_drop, seed)
             fwd = lambda: banded_attention_fwd_train(*args)  # noqa: E731
             out, mr, lr = fwd()
-            delta = (go * out).sum(-1)
+            delta = (go.float() * out.float()).sum(-1)
             bargs = (q, k, v, m, ek, ev, go, mr, lr, delta, w, p_drop, seed)
             dq, dek, dvv = banded_attention_bwd_q(*bargs)
             dk, dv = banded_attention_bwd_k(*bargs)
             want_out = banded_attention_plain(*args[:7], p_drop, seed)
             want_m, want_l = banded_attention_stats_plain(q, k, m, ek, w)
-            want = banded_attention_bwd_plain(q, k, v, m, ek, ev, go, w, p_drop,
-                                              seed)
+            plain_bwd = (lambda: banded_attention_bwd_plain_bf16(*bargs)) if bf16 else (
+                lambda: banded_attention_bwd_plain(q, k, v, m, ek, ev, go, w, p_drop, seed))
+            want = plain_bwd()
             torch.cuda.synchronize()
+            if not all(x.dtype == dtype for x in (out, dq, dk, dv, dek, dvv)):
+                raise AssertionError(f"{'/'.join(keys)}: an output is not {dtype}")
 
-            errs, abs_errs = {}, {}
+            errs, abs_errs, ulps = {}, {}, {}
             for key, got, ref in zip(
-                    ("m", "l", "dq", "dk", "dv", "dek", "dev"),
-                    (mr, lr, dq, dk, dv, dek, dvv), (want_m, want_l, *want)):
+                    ("out", "m", "l", "dq", "dk", "dv", "dek", "dev"),
+                    (out, mr, lr, dq, dk, dv, dek, dvv), (want_out, want_m, want_l, *want)):
+                got, ref = got.float(), ref.float()
                 if got.dim() > 2:  # valid rows only
                     got, ref = got[valid.expand(b, h, t)], ref[valid.expand(b, h, t)]
                 abs_errs[key] = (got - ref).abs().max().item()
-                errs[key] = abs_errs[key] / ref.abs().max().item()
-            out_err = (out - want_out).abs()[valid.expand(b, h, t)].max().item()
-            log(f"{'/'.join(keys)} {name} [b={b},h={h},t={t},d={d},w={w}] p_drop "
-                f"{p_drop}: out max_abs_err {out_err:.3e} (bound {K1_BOUND:g}); "
-                "relative to the max: " + ", ".join(
+                scale = ref.abs().max().item()
+                if bf16 and key not in ("m", "l"):
+                    ulps[key] = abs_errs[key] / bf16_ulp(scale)
+                elif key != "out":
+                    errs[key] = abs_errs[key] / scale
+            out_ok = bf16 or abs_errs["out"] <= K1_BOUND
+            log(f"{'/'.join(keys)} {name} [b={b},h={h},t={t},d={d},w={w}]"
+                f"{' bf16' if bf16 else ''} p_drop {p_drop}: "
+                + (f"bf16 ulps of the largest entry: " + ", ".join(
+                    f"{k_} {u:.2f}" for k_, u in ulps.items())
+                   + f" (bound {BWD_BF16_ULPS}); " if bf16 else
+                   f"out max_abs_err {abs_errs['out']:.3e} (bound {K1_BOUND:g}); ")
+                + "relative to the max: " + ", ".join(
                     f"{k_} {e:.2e}" for k_, e in errs.items())
                 + f" (bound {BWD_REL_BOUND:g})")
-            if not (out_err <= K1_BOUND
+            if not (out_ok and all(u <= BWD_BF16_ULPS for u in ulps.values())
                     and all(e <= BWD_REL_BOUND for e in errs.values())):
-                raise AssertionError(f"{'/'.join(keys)} {name} p_drop {p_drop} "
-                                     f"disagree with the plain autograd")
+                raise AssertionError(f"{'/'.join(keys)} {name} {dtype} p_drop {p_drop} "
+                                     f"disagree with the plain versions")
             if p_drop == 0.0 or n_main == 0:
                 continue
             # timing at the training rate p_drop = 0.1
@@ -418,47 +481,49 @@ def check_attention_bwd(dev, cases=None, keys=TC_KEYS, design=bound_3xtf32):
             dev_k = device_ms(lambda: banded_attention_bwd_k(*bargs))
             plain_f = cuda_ms(lambda: (banded_attention_plain(*args[:7], p_drop, seed),
                                        banded_attention_stats_plain(q, k, m, ek, w)))
-            leaves = [a.detach().requires_grad_() for a in (q, k, v, ek, ev)]
-            with torch.enable_grad():
-                o = banded_attention_plain(leaves[0], leaves[1], leaves[2], m,
-                                           leaves[3], leaves[4], w, p_drop, seed)
-                plain_b = cuda_ms(lambda: torch.autograd.grad(
-                    o, leaves, go, retain_graph=True), iters=5)
-            del o, leaves
+            if bf16:
+                plain_b = cuda_ms(plain_bwd, iters=5)
+            else:
+                leaves = [a.detach().requires_grad_() for a in (q, k, v, ek, ev)]
+                with torch.enable_grad():
+                    o = banded_attention_plain(leaves[0], leaves[1], leaves[2], m,
+                                               leaves[3], leaves[4], w, p_drop, seed)
+                    plain_b = cuda_ms(lambda: torch.autograd.grad(
+                        o, leaves, go, retain_graph=True), iters=5)
+                del o, leaves
             nb = 2 * w + 1
-            io = 4 * (b * t + 2 * nb * d)  # mask and the tables
+            size = q.element_size()  # operands' bytes; m, l, delta fp32
+            io = size * (b * t + 2 * nb * d)  # mask and the tables
             fwd_flops = 4 * b * h * t * t * d + 4 * b * h * t * nb * d
-            fwd_bytes = io + 4 * (4 * b * h * t * d + 2 * b * h * t)
-            fwd_b = bound(fwd_flops, fwd_bytes)
+            fwd_bytes = io + size * 4 * b * h * t * d + 4 * 2 * b * h * t
             # B5: s, g.v, ds.k; B6: s, g.v, p.g, ds.q (+ the band terms)
             q_work = (6 * b * h * t * t * d + 6 * b * h * t * nb * d,
-                      io + 4 * (5 * b * h * t * d + 3 * b * h * t) + 8 * nb * d)
+                      io + size * (5 * b * h * t * d + 2 * nb * d) + 4 * 3 * b * h * t)
             k_work = (8 * b * h * t * t * d + 4 * b * h * (t + 2 * w) * nb * d,
-                      io + 4 * (6 * b * h * t * d + 3 * b * h * t))
-            # the tensor-core kernels run their products as 3xTF32, the
-            # wide ones on the fp32 cores (design)
-            for key, ms, dms, plain, (bms, by), tc, outs in (
-                    (keys[0], ms_f, dev_f, plain_f, fwd_b,
-                     design(fwd_flops, fwd_bytes), ("m", "l")),
-                    (keys[1], ms_q, dev_q, plain_b, bound(*q_work),
-                     design(*q_work), ("dq", "dek", "dev")),
-                    (keys[2], ms_k, dev_k, plain_b, bound(*k_work),
-                     design(*k_work), ("dk", "dv"))):
+                      io + size * 6 * b * h * t * d + 4 * 3 * b * h * t)
+            # the tensor-core kernels run their fp32 products as 3xTF32,
+            # their bf16 ones at the bf16 rate, the wide ones on the fp32
+            # cores (design)
+            for key, ms, dms, plain, work, outs in (
+                    (keys[0], ms_f, dev_f, plain_f, (fwd_flops, fwd_bytes),
+                     ("out", "m", "l")),
+                    (keys[1], ms_q, dev_q, plain_b, q_work, ("dq", "dek", "dev")),
+                    (keys[2], ms_k, dev_k, plain_b, k_work, ("dk", "dv"))):
+                bms, by = (bound_bf16 if bf16 else bound)(*work)
+                tc = design(*work)
                 log(f"{key} {name} [b={b},h={h},t={t},d={d},w={w}] p_drop {p_drop}: "
                     f"kernel {ms:.4f} ms (device {dms:.4f} ms), plain "
-                    f"{plain:.4f} ms, bound {bms:.4f} ms ({by}), design bound "
-                    f"{tc:.4f} ms")
-                err = max(abs_errs[o] for o in outs)
-                if key == keys[0]:
-                    err = max(err, out_err)
+                    f"{plain:.4f} ms, bound {bms:.4f} ms ({by}: {work[0] / 1e9:.2f} "
+                    f"GFLOP, {work[1] / 1e6:.1f} MB), design bound {tc:.4f} ms")
                 rows[key].append(dict(
-                    shape=[b, h, t, d], launches_per_call=n_main, err=err,
-                    ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bms,
-                    bound_by=by, bound_design_ms=tc))
+                    shape=[b, h, t, d], launches_per_call=n_main,
+                    err=max(abs_errs[o] for o in outs), ms=ms, device_ms=dms,
+                    plain_ms=plain, bound_ms=bms, bound_by=by, bound_design_ms=tc))
             del bargs
         torch.cuda.empty_cache()
-    log("[kernels] plain time of B5 and of B6: the plain version's autograd "
-        "backward, which computes both kernels' outputs in one pass")
+    log(f"[kernels] plain time of B5 and of B6: the plain version's "
+        f"{'explicit bf16 backward' if bf16 else 'autograd backward'}, which "
+        "computes both kernels' outputs in one pass")
     return rows
 
 
@@ -911,13 +976,13 @@ V23_MODEL_JSON = dict(  # the model section of the reference's V2.3 config.json
 )
 
 
-def write_corpus(root, n_utts, seed=0, slm_dir=None):
+def write_corpus(root, n_utts, seed=0, slm_dir=None, bf16_run=False):
     """A synthetic corpus for the Trainer: 44.1 kHz int16 wavs of 401-500
     frames (one bucket of the sampler), 40-63 phones each (128 text slots
     after the blanks), cached BERT features, a cleaned filelist in three
     languages and four speakers, and a config.json with the V2.3 model
-    section (its model.slm.model set to `slm_dir` when given). Returns the
-    config path."""
+    section (its model.slm.model set to `slm_dir` when given) and
+    train.bf16_run. Returns the config path."""
     from scipy.io import wavfile
 
     from bert_vits2_tpu_torch.text.symbols import SYMBOLS
@@ -946,7 +1011,7 @@ def write_corpus(root, n_utts, seed=0, slm_dir=None):
         version="2.3",
         train=dict(log_interval=1, eval_interval=100000, seed=1234, epochs=1000,
                    learning_rate=2e-4, betas=[0.8, 0.99], eps=1e-9,
-                   batch_size=TRAIN_BATCH, bf16_run=False, lr_decay=0.99995,
+                   batch_size=TRAIN_BATCH, bf16_run=bf16_run, lr_decay=0.99995,
                    segment_size=16384, c_mel=45, c_kl=1.0),
         data=dict(training_files=filelist, validation_files=filelist,
                   sampling_rate=sr, filter_length=2048, hop_length=hop,
@@ -1130,6 +1195,24 @@ def log_mel(waves, dev):
                             2048, 0.0, None)[0] for w in waves]
 
 
+def device_groups(evs) -> collections.Counter:
+    """Device time (us) of a profile's kernels by group: the banded
+    attention kernels, K2, K3, cuDNN's and cuBLAS's convs and GEMMs, and the
+    rest."""
+    groups = collections.Counter()
+    for e in evs:
+        key = e.key.lower()
+        group = ("K1/B5/B6 (banded attention)" if "banded_attn" in key or
+                 "attn_bwd" in key or "band_tables" in key
+                 else "K2" if "mrf_kernel" in key else "K3" if "mas_kernel" in key
+                 else "convs and GEMMs (cuDNN, cuBLAS)" if any(
+                     s_ in key for s_ in ("conv", "cudnn", "xmma", "gemm", "sm90",
+                                          "cutlass", "implicit"))
+                 else "other (elementwise, copies, reductions)")
+        groups[group] += e.self_device_time_total
+    return groups
+
+
 def run_bf16(dev, smi, counters):
     """bf16 serving ([bf16]): K1's bf16 mode at the flow's shape, the wide
     forward's at one [attention-range] shape and K2's at C = 64, 32, 16,
@@ -1288,15 +1371,7 @@ def run_bf16(dev, smi, counters):
             f"{sorted(stage_ch)} channels; cuDNN's kernels with its layout "
             f"conversions) {stage_us / 1e3:.2f} ms of device time "
             f"({100 * stage_us / dev_us:.1f}%)")
-        groups = collections.Counter()
-        for e in evs:
-            key = e.key.lower()
-            group = ("K1" if "banded_attn" in key else "K2" if "mrf_kernel" in key
-                     else "convs and GEMMs (cuDNN, cuBLAS)" if any(
-                         s_ in key for s_ in ("conv", "cudnn", "xmma", "gemm", "sm90",
-                                              "cutlass", "implicit"))
-                     else "other (elementwise, copies, reductions)")
-            groups[group] += e.self_device_time_total
+        groups = device_groups(evs)
         log(f"[bf16] {name} device time by group: " + "; ".join(
             f"{g_} {us / 1e3:.2f} ms ({100 * us / dev_us:.1f}%)"
             for g_, us in groups.most_common()))
@@ -2345,6 +2420,322 @@ def check_training_forward_on_cpu(dev):
         raise AssertionError("card and CPU disagree on the training forward")
 
 
+def check_attention_module_bf16(dev, counters):
+    """A bf16 MultiHeadAttention outside the tensor-core range (d = 160) in
+    fused training (BV2_FUSED_ATTENTION_TRAIN=1, the hash dropout from one
+    seed) on the card and on the CPU, float32 parameters: the output within
+    BF16_CPU_REL of its largest entry, the parameter gradients within it of
+    the largest gradient entry; the wide kernels' bf16 modes launched once
+    each, no other kernel. Returns the launches."""
+    from bert_vits2_tpu_torch.nn.attention import MultiHeadAttention
+    channels, heads, window = RANGE_MODULES[0]
+    t, lens = RANGE_T, RANGE_LENS
+    torch.manual_seed(channels)
+    cpu = MultiHeadAttention(channels, channels, heads, window_size=window,
+                             p_dropout=0.1).train()
+    gpu = copy.deepcopy(cpu).to(dev)
+    x = torch.randn(len(lens), channels, t).to(torch.bfloat16)
+    r = torch.randn(len(lens), channels, t)
+    m = lens_mask(lens, t, "cpu")[:, None, :]
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    outs, grads = [], []
+    os.environ["BV2_FUSED_ATTENTION_TRAIN"] = "1"
+    try:
+        for mod, where in ((cpu, "cpu"), (gpu, dev)):
+            torch.manual_seed(7)  # the hash dropout's seed
+            out = mod(x.to(where), m.to(where)).float() * m.to(where)
+            (out * r.to(where)).sum().backward()
+            outs.append(out.detach().cpu())
+            grads.append([p.grad.cpu() for p in mod.parameters()])
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop("BV2_FUSED_ATTENTION_TRAIN", None)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    e_out = ((outs[0] - outs[1]).abs().max() / outs[0].abs().max()).item()
+    scale = max(g.abs().max().item() for g in grads[0])
+    e_grad = max((g1 - g0).abs().max().item() for g0, g1 in zip(*grads)) / scale
+    dtypes = {str(p.dtype) for p in gpu.parameters()} | {str(g.dtype) for g in grads[1]}
+    log(f"[train-bf16] MultiHeadAttention({channels}, {heads} head, window {window}) "
+        f"in fused training on bf16 activations, float32 parameters and gradients "
+        f"({sorted(dtypes)}), [b={len(lens)}, t={t}]: card vs CPU output "
+        f"{e_out:.2e} of its largest entry, parameter gradients {e_grad:.2e} of the "
+        f"largest (bound {BF16_CPU_REL:g}); launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    want = {k: 0 for k in counters}
+    want.update({k: 1 for k in WIDE_BF16_KEYS})
+    if launches != want or dtypes != {"torch.float32"}:
+        raise AssertionError(f"[train-bf16] the bf16 module: launches {launches}, "
+                             f"dtypes {dtypes}")
+    if not (e_out <= BF16_CPU_REL and e_grad <= BF16_CPU_REL):
+        raise AssertionError("[train-bf16] the bf16 module: card and CPU disagree")
+    return {k: launches[k] for k in WIDE_BF16_KEYS}
+
+
+def check_training_forward_bf16_on_cpu(dev):
+    """The bf16 training forward (train_compute_dtype "bfloat16") at full
+    width and a cut depth, eval(), zero MAS noise, the same posterior noise
+    (one CPU generator seed), on the card and on the CPU: z_p, m_q, logs_q
+    and wave_slice (which do not depend on the alignment) within
+    BF16_CPU_REL of each one's largest entry; the alignments' agreement
+    and l_length reported."""
+    from bert_vits2_tpu_torch.config import ModelConfig
+    from bert_vits2_tpu_torch.models import build_synthesizer
+    from bert_vits2_tpu_torch.train import DataConfig
+
+    cfg = ModelConfig(n_layers=3, n_flow_layer=2, n_layers_trans_flow=3,
+                      train_compute_dtype="bfloat16")
+    cpu_model = build_synthesizer(cfg, device="cpu", seed=2)
+    nonzero_init(cpu_model)
+    gpu_model = build_synthesizer(cfg, device="cuda", state_dict=cpu_model.state_dict())
+    batch = make_train_batch(cfg, DataConfig().hop_length, 2, 24, 96, seed=1,
+                             dev="cpu")
+    keys = ("x", "x_lengths", "spec", "spec_lengths", "sid", "tone", "language",
+            "bert", "ja_bert", "en_bert")
+    outs = []
+    for model, where in ((cpu_model, "cpu"), (gpu_model, dev)):
+        with torch.no_grad():
+            out = model(*(batch[k].to(where) for k in keys), mas_noise_scale=0.0,
+                        generator=torch.Generator().manual_seed(5))
+        outs.append({k: v.cpu() for k, v in out.items()})
+    cpu, gpu = outs
+    errs = {k: ((cpu[k].float() - gpu[k].float()).abs().max()
+                / cpu[k].float().abs().max()).item()
+            for k in ("z", "z_p", "m_q", "logs_q", "wave_slice")}
+    valid = cpu["y_mask"][:, 0].bool()
+    agree = (cpu["attn"].argmax(2) == gpu["attn"].argmax(2))[valid].float().mean().item()
+    dtypes = {k: str(gpu[k].dtype)[6:] for k in ("z", "z_p", "m_q", "wave_slice")}
+    log(f"[train-bf16] training forward in bf16, 3 encoder layers and 2 flow "
+        f"couplings of 3, eval(), zero MAS noise: card vs CPU, each relative to its "
+        f"largest entry: " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+        + f" (bound {BF16_CPU_REL:g}); dtypes {dtypes}; alignment equal on "
+        f"{100 * agree:.1f}% of valid frames; l_length card "
+        f"{gpu['l_length'].tolist()} cpu {cpu['l_length'].tolist()}")
+    if dtypes != {"z": "bfloat16", "z_p": "float32", "m_q": "float32",
+                  "wave_slice": "float32"}:
+        raise AssertionError(f"[train-bf16] forward output dtypes {dtypes}")
+    if not (all(e <= BF16_CPU_REL for e in errs.values())
+            and torch.equal(cpu["ids_slice"], gpu["ids_slice"])):
+        raise AssertionError("card and CPU disagree on the bf16 training forward")
+
+
+def run_training_bf16(dev, smi, counters):
+    """[train-bf16]: the bf16 kernels of the training direction against
+    their plain versions, the bf16 module outside the tensor-core range,
+    then the default V2.3 models at init_params(seed=1234) twice, one with
+    train_compute_dtype "bfloat16" and TrainConfig(bf16_run=True), on the
+    [train] batch with fused attention: the first step of each from the
+    same weights, noise and dropout seeds (losses within BF16_LOSS_REL,
+    finite grad norms, float32 master parameters, the kernels' launches),
+    then steps in turns (F B B F), peak memory, a profile of one step each.
+    Returns (kernel rows by name, launches by name)."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from bert_vits2_tpu_torch.config import ModelConfig
+    from bert_vits2_tpu_torch.train import (
+        DataConfig, TrainConfig, init_train_state, make_train_step)
+    from bert_vits2_tpu_torch.train.trainer import build_models, init_params
+
+    t0 = time.perf_counter()
+    design = lambda f, n: bound_bf16(f, n)[0]  # noqa: E731
+    rows = check_attention_bwd(dev, keys=TC_BF16_KEYS, design=design,
+                               dtype=torch.bfloat16)
+    rows.update(check_attention_bwd(dev, range_cases()[:1], WIDE_BF16_KEYS, design,
+                                    torch.bfloat16))
+    wide_launches = check_attention_module_bf16(dev, counters)
+    torch.cuda.empty_cache()
+    log(f"[train-bf16] kernel and module checks in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+
+    cfg = ModelConfig()
+    cfgs = {"float32": cfg,
+            "bfloat16": dataclasses.replace(cfg, train_compute_dtype="bfloat16")}
+    tcfgs = {"float32": TrainConfig(), "bfloat16": TrainConfig(bf16_run=True)}
+    data_cfg = DataConfig()
+    models = {n: init_params(build_models(c, device="cuda"), c, seed=1234)
+              for n, c in cfgs.items()}
+    for a, b in zip(models["float32"][:3], models["bfloat16"][:3]):
+        sa, sb = a.state_dict(), b.state_dict()
+        if sa.keys() != sb.keys() or not all(torch.equal(sa[k], sb[k]) for k in sa):
+            raise AssertionError("[train-bf16] the two models' weights differ")
+    states = {n: init_train_state(models[n], tcfgs[n]) for n in cfgs}
+    steps = {n: make_train_step(models[n], tcfgs[n], data_cfg, cfg.segment_size)
+             for n in cfgs}
+    gens = {n: torch.Generator(device=dev).manual_seed(tcfgs[n].seed) for n in cfgs}
+    batch = make_train_batch(cfg, data_cfg.hop_length, TRAIN_BATCH, TRAIN_TX,
+                             TRAIN_TY, seed=0, dev=dev)
+    lr = tcfgs["float32"].learning_rate
+    n_enc = cfg.n_layers
+    n_flow = cfg.n_flow_layer * cfg.n_layers_trans_flow
+    want = {"float32": {"banded_attn_fwd_train": n_enc + n_flow,
+                        "banded_attn_bwd_q": n_enc + n_flow,
+                        "banded_attn_bwd_k": n_enc + n_flow, "mas_fwd": 1},
+            "bfloat16": {"banded_attn_fwd_train": n_enc, "banded_attn_bwd_q": n_enc,
+                         "banded_attn_bwd_k": n_enc, "mas_fwd": 1,
+                         **{k: n_flow for k in TC_BF16_KEYS}}}
+
+    def one_step(name):
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        states[name], metrics = steps[name](states[name], batch, gens[name], lr)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in counters.items()}
+        w_ = {k: 0 for k in counters}
+        w_.update(want[name])
+        if got != w_:
+            raise AssertionError(f"[train-bf16] {name} step launched {got}, not {w_}")
+        bad = {k: float(v) for k, v in metrics.items() if not math.isfinite(float(v))}
+        if bad:
+            raise AssertionError(f"[train-bf16] non-finite {name} metrics: {bad}")
+        return sec, metrics, got
+
+    os.environ["BV2_FUSED_ATTENTION_TRAIN"] = "1"
+    try:
+        first = {}
+        for name in cfgs:
+            torch.manual_seed(99)  # the same dropout draws in both first steps
+            _, first[name], launches = one_step(name)
+            log(f"[train-bf16] first {name} step: launches "
+                f"{ {k: v for k, v in launches.items() if v} }; " + ", ".join(
+                    f"{k} {float(v):.5g}" for k, v in sorted(first[name].items())))
+        bf16_launches = launches
+        rel = {k: abs(float(first["bfloat16"][k]) - float(first["float32"][k]))
+               / (abs(float(first["float32"][k])) + 1e-3) for k in BF16_LOSS_REL}
+        log("[train-bf16] first step, bf16 against fp32 from the same weights, batch "
+            "and noise, |a - b| / (|b| + 1e-3): " + ", ".join(
+                f"{k} {r:.4f} (bound {BF16_LOSS_REL[k]})" for k, r in rel.items()))
+        if not all(r <= BF16_LOSS_REL[k] for k, r in rel.items()):
+            raise AssertionError("[train-bf16] the bf16 step's losses are off fp32's")
+        master = {str(p.dtype) for m in models["bfloat16"][:3] for p in m.parameters()}
+        norms = {k: float(v) for k, v in first["bfloat16"].items()
+                 if k.startswith("grad_norm")}
+        log(f"[train-bf16] bf16 step: master parameters {sorted(master)} after the "
+            f"update; unclipped grad norms {norms} (clipped to "
+            f"{tcfgs['bfloat16'].grad_clip_g:g} for G, "
+            f"{tcfgs['bfloat16'].grad_clip_d:g} for the discriminators)")
+        if master != {"torch.float32"}:
+            raise AssertionError(f"[train-bf16] master parameters {master}")
+
+        times = {n: [] for n in cfgs}
+        peaks = {n: 0.0 for n in cfgs}
+        for name in ["float32", "bfloat16", "bfloat16", "float32"] * TRAIN_BF16_ROUNDS:
+            torch.cuda.reset_peak_memory_stats()
+            sec, _, _ = one_step(name)
+            times[name].append(sec)
+            peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated() / 2**30)
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        log(f"[train-bf16-timing] {smi}: the same batch, fused attention, "
+            f"{len(times['float32'])} steps each in turns (F B B F): float32 median "
+            f"{med['float32'] * 1e3:.1f} ms (max {max(times['float32']) * 1e3:.1f}), "
+            f"peak {peaks['float32']:.2f} GiB; bfloat16 median "
+            f"{med['bfloat16'] * 1e3:.1f} ms (max {max(times['bfloat16']) * 1e3:.1f}), "
+            f"peak {peaks['bfloat16']:.2f} GiB; bf16 / fp32 "
+            f"{med['bfloat16'] / med['float32']:.3f}")
+        for name in cfgs:
+            # kernels only: the host-side events of ~25,000 launches would
+            # cost the trace tens of seconds
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                wall, _, _ = one_step(name)
+            evs, dev_us = profile_lines(prof, wall, f"[train-bf16] one {name} step",
+                                        top=8)
+            log(f"[train-bf16] {name} step: {sum(e.count for e in evs)} kernels; "
+                "device time by group: " + "; ".join(
+                    f"{g_} {us / 1e3:.2f} ms ({100 * us / dev_us:.1f}%)"
+                    for g_, us in device_groups(evs).most_common()))
+    finally:
+        os.environ.pop("BV2_FUSED_ATTENTION_TRAIN", None)
+    del models, states, steps
+    torch.cuda.empty_cache()
+    log(f"[train-bf16] the two models' steps in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_training_forward_bf16_on_cpu(dev)
+    log(f"[train-bf16] the card-vs-CPU forward in {time.perf_counter() - t0:.1f} s")
+    launches = {k: bf16_launches[k] for k in TC_BF16_KEYS}
+    launches.update(wide_launches)
+    return rows, launches
+
+
+def run_trainer_bf16(dev, smi, counters):
+    """The Trainer from a config.json with "bf16_run": true (fused
+    attention, no SLM): TRAINER_BF16_STEPS steps with the kernels' launches,
+    finite metrics, float32 checkpoints, and the CLI resuming for one more
+    step."""
+    from bert_vits2_tpu_torch.train.__main__ import main as train_main
+    from bert_vits2_tpu_torch.train.trainer import Trainer
+
+    n = TRAINER_BF16_STEPS
+    t_phase = time.perf_counter()
+    os.environ["BV2_FUSED_ATTENTION_TRAIN"] = "1"
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            cfg_path = write_corpus(root, TRAINER_UTTS, bf16_run=True)
+            model_dir = os.path.join(root, "model")
+            trainer = Trainer(cfg_path, model_dir, slm_path=None, device="cuda")
+            cfg = trainer.mcfg
+            if not (cfg.train_compute_dtype == "bfloat16" and trainer.tcfg.bf16_run):
+                raise AssertionError("[trainer-bf16] bf16_run did not reach the models")
+            seen = {}
+            step_fn = trainer.step_fn
+
+            def spy(state, batch, generator, lr):
+                out = step_fn(state, batch, generator, lr)
+                seen["metrics"] = out[1]
+                return out
+
+            trainer.step_fn = spy
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            trainer.run(max_steps=n, keep_ckpts=1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in counters.items()}
+            metrics = trainer._assert_finite(seen["metrics"])
+            n_flow = cfg.n_flow_layer * cfg.n_layers_trans_flow
+            want = {k: 0 for k in counters}
+            want.update({k: cfg.n_layers * n for k in (
+                "banded_attn_fwd_train", "banded_attn_bwd_q", "banded_attn_bwd_k")})
+            want.update({k: n_flow * n for k in TC_BF16_KEYS})
+            want["mas_fwd"] = n
+            saved = sorted(os.listdir(trainer.ckpt_dir))
+            g_sd = torch.load(os.path.join(trainer.ckpt_dir, f"G_{n}.pth"),
+                              map_location="cpu")["model"]
+            ck_dtypes = {str(v.dtype) for v in g_sd.values() if v.is_floating_point()}
+            log(f"[trainer-bf16] {n} steps of the Trainer with bf16_run in {wall:.1f} s "
+                f"(first-step set-up included): launches "
+                f"{ {k: v for k, v in launches.items() if v} }; step {trainer.global_step}: "
+                + ", ".join(f"{k} {v:.4g}" for k, v in sorted(metrics.items()))
+                + f"; checkpoints {saved}, G's tensors {sorted(ck_dtypes)}")
+            if launches != want:
+                raise AssertionError(f"[trainer-bf16] launches {launches}, not {want}")
+            if saved != [f"DUR_{n}.pth", f"D_{n}.pth", f"G_{n}.pth"] or ck_dtypes != {
+                    "torch.float32"}:
+                raise AssertionError(f"[trainer-bf16] checkpoints {saved} {ck_dtypes}")
+            del trainer
+            torch.cuda.empty_cache()
+            resumed = train_main(["-c", cfg_path, "-m", model_dir, "--no-slm",
+                                  "--max-steps", str(n + 1), "--keep-ckpts", "1"])
+            saved = sorted(os.listdir(resumed.ckpt_dir))
+            log(f"[trainer-bf16] the CLI resumed at step {n} in bf16 and ran to "
+                f"{resumed.global_step}; checkpoints kept {saved}")
+            if resumed.global_step != n + 1 or saved != [
+                    f"DUR_{n + 1}.pth", f"D_{n + 1}.pth", f"G_{n + 1}.pth"]:
+                raise AssertionError(f"[trainer-bf16] the resumed run: {saved}")
+            del resumed
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("BV2_FUSED_ATTENTION_TRAIN", None)
+    log(f"[trainer-bf16] phase in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2355,6 +2746,11 @@ def main(argv=None) -> int:
                     help="the build, then the [bf16] phase alone (the bf16 kernels "
                          "against their plain versions, fp32 and bf16 engines in "
                          "turns); no ok line")
+    ap.add_argument("--train-bf16", action="store_true",
+                    help="the build, then the [train-bf16] and [trainer-bf16] "
+                         "phases alone (the bf16 training kernels against their "
+                         "plain versions, fp32 and bf16 steps in turns, the bf16 "
+                         "Trainer); no ok line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2377,7 +2773,13 @@ def main(argv=None) -> int:
                 "banded_attn_wide_bwd_k": attention.wide_bwd_k,
                 "banded_attn_fwd_bf16": attention.banded_attention_fwd_bf16,
                 "banded_attn_wide_fwd_bf16": attention.wide_fwd_bf16,
-                "mrf_fwd_bf16": mrf_fwd_bf16}
+                "mrf_fwd_bf16": mrf_fwd_bf16,
+                "banded_attn_fwd_train_bf16": attention.banded_attention_fwd_train_bf16,
+                "banded_attn_bwd_q_bf16": attention.banded_attention_bwd_q_bf16,
+                "banded_attn_bwd_k_bf16": attention.banded_attention_bwd_k_bf16,
+                "banded_attn_wide_fwd_train_bf16": attention.wide_fwd_train_bf16,
+                "banded_attn_wide_bwd_q_bf16": attention.wide_bwd_q_bf16,
+                "banded_attn_wide_bwd_k_bf16": attention.wide_bwd_k_bf16}
     dev = torch.device("cuda")
     smi = smi_line()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -2399,6 +2801,11 @@ def main(argv=None) -> int:
     if args.bf16:
         rows, bf16_launches = run_bf16(dev, smi, counters)
         print(json.dumps({"rows": rows, "launches": bf16_launches}), flush=True)
+        return 0
+    if args.train_bf16:
+        rows, train_bf16_launches = run_training_bf16(dev, smi, counters)
+        run_trainer_bf16(dev, smi, counters)
+        print(json.dumps({"rows": rows, "launches": train_bf16_launches}), flush=True)
         return 0
     k1 = check_attention(dev)
     k2 = check_mrf(dev)
@@ -2487,12 +2894,14 @@ def main(argv=None) -> int:
     run_bert(smi)
 
     run_training(dev, smi, counters)
+    train_bf16_rows, train_bf16_launches = run_training_bf16(dev, smi, counters)
     check_training_forward_on_cpu(dev)
     slm_launches = run_training_slm(dev, smi, counters)
     # the training entry point: its kernels' launches replace the serving
     # path's zeros
     trained = run_trainer(dev, smi, counters)
     run_trainer_slm(dev, smi, counters)
+    run_trainer_bf16(dev, smi, counters)
     launches.update({k: v for k, v in trained.items() if k not in ("banded_attn_fwd",
                                                                     "mrf_fwd")})
     # the wide kernels' path is the [attention-range] phase
@@ -2594,6 +3003,34 @@ def main(argv=None) -> int:
              "(counts zeroed before it); per such call")):
         record["kernels"].append(entry(name, source, replaces, bf16_rows[name], basis,
                                        bf16_design))
+    launches.update(train_bf16_launches)
+    train_bf16_basis = ("launches: the first bf16 step of the [train-bf16] phase "
+                        "(counts zeroed before it); shapes: the flow's, " + training)
+    wide_bf16_basis = ("launches: the [train-bf16] phase's bf16 MultiHeadAttention "
+                       "training call of d = 160 (counts zeroed before it); per such "
+                       "call")
+    bwd_src = "bert_vits2_tpu_torch/csrc/banded_attn_bwd.cu"
+    for name, source, replaces, basis in (
+            ("banded_attn_fwd_train_bf16", "bert_vits2_tpu_torch/csrc/banded_attn.cu",
+             "bert_vits2_tpu/ops/attention_pallas.py:88 (stats, dropout; bf16 operands)",
+             train_bf16_basis),
+            ("banded_attn_bwd_q_bf16", bwd_src,
+             "bert_vits2_tpu/ops/attention_pallas.py:147 (bf16 operands)",
+             train_bf16_basis),
+            ("banded_attn_bwd_k_bf16", bwd_src,
+             "bert_vits2_tpu/ops/attention_pallas.py:228 (bf16 operands)",
+             train_bf16_basis),
+            ("banded_attn_wide_fwd_train_bf16", wide_src,
+             "bert_vits2_tpu/ops/attention_pallas.py:88 (stats, dropout; bf16 operands)",
+             wide_bf16_basis),
+            ("banded_attn_wide_bwd_q_bf16", wide_src,
+             "bert_vits2_tpu/ops/attention_pallas.py:147 (bf16 operands)",
+             wide_bf16_basis),
+            ("banded_attn_wide_bwd_k_bf16", wide_src,
+             "bert_vits2_tpu/ops/attention_pallas.py:228 (bf16 operands)",
+             wide_bf16_basis)):
+        record["kernels"].append(entry(name, source, replaces, train_bf16_rows[name],
+                                       basis, bf16_design))
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

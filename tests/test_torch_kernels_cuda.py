@@ -39,6 +39,8 @@ versions and the CPU's convs, round at different points; the bf16 waves
 lie ~1e-3 from the fp32 ones at these widths, PERF.md §6).
 """
 
+import math
+
 import pytest
 import torch
 
@@ -55,19 +57,26 @@ from bert_vits2_tpu_torch.ops.align import (
 from bert_vits2_tpu_torch.ops.attention import (
     WIDE_MAX_HEAD_DIM,
     banded_attention_bwd_k,
+    banded_attention_bwd_k_bf16,
     banded_attention_bwd_plain,
+    banded_attention_bwd_plain_bf16,
     banded_attention_bwd_q,
+    banded_attention_bwd_q_bf16,
     banded_attention_fwd_train,
+    banded_attention_fwd_train_bf16,
     banded_attention_plain,
     banded_attention_stats_plain,
     banded_kernels_support,
     banded_rel_self_attention,
     wide_bwd_k,
+    wide_bwd_k_bf16,
     wide_bwd_q,
+    wide_bwd_q_bf16,
     banded_attention_fwd_bf16,
     wide_fwd,
     wide_fwd_bf16,
     wide_fwd_train,
+    wide_fwd_train_bf16,
 )
 from bert_vits2_tpu_torch.ops.mrf import (
     fused_mrf,
@@ -188,9 +197,7 @@ def test_banded_attention_kernel_bf16(card, b, h, t, d, lens):
     assert err <= _bf16_bound(want.float()[valid]), err
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("p_drop", [0.0, 0.1])
-@pytest.mark.parametrize("b,h,t,d,lens,w", [
+BWD_CASES = [
     (16, 2, 512, 96, None, 4),          # the flow's shape in the training step
     (16, 2, 128, 96, None, 4),          # enc_p's
     (2, 2, 1001, 96, [1001, 640], 4),   # ragged, odd, several tiles
@@ -208,7 +215,12 @@ def test_banded_attention_kernel_bf16(card, b, h, t, d, lens):
     (2, 2, 40, 8, [40, 21], 9),         # wide: w = 9, a band of 19
     (2, 1, 8, 160, [8, 5], 4),          # wide: t == 2w
     (1, 65536, 8, 2, None, 4),          # wide: b * h above the grid's 65535
-])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_drop", [0.0, 0.1])
+@pytest.mark.parametrize("b,h,t,d,lens,w", BWD_CASES)
 def test_banded_attention_backward_kernels(card, b, h, t, d, lens, w, p_drop):
     """K1 in train mode (out, m, l), B5 (dq, dek, dev) and B6 (dk, dv), in
     the variant the shape takes, against the plain version's autograd,
@@ -242,6 +254,58 @@ def test_banded_attention_backward_kernels(card, b, h, t, d, lens, w, p_drop):
             got, ref = got[valid], ref[valid]
         rel = ((got - ref).abs().max() / ref.abs().max()).item()
         assert rel <= 1e-4, (name, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_drop", [0.0, 0.1])
+@pytest.mark.parametrize("b,h,t,d,lens,w", BWD_CASES)
+def test_banded_attention_backward_kernels_bf16(card, b, h, t, d, lens, w, p_drop):
+    """K1's train mode, B5 and B6 on bf16 operands (the wide kernels' bf16
+    modes outside the tensor-core range), at the fp32 cases' shapes,
+    against their plain bf16 versions (the backward's given the kernels' m,
+    l and delta): out and the five gradients (bf16) within BF16_ULPS of the
+    largest reference entry on valid rows, m and l (fp32) within 1e-4 of
+    the largest; one launch of each bf16 launcher and none of the fp32
+    ones."""
+    g = torch.Generator(device=card).manual_seed(t + b)
+    lens = lens or [t - (t // 16) * i for i in range(b)]
+    q, k, v = (torch.randn(b, h, t, d, device=card, generator=g)
+               for _ in range(3))
+    q = q / d ** 0.5
+    ek, ev = (torch.randn(2 * w + 1, d, device=card, generator=g) / d ** 0.5
+              for _ in range(2))
+    m = _lens_mask(lens, t, card)
+    go = torch.randn(b, h, t, d, device=card, generator=g) * m[:, None, :, None]
+    q, k, v, ek, ev, go = (a.to(torch.bfloat16) for a in (q, k, v, ek, ev, go))
+    bf16 = ((banded_attention_fwd_train_bf16, banded_attention_bwd_q_bf16,
+             banded_attention_bwd_k_bf16)
+            if banded_kernels_support(b, h, t, d, w, torch.bfloat16)
+            else (wide_fwd_train_bf16, wide_bwd_q_bf16, wide_bwd_k_bf16))
+    counters = (*bf16, *TC_COUNTERS[1:], *WIDE_COUNTERS[1:])
+    before = [c.launches for c in counters]
+    seed = -987654321
+    out, mr, lr = banded_attention_fwd_train(q, k, v, m, ek, ev, w, p_drop, seed)
+    args = (q, k, v, m, ek, ev, go, mr, lr, (go.float() * out.float()).sum(-1), w,
+            p_drop, seed)
+    dq, dek, dev = banded_attention_bwd_q(*args)
+    dk, dv = banded_attention_bwd_k(*args)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1, 1] + [0] * 6
+    assert all(x.dtype == torch.bfloat16 for x in (out, dq, dk, dv, dek, dev))
+    valid = m.bool()[:, None, :].expand(b, h, t)
+    want = (banded_attention_plain(q, k, v, m, ek, ev, w, p_drop, seed),
+            *banded_attention_stats_plain(q, k, m, ek, w),
+            *banded_attention_bwd_plain_bf16(*args))
+    for name, got, ref in zip(("out", "m", "l", "dq", "dk", "dv", "dek", "dev"),
+                              (out, mr, lr, dq, dk, dv, dek, dev), want):
+        got, ref = got.float(), ref.float()
+        if got.dim() > 2:
+            got, ref = got[valid], ref[valid]
+        err = (got - ref).abs().max().item()
+        if name in ("m", "l"):
+            assert err <= 1e-4 * ref.abs().max().item(), (name, err)
+        else:
+            assert err <= _bf16_bound(ref), (name, err)
 
 
 @pytest.mark.cuda
@@ -545,24 +609,31 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
 def test_bf16_inputs_no_kernel_takes_raise(card):
     """bf16 tensors that no kernel takes raise, never run upcast or on the
     plain version: a head wider than the wide kernels', operands of mixed
-    dtypes, the training direction (bf16 training is the next slice), a K2
-    stage whose channels are not a multiple of 16, x and packed weights of
+    dtypes (in inference and in training), float16 operands in either
+    direction (the bf16 training direction runs: test above), a K2 stage
+    whose channels are not a multiple of 16, x and packed weights of
     different dtypes."""
     bf = torch.bfloat16
     q = torch.randn(1, 1, 16, WIDE_MAX_HEAD_DIM + 1, device=card, dtype=bf)
     e = torch.randn(9, WIDE_MAX_HEAD_DIM + 1, device=card, dtype=bf)
     m = torch.ones(1, 16, device=card)
     counters = (banded_attention_fwd_bf16, wide_fwd_bf16, banded_rel_self_attention,
-                wide_fwd, mrf_fwd_bf16, fused_mrf)
+                wide_fwd, mrf_fwd_bf16, fused_mrf, banded_attention_fwd_train_bf16,
+                wide_fwd_train_bf16, banded_attention_fwd_train, wide_fwd_train)
     before = [c.launches for c in counters]
     with pytest.raises(ValueError):
         banded_rel_self_attention(q, q, q, m, e, e, 4)
     q, e = torch.randn(1, 1, 16, 8, device=card, dtype=bf), torch.randn(9, 8, device=card)
     with pytest.raises(ValueError, match="one dtype"):
         banded_rel_self_attention(q, q, q, m, e, e, 4)
-    e = e.to(bf)
-    with pytest.raises(ValueError, match="next slice"):
-        banded_rel_self_attention(q.requires_grad_(), q, q, m, e, e, 4)
+    with pytest.raises(ValueError, match="one dtype"):  # the training direction
+        banded_rel_self_attention(q.clone().requires_grad_(), q, q, m, e, e, 4)
+    h16 = torch.float16
+    q16, e16 = q.to(h16), e.to(h16)
+    for grad in (False, True):
+        with pytest.raises(ValueError, match="float16"):
+            banded_rel_self_attention(q16.clone().requires_grad_(grad), q16, q16, m,
+                                      e16, e16, 4)
     blocks = [ResBlock1(24, k, d).to(card) for k, d in zip(KS, DS)]
     for dtype in (bf, torch.float16):  # 24 channels: no bf16 stage; no fp16 mode
         with pytest.raises(ValueError):
@@ -795,6 +866,72 @@ def test_slm_train_step_card_against_cpu(card, monkeypatch):
     assert {"loss/wd/total", "loss/g/lm", "loss/g/lm_gen"} <= set(got)
     for k, w in want.items():
         assert abs(got[k] - w) <= 1e-3 * abs(w), (k, got[k], w)
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_card_against_cpu(card, monkeypatch):
+    """One bf16 training step (train_compute_dtype "bfloat16", bf16_run:
+    the posterior, the flow and the vocoder slice in bf16, the multi-period
+    discriminator on bf16 waves, global-norm clipping) at a small width,
+    dropout off, the same weights and one CPU generator's noise, on the
+    card (the flow's attention on the bf16 modes of K1-train, B5 and B6,
+    enc_p's on the fp32 ones, MAS on K3) and on the CPU (the plain
+    versions): every metric finite, the master parameters float32 on both;
+    the losses that do not depend on the alignment (the waveform
+    discriminator's, the generator's adversarial, feature and mel losses)
+    within 2e-2 relative (bf16 roundings at other points: cuDNN's and the
+    kernels' against the CPU's and the plain versions', ~3 bf16 ulps), and
+    the kernels' launches per attention layer."""
+    from bert_vits2_tpu_torch.config import ModelConfig
+    from bert_vits2_tpu_torch.train import (DataConfig, TrainConfig,
+                                            init_train_state, make_train_step)
+    from bert_vits2_tpu_torch.train.trainer import build_models, init_params
+
+    monkeypatch.setenv("BV2_FUSED_ATTENTION_TRAIN", "1")
+    cfg = ModelConfig(**SLM_TINY, train_compute_dtype="bfloat16")
+    tcfg = TrainConfig(bf16_run=True)
+    data = DataConfig(sampling_rate=1600, filter_length=64, hop_length=16,
+                      win_length=64, n_mel_channels=16)
+    g = torch.Generator().manual_seed(2)
+    b, t_x, t_y = 3, 9, 24
+    batch = dict(x=torch.randint(1, 20, (b, t_x), generator=g),
+                 x_lengths=torch.tensor([9, 9, 6]),
+                 spec=0.3 * torch.randn(b, t_y, 33, generator=g),
+                 spec_lengths=torch.tensor([24, 24, 16]),
+                 wave=torch.rand(b, t_y * 16, generator=g) - 0.5,
+                 sid=torch.tensor([0, 1, 3]),
+                 tone=torch.randint(0, 12, (b, t_x), generator=g),
+                 language=torch.randint(0, 3, (b, t_x), generator=g),
+                 bert=0.3 * torch.randn(b, t_x, 16, generator=g),
+                 ja_bert=0.3 * torch.randn(b, t_x, 16, generator=g),
+                 en_bert=0.3 * torch.randn(b, t_x, 16, generator=g))
+    counters = (*TC_COUNTERS[1:], banded_attention_fwd_train_bf16,
+                banded_attention_bwd_q_bf16, banded_attention_bwd_k_bf16, maximum_path)
+    runs = []
+    for dev in ("cpu", card):
+        models = init_params(build_models(cfg, device=dev), cfg, seed=3)
+        for m in models[:3]:
+            for mod in m.modules():
+                if isinstance(mod, torch.nn.Dropout):
+                    mod.p = 0.0
+                if hasattr(mod, "p_dropout"):
+                    mod.p_dropout = 0.0
+        step = make_train_step(models, tcfg, data, cfg.segment_size)
+        before = [fn.launches for fn in counters]
+        _, metrics = step(init_train_state(models, tcfg),
+                          {k: v.to(dev) for k, v in batch.items()},
+                          torch.Generator().manual_seed(4), 2e-4)
+        after = [fn.launches for fn in counters]
+        assert {p.dtype for m in models[:3] for p in m.parameters()} == {torch.float32}
+        runs.append(({k: float(v) for k, v in metrics.items()},
+                     [a - c for a, c in zip(after, before)]))
+    (want, cpu_launches), (got, card_launches) = runs
+    assert cpu_launches == [0] * 7
+    # enc_p's 3 layers in fp32, the flow's 2 couplings of 3 in bf16
+    assert card_launches == [3, 3, 3, 6, 6, 6, 1]
+    assert all(math.isfinite(v) for v in (*want.values(), *got.values()))
+    for k in ("loss/d/total", "loss/g/gen", "loss/g/fm", "loss/g/mel"):
+        assert abs(got[k] - want[k]) <= 2e-2 * abs(want[k]), (k, got[k], want[k])
 
 
 @pytest.mark.cuda

@@ -81,7 +81,8 @@ def patch_noise(monkeypatch, seed, keep_layout=()):
     """Feed the JAX package and the port one tape each, with the same seed.
     The port's 3-D draws are [b, c, t] where the JAX package's are
     [b, t, c], except the draws whose index is in `keep_layout` (the MAS
-    noise [b, t_y, t_x])."""
+    noise [b, t_y, t_x]). A normal draw asked for in a dtype (the
+    posterior's bf16 noise) is rounded to it on both sides."""
     jax_tape, port_tape = NoiseTape(seed), NoiseTape(seed)
     real = {"normal": jax.random.normal, "uniform": jax.random.uniform}
 
@@ -91,7 +92,9 @@ def patch_noise(monkeypatch, seed, keep_layout=()):
             # check shapes during apply: those calls are not noise
             if sys._getframe(1).f_code.co_filename.endswith("conv.py"):
                 return real[name](key, shape, *args, **kwargs)
-            return jnp.asarray(jax_tape.draw(shape, uniform=name == "uniform"))
+            a = jnp.asarray(jax_tape.draw(shape, uniform=name == "uniform"))
+            dtype = args[0] if args else kwargs.get("dtype")
+            return a if name == "uniform" or dtype is None else a.astype(dtype)
         return draw
 
     monkeypatch.setattr(jax.random, "normal", fake("normal"))
@@ -100,8 +103,8 @@ def patch_noise(monkeypatch, seed, keep_layout=()):
     def randn(shape, generator, device, dtype=torch.float32):
         if len(shape) == 3 and port_tape.k not in keep_layout:
             b, c, t = shape
-            return _t(port_tape.draw((b, t, c)).transpose(0, 2, 1).copy())
-        return _t(port_tape.draw(tuple(shape)))
+            return _t(port_tape.draw((b, t, c)).transpose(0, 2, 1).copy()).to(dtype)
+        return _t(port_tape.draw(tuple(shape))).to(dtype)
 
     monkeypatch.setattr(noise, "randn", randn)
     monkeypatch.setattr(

@@ -287,15 +287,21 @@ def test_adamw_update_matches_optax():
 
 
 def test_bf16_training_is_refused():
-    """bf16 is a later slice: both switches raise, neither falls back."""
+    """bf16 training is ported (tests/test_torch_bf16_train.py); what stays
+    refused is any other training dtype: float16 or an unknown name in
+    train_compute_dtype raises ValueError when the config is made, and
+    bfloat16 builds a model and a bf16_run optimizer that clips."""
     from bert_vits2_tpu_torch.config import ModelConfig
     from bert_vits2_tpu_torch.models.synthesizer import Synthesizer
 
+    for name in ("float16", "bf16", "fp32"):
+        with pytest.raises(ValueError, match="train_compute_dtype"):
+            ModelConfig(train_compute_dtype=name)
     cfg = step.TrainConfig(bf16_run=True)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        step.make_optimizer(cfg, _Tiny())
-    with pytest.raises(NotImplementedError, match="A.7"):
-        step.make_train_step(step.Models(None, None, None, None), cfg,
-                             step.DataConfig(), 8)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        Synthesizer(ModelConfig(train_compute_dtype="bfloat16"))
+    assert step.make_optimizer(cfg, _Tiny(), clip=cfg.grad_clip_d).clip == 200.0
+    small = dict(inter_channels=8, hidden_channels=8, filter_channels=16,
+                 n_layers=1, n_layers_trans_flow=1, n_flow_layer=1,
+                 upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8),
+                 upsample_initial_channel=16, gin_channels=8)
+    assert Synthesizer(ModelConfig(**small, train_compute_dtype="bfloat16")).cfg.\
+        train_compute_dtype == "bfloat16"
