@@ -1,4 +1,4 @@
-"""JAX parameter trees -> the port's state_dicts.
+"""JAX parameter trees <-> the port's state_dicts.
 
 The inverse of the JAX package's reference import (compat/torch_import.py:
 `synthesizer_rename`, `mpd_rename`, `dur_disc_rename` +
@@ -38,6 +38,11 @@ Layouts:
   `encoder.layers.0`, Dense kernels transposed, and the positional conv's
   resolved kernel split into `weight_v` (itself) and `weight_g` (its norm
   over dims 0 and 1, torch's weight norm at dim=2)
+
+`to_jax_params` runs the Synthesizer's half backwards, from the names and
+ranks alone: a 2-D `weight` is an embedding unless its module is a Dense
+layer, a 1-D one a LayerNorm scale, and a [out, in, 1] `weight` of an
+attention layer's conv_q/k/v/o a Dense kernel.
 """
 
 from __future__ import annotations
@@ -169,6 +174,104 @@ def from_jax_params(tree: dict) -> dict[str, torch.Tensor]:
     if "ref_enc" in tree:
         sd.update(_ref_enc_state_dict(tree["ref_enc"]))
     return sd
+
+
+def _jax_module_path(parts: list[str]) -> list[str]:
+    """The inverse of `_module_path`."""
+    out: list[str] = []
+    i = 0
+    while i < len(parts):
+        p, nxt = parts[i], parts[i + 1] if i + 1 < len(parts) else None
+        if p in ("flows", "post_flows") and out[-1:] == ["sdp"]:
+            idx = int(nxt)
+            out.append(p.replace("flows", "flow_ea") if idx == 0
+                       else f"{p}_{(idx - 1) // 2}")
+            i += 2
+        elif p in _LISTS and nxt is not None and nxt.isdigit():
+            idx = int(nxt) // 2 if p == "flows" and out[-1:] == ["flow"] else int(nxt)
+            out.append(f"{p}_{idx}")
+            i += 2
+        elif p == "mlp" and nxt is not None:
+            out.append(f"mlp_{nxt}")
+            i += 2
+        else:
+            out.append(p)
+            i += 1
+    return out
+
+
+def _to_jax_leaf(path: list[str], leaf: str, w: np.ndarray):
+    """The inverse of `_convert`: (JAX leaf name, JAX array)."""
+    if leaf == "weight_g":
+        return "g", w.reshape(-1)
+    if leaf in ("weight_v", "weight"):
+        name = "v" if leaf == "weight_v" else "kernel"
+        if w.ndim == 4:
+            return name, np.transpose(w, (2, 3, 1, 0))
+        if w.ndim == 3:
+            if "attn_layers" in path and path[-1] in ("conv_q", "conv_k", "conv_v",
+                                                       "conv_o"):
+                return name, w[:, :, 0].T
+            return name, np.transpose(w, (2, 0, 1) if "ups" in path else (2, 1, 0))
+        if w.ndim == 2:
+            if path[-1] in _LINEAR or path[-2:-1] == ["in_feature_net"]:
+                return name, w.T
+            return "embedding", w
+        return "scale", w
+    if leaf == "_codebook.embed":
+        return "codebook", w
+    if leaf in ("m", "logs"):
+        return leaf, w.reshape(-1)
+    return leaf, w
+
+
+def _ref_enc_tree(sd: dict[str, np.ndarray]) -> dict:
+    """The inverse of `_ref_enc_state_dict`. The GRU's r and z blocks of
+    `bias_hh` add to the input biases (both sit inside the same sigmoid),
+    so a trained port GRU converts exactly."""
+    tree = _jax_tree({k[len("ref_enc."):]: v for k, v in sd.items()
+                  if k.startswith("ref_enc.convs.")})
+    tree["proj"] = {"kernel": sd["ref_enc.proj.weight"].T,
+                    "bias": sd["ref_enc.proj.bias"]}
+    blocks = lambda a: dict(zip(_GRU_GATES, np.split(a, 3)))  # noqa: E731
+    w_ih, w_hh = blocks(sd["ref_enc.gru.weight_ih_l0"]), blocks(sd["ref_enc.gru.weight_hh_l0"])
+    b_ih, b_hh = blocks(sd["ref_enc.gru.bias_ih_l0"]), blocks(sd["ref_enc.gru.bias_hh_l0"])
+    cell = {}
+    for g in _GRU_GATES:
+        bias = b_ih[g] + b_hh[g] if g != "n" else b_ih[g]
+        cell["i" + g] = {"kernel": w_ih[g].T, "bias": bias}
+        cell["h" + g] = {"kernel": w_hh[g].T}
+    cell["hn"]["bias"] = b_hh["n"]
+    tree["GRUCell_0"] = cell
+    return tree
+
+
+def _jax_tree(sd: dict[str, np.ndarray]) -> dict:
+    tree: dict = {}
+    for key, w in sd.items():
+        parts = key.split(".")
+        if parts[-2:] == ["_codebook", "embed"]:
+            parts = parts[:-2] + ["_codebook.embed"]
+        path = _jax_module_path(parts[:-1])
+        leaf, val = _to_jax_leaf(parts[:-1], parts[-1], w)
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(val)
+    return tree
+
+
+def to_jax_params(state_dict: dict) -> dict:
+    """The port's Synthesizer state_dict -> the JAX package's `Synthesizer`
+    parameter tree (nested dicts of float32 numpy arrays, without the
+    top-level "params" key), leaf for leaf what `from_jax_params` reads:
+    every version family of `compat/versions.py`, the vits1 flow, and the
+    reference encoder of a model without speakers."""
+    sd = {k: v.detach().cpu().float().numpy() for k, v in state_dict.items()}
+    tree = _jax_tree({k: v for k, v in sd.items() if not k.startswith("ref_enc.")})
+    if any(k.startswith("ref_enc.") for k in sd):
+        tree["ref_enc"] = _ref_enc_tree(sd)
+    return tree
 
 
 def from_jax_mpd_params(tree: dict, periods=(2, 3, 5, 7, 11)) -> dict[str, torch.Tensor]:

@@ -8,10 +8,11 @@ names), cached BERT features (.bert.npy, with .bert.pt import fallback).
 Inactive languages get N(0,1) placeholders, noise and not zeros, to match
 the reference's training distribution (data_utils.py:159-168).
 
-`load_collated_batch` is the JAX package's fast batch path without its
-native thread-pool loader: it reads the caches straight into the padded
-batch, and the train step draws the inactive languages' placeholders
-(`train/step.py` `expand_bert`).
+`load_collated_batch` is the JAX package's fast batch path: it reads the
+caches straight into the padded batch, through the native thread-pool
+loader (`native/`) when one is given and with numpy otherwise, and the
+train step draws the inactive languages' placeholders (`train/step.py`
+`expand_bert`).
 """
 
 from __future__ import annotations
@@ -256,17 +257,23 @@ def load_collated_batch(
     ids: Sequence[int],
     max_frames: int,
     text_pad_multiple: int = 32,
+    loader=None,
 ) -> dict:
     """Collate a batch straight from the caches into fixed-shape buffers.
 
-    Unlike the itemwise path (__getitem__ + collate.collate_batch), the
-    inactive-language BERT placeholders are not drawn here: the batch
-    carries `bert` = the ACTIVE language's features plus `utt_lang` [b], and
-    the train step draws the N(0,1) placeholders on the device
-    (train/step.py `expand_bert`). The reference draws two [1024, t] noise
-    tensors per item per epoch on the host (data_utils.py:159-168) and ships
-    3x the bytes to the device; the placeholders are pure noise, so the
-    semantics are the same.
+    Unlike the itemwise path (__getitem__ + collate.collate_batch):
+
+    - with a `loader` (`native.BatchLoader`), the spec and BERT caches and
+      the wavs are read by its thread pool straight into the padded batch
+      rows, outside the interpreter lock; an item whose file it could not
+      read (or whose BERT layout does not match) is read again itemwise;
+    - the inactive-language BERT placeholders are not drawn here: the batch
+      carries `bert` = the ACTIVE language's features plus `utt_lang` [b],
+      and the train step draws the N(0,1) placeholders on the device
+      (train/step.py `expand_bert`). The reference draws two [1024, t]
+      noise tensors per item per epoch on the host (data_utils.py:159-168)
+      and ships 3x the bytes to the device; the placeholders are pure
+      noise, so the semantics are the same.
 
     Returns the train-step batch dict with keys: x, x_lengths, tone,
     language, bert [b, t, bert_dim] (active), utt_lang [b], spec,
@@ -279,6 +286,7 @@ def load_collated_batch(
     t_x = ((max_text + text_pad_multiple - 1) // text_pad_multiple) * text_pad_multiple
     t_y = max_frames
     hop = ds.hop_length
+    n_samples = t_y * hop
     spec_ch = ds.filter_length // 2 + 1
 
     out = {
@@ -290,7 +298,7 @@ def load_collated_batch(
         "utt_lang": np.zeros((b,), np.int32),
         "spec": np.zeros((b, t_y, spec_ch), np.float32),
         "spec_lengths": np.zeros((b,), np.int32),
-        "wave": np.zeros((b, t_y * hop), np.float32),
+        "wave": np.zeros((b, n_samples), np.float32),
         "sid": np.zeros((b,), np.int32),
     }
     for i, (u, (phones, tones, langs)) in enumerate(zip(utts, seqs)):
@@ -302,15 +310,44 @@ def load_collated_batch(
         out["utt_lang"][i] = LANGUAGE_ID_MAP[u.language]
         out["sid"][i] = ds._sid(u)
 
-        # the full audio: _load_spec caches, and a spec computed from the
-        # batch-truncated wave row would poison the cache
-        audio = ds._load_audio(u)
-        spec = ds._load_spec(u.audio_path, audio)
-        f = min(spec.shape[0], t_y)
-        out["spec"][i, :f] = spec[:f]
-        out["spec_lengths"][i] = f
+    spec_paths = [ds._spec_path(u.audio_path) for u in utts]
+    bert_paths = [ds._bert_path(u.audio_path) for u in utts]
+    wav_paths = [u.audio_path for u in utts]
+
+    spec_rows = wave_lens = bert_rows = bert_cols = None
+    if loader is not None:
+        if all(os.path.isfile(p) for p in spec_paths):
+            spec_rows, _ = loader.load_npy_into(spec_paths, out["spec"])
+        wave_lens, wave_srs = loader.load_wav_into(wav_paths, out["wave"])
+        if all(os.path.isfile(p) for p in bert_paths):
+            bert_rows, bert_cols = loader.load_npy_into(bert_paths, out["bert"])
+
+    for i, u in enumerate(utts):
+        if spec_rows is not None and spec_rows[i] > 0:
+            out["spec_lengths"][i] = min(int(spec_rows[i]), t_y)
+        else:
+            # the full audio: _load_spec caches, and a spec computed from
+            # the batch-truncated wave row would poison the cache
+            spec = ds._load_spec(u.audio_path, ds._load_audio(u))
+            f = min(spec.shape[0], t_y)
+            out["spec"][i, :f] = spec[:f]
+            out["spec_lengths"][i] = f
+
         # the wave, truncated to whole spec frames like collate.collate_batch
-        n = min(len(audio), f * hop)
-        out["wave"][i, :n] = audio[:n]
-        out["bert"][i, :t] = ds._load_bert(u, t)[:t]
+        if wave_lens is None or wave_lens[i] < 0:
+            audio = ds._load_audio(u)
+            n = min(len(audio), n_samples)
+            out["wave"][i, :n] = audio[:n]
+        elif int(wave_srs[i]) != ds.sampling_rate:
+            raise ValueError(f"{u.audio_path}: {int(wave_srs[i])} != "
+                             f"{ds.sampling_rate} (resample first)")
+        out["wave"][i, int(out["spec_lengths"][i]) * hop:] = 0.0
+
+        # the active language's BERT features
+        t = int(out["x_lengths"][i])
+        if not (bert_rows is not None and bert_rows[i] == t
+                and bert_cols[i] == ds.bert_dim):
+            if bert_rows is not None and bert_rows[i] > 0:
+                out["bert"][i] = 0.0  # the loaded layout did not match: reload
+            out["bert"][i, :t] = ds._load_bert(u, t)[:t]
     return out

@@ -4,7 +4,9 @@ evaluate).
 Counterpart of `bert_vits2_tpu/train/trainer.py`, with its method names:
 `build_models` / `init_params` (train_ms.py:174-222), and `Trainer`, which
 reads a reference config.json and a cleaned filelist, batches with the
-bucket sampler, runs one GAN step per batch (`train/step.py`), decays the
+bucket sampler, reads each batch through the native loader (`native/`;
+numpy where it cannot be built) in a host thread, runs one GAN step per
+batch (`train/step.py`), decays the
 learning rate per epoch (gamma^epoch, train_ms.py:334-345), logs scalars
 and eval clips to TensorBoard when it is installed, and keeps reference-
 layout checkpoints with retention (`train/checkpoint.py`), resuming from
@@ -262,14 +264,42 @@ class Trainer:
             out[key] = x.to(self.device, non_blocking=True)
         return out
 
+    @property
+    def native_loader(self):
+        """The threaded C++ batch loader (native/dataloader.cc), or None
+        where it cannot be built: the batches then load with numpy."""
+        if not hasattr(self, "_native_loader"):
+            self._native_loader = None
+            try:
+                from bert_vits2_tpu_torch.native import BatchLoader, available
+
+                if available():
+                    self._native_loader = BatchLoader()
+                    self.logger.info("native batch loader active")
+                else:
+                    self.logger.info("native batch loader unavailable (no g++?): "
+                                     "batches load with numpy")
+            except Exception as e:  # noqa: BLE001
+                self.logger.info("native batch loader unavailable: %s", e)
+        return self._native_loader
+
+    def close(self) -> None:
+        """Stop the native loader's threads (a later epoch starts them
+        again)."""
+        loader = self.__dict__.pop("_native_loader", None)
+        if loader is not None:
+            loader.close()
+
     def epoch_batches(self, epoch: int):
         """The host batches of one epoch (numpy), bucket by bucket as the
-        sampler orders them; `bert` carries the active language only."""
+        sampler orders them, read by the native loader when it is
+        available; `bert` carries the active language only."""
         self.sampler.set_epoch(epoch)
         for bucket_idx, ids in self.sampler:
             yield load_collated_batch(
                 self.train_ds, ids,
-                max_frames=self.sampler.bucket_max_frames(bucket_idx))
+                max_frames=self.sampler.bucket_max_frames(bucket_idx),
+                loader=self.native_loader)
 
     def _prefetch(self, gen, depth: int = 2):
         """Load, collate and copy to the device ahead of the step in a host
@@ -381,6 +411,7 @@ class Trainer:
                 finally:
                     batches.close()
         finally:
+            self.close()
             if prev_term is not None:
                 signal.signal(signal.SIGTERM, prev_term)
 

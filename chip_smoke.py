@@ -6,6 +6,7 @@ and check them.
     python3 chip_smoke.py --kernels   # phases 1-3: the kernels alone
     python3 chip_smoke.py --bf16      # the build and phase 6b' alone
     python3 chip_smoke.py --train-bf16  # the build and phases 7a and 9c alone
+    python3 chip_smoke.py --prep      # the build and phase 9d alone
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -156,6 +157,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
    TRAINER_BF16_STEPS steps with fused attention, the kernels' launches
    per step (K1-train/B5/B6 6 fp32 + 16 bf16 each, K3 1), finite metrics,
    float32 checkpoints, and the CLI resuming for one more step.
+9d. from a raw corpus to a served release ([prep]): PREP_UTTS JP and EN
+   recordings (half 22.05 kHz stereo PCM16, half 48 kHz mono float32) and
+   an esd.list through the wizard's steps (preprocess/wizard.py: config at
+   batch 16, resample, text, bert with seeded noise, spec; in this
+   process, each step timed), the rows, 44.1 kHz mono PCM16 outputs and the spec and BERT
+   caches' shapes checked; the Trainer on the wizard's config.json (the
+   V2.3 model section, bf16_run as the wizard writes it, fused attention,
+   no SLM) with the native batch loader active: PREP_STEPS steps, each
+   launching K1-train, B5 and B6 22 times (6 fp32 + 16 bf16) and K3 once,
+   finite metrics, moved parameters, a checkpoint; load_collated_batch at
+   the Trainer's batch with the native loader and with numpy in turns
+   (medians beside the step's, the two batches equal); save_release of G
+   in fp32 and fp16, each loaded by load_tts_engine on the card (every
+   parameter but enc_q the checkpoint's, or its fp16 rounding) and asked
+   for one JP sentence (K1 28, K2 3 launches), the fp32 release at zero
+   noise card against CPU within WAVE_BOUND and equal to the checkpoint's
+   engine; mix_params of the step-0 and the last generator served once.
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -2736,6 +2754,277 @@ def run_trainer_bf16(dev, smi, counters):
     return launches
 
 
+PREP_SENTENCES = {  # [prep]'s raw corpus: JP and EN only (ZH's g2p needs jieba)
+    "JP": ("こんにちは、今日はいい天気ですね。", "明日の朝、駅で友達に会います。",
+           "この本はとても面白かったです。", "すみません、駅はどこですか。"),
+    "EN": ("Hello world, this is a test of the training corpus.",
+           "The quick brown fox jumps over the lazy dog.",
+           "She sells sea shells by the sea shore every morning.",
+           "Please call me when you arrive at the station."),
+}
+PREP_UTTS = 32  # half 22.05 kHz stereo PCM16, half 48 kHz mono float32
+PREP_STEPS = 3
+PREP_LOADS = 5  # load_collated_batch timings of each path, in turns
+
+
+def write_raw_corpus(root, seed=0):
+    """A raw corpus in the wizard's layout (data/<name>/esd.list and raw/):
+    PREP_UTTS rows of PREP_SENTENCES across four speakers, 2-4.5 s each, even
+    rows at 22.05 kHz stereo PCM16, odd rows at 48 kHz mono float32."""
+    from scipy.io import wavfile
+
+    raw = os.path.join(root, "raw")
+    os.makedirs(raw)
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(PREP_UTTS):
+        sr = 22050 if i % 2 == 0 else 48000
+        n = int(sr * rng.uniform(2.0, 4.5))
+        t = np.arange(n) / sr
+        audio = 0.3 * np.sin(2 * np.pi * rng.uniform(100, 400) * t)
+        audio += 0.05 * rng.normal(size=n)
+        if i % 2 == 0:
+            stereo = np.stack([audio, 0.8 * audio], axis=1)
+            wavfile.write(os.path.join(raw, f"u{i}.wav"), sr,
+                          (stereo * 32767).astype(np.int16))
+        else:
+            wavfile.write(os.path.join(raw, f"u{i}.wav"), sr, audio.astype(np.float32))
+        lang = ("JP", "EN")[(i // 2) % 2]  # each language in both formats
+        text = PREP_SENTENCES[lang][(i // 4) % 4]
+        rows.append(f"u{i}.wav|spk{i % 4}|{lang}|{text}")
+    with open(os.path.join(root, "esd.list"), "w", encoding="utf-8") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def run_prep(dev, smi, counters):
+    """From a raw corpus to a served release through the port alone: the
+    wizard's steps (config at batch 16, resample, text, bert with seeded
+    noise, spec) in this process, the file pools with `processes=1`: a
+    forked worker could inherit a lock of this process's threads, and a
+    spawned one re-imports this script, torch included (the wizard took
+    ~52 s so on an H100 machine against ~3 s in process: PERF.md §6). No
+    child process, so nothing to hang. Then the Trainer on the wizard's
+    config.json (the V2.3 model section, bf16_run as the wizard writes it,
+    fused attention, no SLM) fed by the native loader, PREP_STEPS steps
+    with the kernels' launches per step; load_collated_batch at the
+    Trainer's batch with the native loader and with numpy, in turns; then
+    save_release of G in fp32 and fp16, each served by load_tts_engine on
+    the card, and mix_params of the step-0 and the last generator served
+    once. Returns the launches summed over the phase's steps and calls."""
+    from scipy.io import wavfile
+
+    from bert_vits2_tpu_torch.config import ModelConfig
+    from bert_vits2_tpu_torch.data.dataset import load_collated_batch
+    from bert_vits2_tpu_torch.infer import load_tts_engine
+    from bert_vits2_tpu_torch.preprocess import wizard
+    from bert_vits2_tpu_torch.text.bert import RandomBertExtractor
+    from bert_vits2_tpu_torch.train.trainer import Trainer
+    from bert_vits2_tpu_torch.utils.model_tools import mix_params, save_release
+
+    t_phase = time.perf_counter()
+    totals = collections.Counter()
+    os.environ["BV2_FUSED_ATTENTION_TRAIN"] = "1"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            data_root = os.path.join(tmp, "data")
+            write_raw_corpus(os.path.join(data_root, "demo"))
+            p = wizard.get_paths("demo", data_root)
+            msgs, t0 = [], time.perf_counter()
+            for step, kw in (("config", {"batch_size": TRAIN_BATCH}),
+                             ("resample", {"processes": 1}), ("text", {}),
+                             ("bert", {}), ("spec", {"processes": 1})):
+                t1 = time.perf_counter()
+                msgs.append(wizard.STEPS[step]("demo", data_root=data_root, **kw))
+                log(f"[prep] wizard step {step}: {msgs[-1]} "
+                    f"({time.perf_counter() - t1:.1f} s)")
+            prep_s = time.perf_counter() - t0
+            rows = []
+            for fl in (p["train"], p["val"]):
+                with open(fl, encoding="utf-8") as f:
+                    rows += [ln.rstrip("\n").split("|") for ln in f if ln.strip()]
+            if msgs[1] != f"resampled {PREP_UTTS}/{PREP_UTTS} files" or len(rows) != PREP_UTTS:
+                raise AssertionError(f"[prep] {msgs}: {len(rows)} rows")
+            for path, _spk, _lang, _text, phones, _tones, _w2p in rows:
+                sr, wav = wavfile.read(path)
+                spec = np.load(path.replace(".wav", ".spec.npy"))
+                bert = np.load(path.replace(".wav", ".bert.npy"))
+                n_ph = len(phones.split(" "))
+                if not (sr == 44100 and wav.ndim == 1 and wav.dtype == np.int16
+                        and spec.shape == (1 + (len(wav) - 512) // 512, 1025)
+                        and bert.shape == (2 * n_ph + 1, 1024)):
+                    raise AssertionError(f"[prep] {path}: {sr} Hz {wav.shape} "
+                                         f"{wav.dtype}, spec {spec.shape}, bert "
+                                         f"{bert.shape} for {n_ph} phones")
+            with open(p["config"], encoding="utf-8") as f:
+                hps = json.load(f)
+            log(f"[prep] {PREP_UTTS} raw files (22.05 kHz stereo PCM16 and 48 kHz "
+                f"mono float32) prepared in {prep_s:.1f} s: 44.1 kHz mono PCM16, "
+                f"{len(rows)} rows ({hps['data']['n_speakers']} speakers), spec "
+                f"[frames, 1025] and BERT [2 * phones + 1, 1024] caches checked")
+
+            model_dir = os.path.join(p["start"], "models")
+            trainer = Trainer(p["config"], model_dir, slm_path=None, device="cuda")
+            cfg, default = trainer.mcfg, ModelConfig()
+            widths = ("hidden_channels", "filter_channels", "inter_channels",
+                      "n_layers", "n_heads", "n_flow_layer", "n_layers_trans_flow",
+                      "upsample_rates", "upsample_initial_channel", "gin_channels")
+            if any(getattr(cfg, w) != getattr(default, w) for w in widths):
+                raise AssertionError("[prep] the wizard's config is not at the V2.3 widths")
+            if trainer.native_loader is None:
+                raise AssertionError("[prep] the native batch loader is not active")
+            n_flow = cfg.n_flow_layer * cfg.n_layers_trans_flow
+            want = {k: 0 for k in counters}
+            train_keys = ("banded_attn_fwd_train", "banded_attn_bwd_q", "banded_attn_bwd_k")
+            if trainer.tcfg.bf16_run:  # the flow's attention in bf16, enc_p's in fp32
+                want.update({k: cfg.n_layers for k in train_keys})
+                want.update({k: n_flow for k in TC_BF16_KEYS})
+            else:
+                want.update({k: cfg.n_layers + n_flow for k in train_keys})
+            want["mas_fwd"] = 1
+            sd0 = {k: v.detach().cpu().clone()
+                   for k, v in trainer.models.synthesizer.state_dict().items()}
+            before = [[q.detach().clone() for q in m.parameters()]
+                      for m in trainer.models[:3]]
+            step_fn, seen = trainer.step_fn, {"times": [], "launches": []}
+
+            def spy(state, batch, generator, lr):
+                torch.cuda.synchronize()
+                for c in counters.values():
+                    c.launches = 0
+                t0 = time.perf_counter()
+                out = step_fn(state, batch, generator, lr)
+                torch.cuda.synchronize()
+                seen["times"].append(time.perf_counter() - t0)
+                seen["launches"].append({k: c.launches for k, c in counters.items()})
+                seen["metrics"], seen["shape"] = out[1], tuple(batch["spec"].shape)
+                return out
+
+            trainer.step_fn = spy
+            trainer.run(max_steps=PREP_STEPS, keep_ckpts=1)
+            metrics = trainer._assert_finite(seen["metrics"])
+            for i, got in enumerate(seen["launches"]):
+                if got != want:
+                    raise AssertionError(f"[prep] step {i + 1} launches {got}, not {want}")
+                totals.update(got)
+            moved = [sum(not torch.equal(q.detach(), o) for q, o in zip(m.parameters(), old))
+                     / len(old) for m, old in zip(trainer.models[:3], before)]
+            del before
+            saved = sorted(os.listdir(trainer.ckpt_dir))
+            n = PREP_STEPS
+            step_med = float(np.median(seen["times"]))
+            log(f"[prep] Trainer on the wizard's config.json ({trainer.sampler.batch_size} "
+                f"a batch, bf16_run {trainer.tcfg.bf16_run}, last spec batch "
+                f"{seen['shape']}): {n} steps, launches per step "
+                f"{ {k: v for k, v in want.items() if v} } in every step; "
+                f"step median {step_med * 1e3:.1f} ms (times "
+                f"{[round(s * 1e3, 1) for s in seen['times']]}, the first with set-up); "
+                f"parameters moved G/D/DUR {[round(m, 3) for m in moved]}; "
+                + ", ".join(f"{k} {v:.4g}" for k, v in sorted(metrics.items()))
+                + f"; checkpoints {saved}")
+            if min(moved) < 0.9 or saved != [f"DUR_{n}.pth", f"D_{n}.pth", f"G_{n}.pth"]:
+                raise AssertionError(f"[prep] parameters moved {moved}, checkpoints {saved}")
+
+            # the loader: the Trainer's batch, native and numpy in turns (warm
+            # page cache: the files were just written and read)
+            bucket, ids = next(iter(trainer.sampler))
+            frames = trainer.sampler.bucket_max_frames(bucket)
+            loader, times = trainer.native_loader, {"native": [], "numpy": []}
+            if loader is None:
+                raise AssertionError("[prep] the native batch loader is not active")
+            batches = {}
+            for _ in range(PREP_LOADS):
+                for name, ld in (("native", loader), ("numpy", None)):
+                    t0 = time.perf_counter()
+                    batches[name] = load_collated_batch(trainer.train_ds, ids, frames,
+                                                        loader=ld)
+                    times[name].append(time.perf_counter() - t0)
+            trainer.close()
+            same = all(np.array_equal(batches["native"][k], batches["numpy"][k])
+                       for k in batches["numpy"])
+            med = {k: float(np.median(v)) for k, v in times.items()}
+            nbytes = sum(a.nbytes for a in batches["numpy"].values())
+            log(f"[prep-timing] {smi}: load_collated_batch of {len(ids)} items at "
+                f"{frames} frames ({nbytes / 2**20:.1f} MiB, warm page cache), median "
+                f"of {PREP_LOADS} in turns: native {med['native'] * 1e3:.2f} ms, numpy "
+                f"{med['numpy'] * 1e3:.2f} ms ({med['numpy'] / med['native']:.2f}x); "
+                f"the Trainer's step median {step_med * 1e3:.1f} ms; the batches equal "
+                f"{same}")
+            if not same:
+                raise AssertionError("[prep] the native and the numpy batch differ")
+            del trainer
+            torch.cuda.empty_cache()
+
+            # release and serve
+            ext = RandomBertExtractor(0)
+            g_path = os.path.join(model_dir, "ckpt", f"G_{n}.pth")
+            source = load_tts_engine(p["config"], g_path, bert_extractor=ext, device="cuda")
+            sd = source.model.state_dict()
+            zero = dict(language="JP", noise_scale=0.0, noise_scale_w=0.0)
+            text = PREP_SENTENCES["JP"][0]
+            want_serve = {k: 0 for k in counters}
+            want_serve.update(banded_attn_fwd=2 * cfg.n_layers + n_flow,
+                              mrf_fwd=sum(1 for w in source.mrf_packed if w is not None))
+
+            def served(what, engine, **kw):
+                torch.cuda.synchronize()
+                for c in counters.values():
+                    c.launches = 0
+                wave = engine.infer(text, "spk1", **kw)
+                torch.cuda.synchronize()
+                got = {k: c.launches for k, c in counters.items()}
+                if got != want_serve or not (len(wave) and np.isfinite(wave).all()):
+                    raise AssertionError(f"[prep] {what}: launches {got}, "
+                                         f"{len(wave)} samples")
+                totals.update(got)
+                return wave
+
+            src_wave = source.infer(text, "spk1", **zero)
+            for half in (False, True):
+                npz = os.path.join(tmp, f"release_{'fp16' if half else 'fp32'}.npz")
+                save_release(npz, sd, half=half)
+                engine = load_tts_engine(p["config"], npz, bert_extractor=ext, device="cuda")
+                got_sd = engine.model.state_dict()
+                exact = all(torch.equal(got_sd[k], v.half().float() if half else v)
+                            for k, v in sd.items() if not k.startswith("enc_q."))
+                wave = served(f"release {'fp16' if half else 'fp32'}", engine, **zero)
+                msg = (f"[prep] save_release(half={half}): {os.path.getsize(npz) / 2**20:.1f} "
+                       f"MiB; load_tts_engine on the card: every parameter but enc_q "
+                       f"{'the fp16 rounding of ' if half else ''}the checkpoint's: {exact}; "
+                       f"one JP infer K1 {want_serve['banded_attn_fwd']} K2 "
+                       f"{want_serve['mrf_fwd']} launches")
+                if not exact:
+                    raise AssertionError(msg)
+                if not half:
+                    cpu = load_tts_engine(p["config"], npz, bert_extractor=ext, device="cpu")
+                    cpu_wave = cpu.infer(text, "spk1", **zero)
+                    err = (float(np.abs(wave - cpu_wave).max())
+                           if len(wave) == len(cpu_wave) else math.inf)
+                    same_src = np.array_equal(wave, src_wave)
+                    msg += (f"; zero noise: card vs CPU max_abs_err {err:.3e} (bound "
+                            f"{WAVE_BOUND:g}), equal to the G_{n}.pth engine's wave "
+                            f"{same_src}")
+                    if not (err <= WAVE_BOUND and same_src):
+                        raise AssertionError(msg)
+                    del cpu
+                log(msg)
+                del engine
+            mixed = os.path.join(tmp, "mixed.npz")
+            save_release(mixed, mix_params(sd, sd0, voice_ratio=(0.7, 0.3),
+                                           tone_ratio=(0.6, 0.4)))
+            engine = load_tts_engine(p["config"], mixed, bert_extractor=ext, device="cuda")
+            wave = served("mix", engine, language="JP")
+            log(f"[prep] mix_params of G_{n} and the step-0 generator (voice 0.7/0.3, "
+                f"tone 0.6/0.4) served once: {len(wave) / engine.sampling_rate:.2f} s of "
+                f"audio, K1 {want_serve['banded_attn_fwd']} K2 {want_serve['mrf_fwd']} "
+                f"launches")
+            del engine, source
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("BV2_FUSED_ATTENTION_TRAIN", None)
+    log(f"[prep] phase in {time.perf_counter() - t_phase:.1f} s; launches {dict(totals)}")
+    return {k: totals.get(k, 0) for k in counters}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2751,6 +3040,10 @@ def main(argv=None) -> int:
                          "phases alone (the bf16 training kernels against their "
                          "plain versions, fp32 and bf16 steps in turns, the bf16 "
                          "Trainer); no ok line")
+    ap.add_argument("--prep", action="store_true",
+                    help="the build, then the [prep] phase alone (a raw corpus "
+                         "through the wizard, the Trainer on the native loader, "
+                         "releases served); no ok line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2806,6 +3099,9 @@ def main(argv=None) -> int:
         rows, train_bf16_launches = run_training_bf16(dev, smi, counters)
         run_trainer_bf16(dev, smi, counters)
         print(json.dumps({"rows": rows, "launches": train_bf16_launches}), flush=True)
+        return 0
+    if args.prep:
+        print(json.dumps({"launches_prep": run_prep(dev, smi, counters)}), flush=True)
         return 0
     k1 = check_attention(dev)
     k2 = check_mrf(dev)
@@ -2902,6 +3198,7 @@ def main(argv=None) -> int:
     trained = run_trainer(dev, smi, counters)
     run_trainer_slm(dev, smi, counters)
     run_trainer_bf16(dev, smi, counters)
+    prep_launches = run_prep(dev, smi, counters)
     launches.update({k: v for k, v in trained.items() if k not in ("banded_attn_fwd",
                                                                     "mrf_fwd")})
     # the wide kernels' path is the [attention-range] phase
@@ -3031,6 +3328,13 @@ def main(argv=None) -> int:
              wide_bf16_basis)):
         record["kernels"].append(entry(name, source, replaces, train_bf16_rows[name],
                                        basis, bf16_design))
+    prep_basis = ("; launches_prep: over the [prep] phase's Trainer steps on the "
+                  "wizard-prepared corpus and its release calls (counts zeroed before "
+                  "each)")
+    for row in record["kernels"]:
+        if prep_launches[row["name"]]:
+            row["launches_prep"] = prep_launches[row["name"]]
+            row["basis"] += prep_basis
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -34,6 +34,7 @@ import pytest  # noqa: E402
 
 jax.config.update("jax_default_matmul_precision", "highest")  # as tests/conftest.py
 
+import golden_values  # noqa: E402
 import test_torch_bf16_train as t  # noqa: E402
 from bert_vits2_tpu.models.generator import Generator as JaxGenerator  # noqa: E402
 from bert_vits2_tpu.ops.masking import slice_segments as jax_slice_segments  # noqa: E402
@@ -165,7 +166,7 @@ def _run_fast(fn, *args):
 
 def main():
     jax_model, p_g, jmpd, p_d, x, batch = t.reference_inputs()
-    arrays = {"fingerprint": t.fingerprint(p_g, p_d, x, batch)}
+    arrays = {}
     with pytest.MonkeyPatch.context() as mp:
         t.patch_noise(mp, seed=3)
         outs, grads, mouts, mgrads = jax.device_get(_run_fast(
@@ -195,9 +196,7 @@ def main():
         arrays[f"step_g/{n}"] = v.numpy()
     for n, v in from_jax_mpd_params(new_d, jmpd.periods).items():
         arrays[f"step_d/{n}"] = v.numpy()
-    out = os.path.join(HERE, "bf16_train.npz")
-    np.savez_compressed(out, **arrays)
-    print(f"wrote {out}: {len(arrays)} arrays")
+    golden_values.save(t.GOLDENS, t.fingerprint(p_g, p_d, x, batch), arrays)
 
 
 if __name__ == "__main__":

@@ -24,6 +24,7 @@ significant bits: an ulp is 2**-7 of the leading power of two).
 import dataclasses
 import json
 import math
+import os
 
 import numpy as np
 import pytest
@@ -37,7 +38,6 @@ from bert_vits2_tpu.models import ModelConfig as JaxModelConfig
 from bert_vits2_tpu.models import Synthesizer as JaxSynthesizer
 from bert_vits2_tpu.models.generator import ResBlock1 as JResBlock1
 from bert_vits2_tpu.ops.attention_pallas import banded_rel_self_attention as j_banded
-from bert_vits2_tpu.ops.attention_pallas import force_lax_attention
 from bert_vits2_tpu.ops.mrf_pallas import fused_mrf as j_fused_mrf
 from bert_vits2_tpu.ops.mrf_pallas import prepare_mrf_weights as j_prepare_mrf
 from bert_vits2_tpu_torch.compat.params import from_jax_params
@@ -47,6 +47,7 @@ from bert_vits2_tpu_torch.models import build_synthesizer
 from bert_vits2_tpu_torch.models.generator import ResBlock1
 from bert_vits2_tpu_torch.ops.attention import banded_rel_self_attention
 from bert_vits2_tpu_torch.ops.mrf import fused_mrf, prepare_mrf_weights
+import golden_values
 from test_torch_modules import TINY, random_synth_params
 from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
@@ -178,27 +179,32 @@ def _inputs():
     return (ints[0], lens, np.asarray([1, 3]), ints[1], ints[2], *bert)
 
 
+INFER_BF16 = os.path.join(os.path.dirname(__file__), "goldens", "infer_bf16.npz")
+INFER_MAX_FRAMES = 96
+INFER_KNOBS = dict(noise_scale=0.0, noise_scale_w=0.0, sdp_ratio=0.4)
+
+
+def infer_fingerprint(params, args) -> np.ndarray:
+    """Of the parameters, the inputs, the model config and the call's knobs."""
+    return golden_values.fingerprint(params, args, TINY, INFER_MAX_FRAMES, INFER_KNOBS)
+
+
 def test_infer_bf16_matches_jax_bf16(models):
     """Synthesizer.infer with infer_compute_dtype "bfloat16" against the JAX
     Synthesizer's at zero noise: y_lengths, y_mask and the alignment equal
     (enc_p and the duration predictors run in fp32 in both), the wave
     finite and no further from JAX's bf16 wave than JAX's bf16 wave lies
     from its fp32 one (max-abs over the valid samples; both printed), and
-    no further from JAX's fp32 wave than JAX's bf16 wave is."""
+    no further from JAX's fp32 wave than JAX's bf16 wave is. The JAX
+    syntheses (fp32 and bf16, dense attention) come from
+    tests/goldens/infer_bf16.npz, written by tests/goldens/make_infer_bf16.py
+    from these parameters and inputs (their fingerprint must match)."""
     jax_cfg, params, port = models
-    max_frames, sdp = 96, 0.4
-    knobs = dict(noise_scale=0.0, noise_scale_w=0.0, sdp_ratio=sdp)
-
-    def infer(p, dtype, *a):
-        model = JaxSynthesizer(dataclasses.replace(jax_cfg, infer_compute_dtype=dtype))
-        return model.apply({"params": p}, *a, max_frames, method=JaxSynthesizer.infer,
-                           rngs={"noise": jax.random.key(0)}, **knobs)
-
-    run = jax.jit(infer, static_argnums=1)
+    max_frames, knobs = INFER_MAX_FRAMES, INFER_KNOBS
     args = _inputs()
-    with force_lax_attention():
-        want = {dt: [np.asarray(o) for o in run(params, dt, *args)]
-                for dt in ("float32", "bfloat16")}
+    got = golden_values.load(INFER_BF16, infer_fingerprint(params, args),
+                             "tests/goldens/make_infer_bf16.py")
+    want = {dt: [got[f"{dt}/{i}"] for i in range(4)] for dt in ("float32", "bfloat16")}
     with torch.inference_mode():
         wave, attn, y_mask, y_len = port.infer(*(torch.tensor(a) for a in args),
                                                max_frames, **knobs)

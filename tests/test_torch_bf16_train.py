@@ -76,6 +76,7 @@ from bert_vits2_tpu_torch.train import (
     make_train_step,
     step as port_step,
 )
+import golden_values
 from test_torch_modules import _cf, _mask, _t, random_synth_params
 from test_torch_train_modules import MPD, TINY, build_discriminators, patch_noise
 from test_torch_train_ops import _Tiny
@@ -200,14 +201,10 @@ def reference_inputs():
 
 
 def fingerprint(p_g, p_d, x, batch) -> np.ndarray:
-    """A few float64 sums over every parameter and input value."""
-    vals = np.concatenate(
-        [np.asarray(a, np.float64).ravel() for a in jax.tree.leaves((p_g, p_d))]
-        + [np.asarray(d[k], np.float64).ravel() for d in (x, batch) for k in sorted(d)
-           if k != "r"]
-        + [r.astype(np.float64).ravel() for r in x["r"]])
-    return np.asarray([vals.size, vals.sum(), np.abs(vals).sum(),
-                       (vals * (np.arange(vals.size) % 7)).sum()])
+    """Of every parameter and input value, the models' configs and the
+    step's constants."""
+    consts = [LR, NOISE_SEED, MAS_DRAW, TINY, MPD, DATA]
+    return golden_values.fingerprint(p_g, p_d, x, batch, consts)
 
 
 @pytest.fixture(scope="module")
@@ -217,15 +214,9 @@ def reference():
     from `reference_inputs`, whose fingerprint must match): the stages'
     outputs and gradients, the bf16 step's metrics and updated parameters."""
     jax_model, p_g, jmpd, p_d, x, batch = reference_inputs()
-    with np.load(GOLDENS) as f:
-        assert np.array_equal(f["fingerprint"], fingerprint(p_g, p_d, x, batch)), (
-            "the inputs changed: run tests/goldens/make_bf16_train.py")
-        want = {k: f[k] for k in f.files}
-
-    def pick(prefix):
-        return {k[len(prefix):]: v for k, v in want.items() if k.startswith(prefix)}
-
-    return jax_model, p_g, jmpd, p_d, x, batch, pick
+    want = golden_values.load(GOLDENS, fingerprint(p_g, p_d, x, batch),
+                              "tests/goldens/make_bf16_train.py")
+    return jax_model, p_g, jmpd, p_d, x, batch, lambda prefix: golden_values.pick(want, prefix)
 
 
 def _port_models(p_g, p_d, dtype):

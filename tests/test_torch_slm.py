@@ -74,6 +74,7 @@ from bert_vits2_tpu_torch.train import (
     init_train_state,
     make_train_step,
 )
+import golden_values
 from test_torch_modules import _t, random_tree
 from test_torch_train_modules import DD, MPD, TINY, patch_noise
 from test_torch_train_step import BATCH_KEYS, DATA, MAS_DRAW, make_batch
@@ -358,13 +359,19 @@ def test_reference_encoder_matches_jax():
     assert np.abs(got - want).max() <= 1e-5
 
 
-@pytest.fixture(scope="module")
-def no_speakers():
-    """A tiny Synthesizer with n_speakers == 0, random weights in both
-    packages, and the JAX forward (the noise tape) and infer (zero noise)
-    on one batch, in one jitted function."""
+NO_SPEAKERS = os.path.join(os.path.dirname(__file__), "goldens", "no_speakers.npz")
+NO_SPEAKERS_INFER = ("x", "x_lengths", "sid", "tone", "language", "bert", "ja_bert",
+                     "en_bert")
+NO_SPEAKERS_SEED, NO_SPEAKERS_MAS_NOISE = 6, 0.01  # the forward's noise tape, MAS noise
+NO_SPEAKERS_FRAMES = 40  # infer's frame cap
+
+
+def no_speakers_inputs():
+    """The tiny JAX Synthesizer with n_speakers == 0, a random tree for it and
+    one batch: what tests/goldens/make_no_speakers.py computes the JAX
+    forward (the noise tape, NO_SPEAKERS_SEED) and infer (zero noise,
+    NO_SPEAKERS_FRAMES frames, y = the batch's spec) from."""
     jax_model = JaxSynthesizer(JaxModelConfig(**TINY0))
-    batch = make_batch(seed=4)
     z = lambda *s, dt=jnp.float32: jnp.zeros(s, dt)  # noqa: E731
     shapes = jax.eval_shape(lambda: jax_model.init(
         {"params": jax.random.key(0), "noise": jax.random.key(1),
@@ -372,37 +379,37 @@ def no_speakers():
         z(1, 8, dt=jnp.int32), jnp.asarray([8]), z(1, 16, 33), jnp.asarray([16]),
         z(1, dt=jnp.int32), z(1, 8, dt=jnp.int32), z(1, 8, dt=jnp.int32),
         z(1, 8, 16), z(1, 8, 16), z(1, 8, 16), deterministic=True))["params"]
-    params = random_tree(shapes, seed=12)
+    return jax_model, random_tree(shapes, seed=12), make_batch(seed=4)
+
+
+def no_speakers_fingerprint(params, batch) -> np.ndarray:
+    """Of the tree, the batch, the model config and the calls' constants."""
+    return golden_values.fingerprint(params, batch, TINY0, NO_SPEAKERS_SEED,
+                                     NO_SPEAKERS_MAS_NOISE, NO_SPEAKERS_FRAMES)
+
+
+@pytest.fixture(scope="module")
+def no_speakers():
+    """A tiny Synthesizer with n_speakers == 0, random weights in both
+    packages, and the JAX forward and infer on one batch, from
+    tests/goldens/no_speakers.npz (whose fingerprint of the tree and the
+    batch must match)."""
+    _, params, batch = no_speakers_inputs()
     assert "ref_enc" in params and "emb_g" not in params
     port = build_synthesizer(ModelConfig(**TINY0), device="cpu")
     port.load_state_dict(from_jax_params(params), strict=True)
-    keys = ("x", "x_lengths", "sid", "tone", "language", "bert", "ja_bert", "en_bert")
-
-    def both(p, b):
-        fwd = jax_model.apply(
-            {"params": p}, *(b[k] for k in BATCH_KEYS), mas_noise_scale=0.01,
-            deterministic=True, rngs={"noise": jax.random.key(0)})
-        inf = jax_model.apply(
-            {"params": p}, *(b[k] for k in keys), 40, noise_scale=0.0,
-            noise_scale_w=0.0, y=b["spec"], method=JaxSynthesizer.infer,
-            rngs={"noise": jax.random.key(0)})
-        return fwd, inf
-
-    with pytest.MonkeyPatch.context() as mp:
-        patch_noise(mp, seed=6)
-        # the compile dominates this file: skip LLVM's expensive passes
-        run = jax.jit(both).lower(params, batch).compile(compiler_options={
-            "xla_llvm_disable_expensive_passes": True,
-            "xla_backend_optimization_level": 0})
-        want_fwd, want_inf = jax.device_get(run(params, batch))
-    return port, batch, want_fwd, want_inf
+    want = golden_values.load(NO_SPEAKERS, no_speakers_fingerprint(params, batch),
+                              "tests/goldens/make_no_speakers.py")
+    want_inf = [want[f"inf/{i}"] for i in range(4)]
+    return port, batch, golden_values.pick(want, "fwd/"), want_inf
 
 
 def test_no_speakers_forward_matches_jax(no_speakers, monkeypatch):
     port, batch, want, _ = no_speakers
-    patch_noise(monkeypatch, seed=6, keep_layout=(MAS_DRAW,))
+    patch_noise(monkeypatch, seed=NO_SPEAKERS_SEED, keep_layout=(MAS_DRAW,))
     with torch.no_grad():
-        got = port.eval()(*(_t(batch[k]) for k in BATCH_KEYS), mas_noise_scale=0.01)
+        got = port.eval()(*(_t(batch[k]) for k in BATCH_KEYS),
+                          mas_noise_scale=NO_SPEAKERS_MAS_NOISE)
     assert np.array_equal(got["attn"].numpy(), want["attn"])
     assert np.array_equal(got["ids_slice"].numpy(), want["ids_slice"])
     assert np.abs(got["g"].numpy() - want["g"]).max() <= 1e-5
@@ -418,13 +425,13 @@ def test_no_speakers_forward_matches_jax(no_speakers, monkeypatch):
 
 def test_no_speakers_infer_matches_jax(no_speakers):
     port, batch, _, (w_wave, w_attn, w_mask, w_len) = no_speakers
-    keys = ("x", "x_lengths", "sid", "tone", "language", "bert", "ja_bert", "en_bert")
+    keys = NO_SPEAKERS_INFER
     with torch.no_grad():
         wave, attn, y_mask, y_len = port.eval().infer(
-            *(_t(batch[k]) for k in keys), 40, noise_scale=0.0, noise_scale_w=0.0,
-            y=_t(batch["spec"]))
+            *(_t(batch[k]) for k in keys), NO_SPEAKERS_FRAMES, noise_scale=0.0,
+            noise_scale_w=0.0, y=_t(batch["spec"]))
         with pytest.raises(ValueError, match="n_speakers == 0"):
-            port.infer(*(_t(batch[k]) for k in keys), 40)
+            port.infer(*(_t(batch[k]) for k in keys), NO_SPEAKERS_FRAMES)
     assert np.array_equal(y_len.numpy(), w_len)
     assert np.array_equal(attn.numpy(), w_attn)
     hop = 16

@@ -7,10 +7,13 @@ precision "highest".
 Dropout is not a parity surface (the two frameworks draw other masks), and
 the JAX step hard-codes `deterministic=False`. So the forward is held with
 `deterministic=True` against the port in eval() mode, and the step is held
-against a JAX step composed here from the JAX package's own functions in
-the order of its `d_loss_fn`, `dd_loss_fn` and `g_loss_fn`
+against a JAX step composed from the JAX package's own functions in the
+order of its `d_loss_fn`, `dd_loss_fn` and `g_loss_fn`
 (bert_vits2_tpu/train/step.py:294-421) with `deterministic=True`, while the
-port runs its real `step` with every dropout rate set to 0.
+port runs its real `step` with every dropout rate set to 0. The JAX side's
+values come from tests/goldens/train_step.npz, which
+tests/goldens/make_train_step.py (that composition) computes from this
+file's `reference_inputs`; the tests check the inputs' fingerprint first.
 
 Tolerances: the forward's `attn` and `ids_slice` exactly, every other output
 to 1e-4 max-abs-err (errors of ~1e-6 per module compound through the
@@ -20,19 +23,14 @@ name to 1e-4 relative; every gradient leaf to 1e-3 of that leaf's norm
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
 import torch
 
 import jax
-import jax.numpy as jnp
-import optax
 
-from bert_vits2_tpu.ops.masking import slice_segments as jax_slice_segments
-from bert_vits2_tpu.ops.stft import mel_spectrogram as jax_mel_spectrogram
-from bert_vits2_tpu.ops.stft import spec_to_mel as jax_spec_to_mel
-from bert_vits2_tpu.train import losses as jax_losses
 from bert_vits2_tpu.train import step as jax_step
 from bert_vits2_tpu_torch.compat.params import (
     from_jax_dur_disc_params,
@@ -54,6 +52,7 @@ from bert_vits2_tpu_torch.train import (
     init_train_state,
     make_train_step,
 )
+import golden_values
 from test_torch_modules import _t
 from test_torch_train_modules import (
     DD,
@@ -63,6 +62,7 @@ from test_torch_train_modules import (
     build_pair,
     patch_noise,
 )
+from torch_one_thread import one_torch_thread_except
 
 DATA = dict(sampling_rate=1600, filter_length=64, hop_length=16, win_length=64,
             n_mel_channels=16, mel_fmin=0.0, mel_fmax=None)
@@ -71,6 +71,12 @@ NOISE_SEED = 6
 LR = 1e-4
 BATCH_KEYS = ("x", "x_lengths", "spec", "spec_lengths", "sid", "tone",
               "language", "bert", "ja_bert", "en_bert")
+GRADS = ("grads_g", "grads_d", "grads_dd")
+GOLDENS = os.path.join(os.path.dirname(__file__), "goldens", "train_step.npz")
+
+# the gradient bound holds in torch's default summation order (1.11e-3 of
+# 1e-3 on sdp.post_flows.0.logs with one thread)
+one_thread_but_gradients = one_torch_thread_except("test_train_step_losses_and_gradients")
 
 
 def make_batch(b=4, t_x=9, t_y=24, seed=0):
@@ -91,13 +97,6 @@ def make_batch(b=4, t_x=9, t_y=24, seed=0):
     )
 
 
-def _jax_forward(jax_model, params, batch):
-    return jax_model.apply(
-        {"params": params}, *(batch[k] for k in BATCH_KEYS),
-        mas_noise_scale=0.01, deterministic=True,
-        rngs={"noise": jax.random.key(0)})
-
-
 def _to_port_layout(name, a):
     a = np.asarray(a)
     if name in ("x_mask", "y_mask"):
@@ -107,99 +106,33 @@ def _to_port_layout(name, a):
     return a
 
 
-def _jax_step(jax_model, jmpd, jdd, data_cfg, seg):
-    """The JAX step's mathematics with deterministic=True: D update, duration
-    D update, then the generator loss against the updated discriminators.
-    The generator forward is traced once (`jax.vjp`) and serves all three
-    losses, as the step's two forwards with equal rngs do."""
-    hop = data_cfg.hop_length
-    mel_args = (data_cfg.filter_length, data_cfg.n_mel_channels,
-                data_cfg.sampling_rate)
-    tx_d = jax_step.make_optimizer(jax_step.TrainConfig(), None)
-    sg = jax.lax.stop_gradient
+def reference_inputs():
+    """(JAX Synthesizer, its random tree, the port's model), the same for
+    the multi-period and the duration discriminator, and the batch: what
+    tests/goldens/make_train_step.py computes the JAX values from."""
+    return (build_pair(seed=30), *build_discriminators(seed=32), make_batch())
 
-    def update(params, grads):
-        opt = jax_step._set_lr(tx_d.init(params), LR)
-        upd, _ = tx_d.update(grads, opt, params)
-        return optax.apply_updates(params, upd)
 
-    def dd_pairs(p_dd, o, sg):
-        args = [sg(o[k]) for k in ("x_hidden", "x_mask", "logw_")]
-        r1, g1 = jdd.apply({"params": p_dd}, *args, sg(o["logw"]), g=sg(o["g"]))
-        r2, g2 = jdd.apply({"params": p_dd}, *args, sg(o["logw_sdp"]), g=sg(o["g"]))
-        return [r1, r2], [g1, g2]
-
-    def run(p_g, p_d, p_dd, batch):
-        def forward(p):
-            o = _jax_forward(jax_model, p, batch)
-            return o, o.pop("ids_slice")
-
-        out, vjp_fn, ids = jax.vjp(forward, p_g, has_aux=True)
-        mel = jax_spec_to_mel(batch["spec"], *mel_args, data_cfg.mel_fmin,
-                              data_cfg.mel_fmax)
-        y_mel = jax_slice_segments(mel, ids, seg)
-        y_slice = jax_slice_segments(batch["wave"][..., None], ids * hop,
-                                     seg * hop)[..., 0]
-
-        def d_loss_fn(p):
-            y_d_r, y_d_g, _, _ = jmpd.apply({"params": p}, y_slice,
-                                            sg(out["wave_slice"]))
-            return jax_losses.discriminator_loss(y_d_r, y_d_g)[0]
-
-        def dd_loss_fn(p):
-            return jax_losses.discriminator_loss(*dd_pairs(p, out, sg))[0]
-
-        loss_d, grads_d = jax.value_and_grad(d_loss_fn)(p_d)
-        loss_dd, grads_dd = jax.value_and_grad(dd_loss_fn)(p_dd)
-        p_d2, p_dd2 = update(p_d, grads_d), update(p_dd, grads_dd)
-
-        def g_loss_fn(o):
-            yh = o["wave_slice"]
-            yh_mel = jax_mel_spectrogram(yh, *mel_args, hop, data_cfg.win_length,
-                                         data_cfg.mel_fmin, data_cfg.mel_fmax)
-            _, y_d_g, fmap_r, fmap_g = jmpd.apply({"params": p_d2}, y_slice, yh)
-            aux = {
-                "loss/g/gen": jax_losses.generator_loss(y_d_g)[0],
-                "loss/g/fm": jax_losses.feature_loss(fmap_r, fmap_g),
-                "loss/g/mel": jnp.mean(jnp.abs(y_mel - yh_mel)) * 45.0,
-                "loss/g/dur": jnp.sum(o["l_length"]),
-                "loss/g/kl": jax_losses.kl_loss(o["z_p"], o["logs_q"], o["m_p"],
-                                                o["logs_p"], o["y_mask"]),
-                "loss/g/dur_gen": jax_losses.generator_loss(
-                    dd_pairs(p_dd2, o, lambda a: a)[1])[0],
-            }
-            return sum(aux.values()), aux
-
-        (loss_g, aux), d_out = jax.value_and_grad(g_loss_fn, has_aux=True)(out)
-        (grads_g,) = vjp_fn(d_out)
-        metrics = dict(aux)
-        metrics.update({"loss/d/total": loss_d, "loss/dur_disc/total": loss_dd,
-                        "loss/g/total": loss_g,
-                        "grad_norm_g": optax.global_norm(grads_g),
-                        "grad_norm_d": optax.global_norm(grads_d),
-                        "grad_norm_dur": optax.global_norm(grads_dd)})
-        return dict(out, ids_slice=ids), metrics, grads_g, grads_d, grads_dd
-
-    return jax.jit(run)
+def fingerprint(p_g, p_d, p_dd, batch) -> np.ndarray:
+    """Of every parameter and batch value, the models' configs and the
+    step's constants."""
+    consts = [LR, NOISE_SEED, MAS_DRAW, TINY, MPD, DD, DATA]
+    return golden_values.fingerprint(p_g, p_d, p_dd, batch, consts)
 
 
 @pytest.fixture(scope="module")
 def ran():
     """Both packages' models with equal weights, one batch, and the JAX
-    side's forward outputs, losses and gradients on it (one compile)."""
-    jax_model, p_g, synth = build_pair(seed=30)
-    (jmpd, p_d, mpd), (jdd, p_dd, dd) = build_discriminators(seed=32)
-    batch = make_batch()
-    with pytest.MonkeyPatch.context() as mp:
-        patch_noise(mp, seed=NOISE_SEED)
-        run = _jax_step(jax_model, jmpd, jdd, jax_step.DataConfig(**DATA),
-                        TINY["segment_size"])
-        # the compile dominates this file: skip LLVM's expensive passes
-        run = run.lower(p_g, p_d, p_dd, batch).compile(compiler_options={
-            "xla_llvm_disable_expensive_passes": True,
-            "xla_backend_optimization_level": 0})
-        result = jax.device_get(run(p_g, p_d, p_dd, batch))
-    return (synth, mpd, dd), batch, result
+    side's forward outputs, losses and gradients on it, from
+    tests/goldens/train_step.npz (written by tests/goldens/make_train_step.py
+    from `reference_inputs`, whose fingerprint must match)."""
+    (_, p_g, synth), (_, p_d, mpd), (_, p_dd, dd), batch = reference_inputs()
+    want = golden_values.load(GOLDENS, fingerprint(p_g, p_d, p_dd, batch),
+                              "tests/goldens/make_train_step.py")
+    grads = [golden_values.unflatten(golden_values.pick(want, name + "/"))
+             for name in GRADS]
+    return (synth, mpd, dd), batch, (golden_values.pick(want, "out/"),
+                                     golden_values.pick(want, "metric/"), *grads)
 
 
 def test_training_forward(ran, monkeypatch):
