@@ -80,6 +80,44 @@ def compute_dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
+def sdp_noise(x_h: torch.Tensor, noise_scale_w, generator=None) -> torch.Tensor:
+    """The SDP's reverse noise [b, 2, t_x]: a standard normal draw from
+    `generator` times noise_scale_w (() or [b])."""
+    b, _, t = x_h.shape
+    return torch.randn((b, 2, t), generator=generator, device=x_h.device,
+                       dtype=x_h.dtype) * _knob(noise_scale_w, 3, x_h)
+
+
+def durations(logw_sdp, logw_dp, x_mask, sdp_ratio, length_scale) -> torch.Tensor:
+    """The two predictors' log-durations [b, 1, t_x] mixed by sdp_ratio ->
+    frames per token w [b, t_x] (unrounded), masked and length-scaled."""
+    ratio = _knob(sdp_ratio, 3, logw_dp)
+    logw = logw_sdp * ratio + logw_dp * (1.0 - ratio)
+    return torch.exp(logw[:, 0]) * x_mask[:, 0] * _knob(length_scale, 2, logw_dp)
+
+
+def expand_prior(w, m_p, logs_p, x_mask, max_frames: int, noise_scale,
+                 generator=None, eps=None):
+    """Durations w [b, t_x] -> the prior sample at the frame rate:
+    (z_p [b, c, max_frames] float32, attn [b, t_y, t_x], y_mask [b, t_y],
+    y_lengths [b] int32). eps [b, max_frames, c]: the noise before
+    noise_scale (else drawn from `generator`)."""
+    w_ceil = torch.ceil(w)
+    y_lengths = torch.sum(w_ceil, dim=-1).clamp(min=1.0)
+    y_lengths = torch.clamp(y_lengths, max=max_frames).to(torch.int32)
+    y_mask = sequence_mask(y_lengths, max_frames)
+    attn = generate_path(w_ceil, x_mask[:, 0], y_mask)  # [b, t_y, t_x]
+    m_p_y = torch.einsum("byx,bcx->bcy", attn, m_p)
+    logs_p_y = torch.einsum("byx,bcx->bcy", attn, logs_p)
+    if eps is not None:
+        eps = eps.transpose(1, 2).to(m_p_y.dtype)
+    else:
+        eps = torch.randn(m_p_y.shape, generator=generator,
+                          device=m_p_y.device, dtype=m_p_y.dtype)
+    z_p = m_p_y + eps * torch.exp(logs_p_y) * _knob(noise_scale, 3, m_p_y)
+    return z_p, attn, y_mask, y_lengths
+
+
 @torch.no_grad()
 def cast_copy(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """An inference copy of `module` in `dtype`, as the JAX package's convs
@@ -278,17 +316,13 @@ class Synthesizer(nn.Module):
         x_h, m_p, logs_p, x_mask = self.enc_p(
             x, x_lengths, tone, language, bert.transpose(1, 2),
             ja_bert.transpose(1, 2), en_bert.transpose(1, 2), emo=emo, g=g)
-        b, _, t = x_h.shape
         if z_in is not None:
             z = z_in.transpose(1, 2).to(x_h.dtype)
         else:
-            z = torch.randn((b, 2, t), generator=generator, device=x_h.device,
-                            dtype=x_h.dtype) * _knob(noise_scale_w, 3, x_h)
+            z = sdp_noise(x_h, noise_scale_w, generator)
         logw_sdp = self.sdp.reverse(x_h, x_mask, z, g=g)
         logw_dp = self.dp(x_h, x_mask, g=g)
-        ratio = _knob(sdp_ratio, 3, x_h)
-        logw = logw_sdp * ratio + logw_dp * (1.0 - ratio)
-        w = torch.exp(logw[:, 0]) * x_mask[:, 0] * _knob(length_scale, 2, x_h)
+        w = durations(logw_sdp, logw_dp, x_mask, sdp_ratio, length_scale)
         return w, m_p, logs_p, x_mask, g
 
     def predict_durations(self, x, x_lengths, sid, tone, language, bert,
@@ -323,19 +357,8 @@ class Synthesizer(nn.Module):
         w, m_p, logs_p, x_mask, g = self._durations(
             x, x_lengths, sid, tone, language, bert, ja_bert, en_bert,
             length_scale, noise_scale_w, sdp_ratio, generator, z_in, y, emo)
-        w_ceil = torch.ceil(w)
-        y_lengths = torch.sum(w_ceil, dim=-1).clamp(min=1.0)
-        y_lengths = torch.clamp(y_lengths, max=max_frames).to(torch.int32)
-        y_mask = sequence_mask(y_lengths, max_frames)
-        attn = generate_path(w_ceil, x_mask[:, 0], y_mask)  # [b, t_y, t_x]
-        m_p_y = torch.einsum("byx,bcx->bcy", attn, m_p)
-        logs_p_y = torch.einsum("byx,bcx->bcy", attn, logs_p)
-        if eps is not None:
-            eps = eps.transpose(1, 2).to(m_p_y.dtype)
-        else:
-            eps = torch.randn(m_p_y.shape, generator=generator,
-                              device=m_p_y.device, dtype=m_p_y.dtype)
-        z_p = m_p_y + eps * torch.exp(logs_p_y) * _knob(noise_scale, 3, m_p_y)
+        z_p, attn, y_mask, y_lengths = expand_prior(
+            w, m_p, logs_p, x_mask, max_frames, noise_scale, generator, eps)
         flow, dec = stages if stages is not None else self.compute_stages()
         dt = self.compute_dtype
         z_p, y_mask_c, g_c = z_p.to(dt), y_mask.to(dt), g.to(dt)

@@ -37,8 +37,9 @@ from torch import nn
 
 
 def _as(p: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor | None:
-    """A parameter (or the resolved weight) in the dtype of the input x."""
-    return None if p is None else p.to(x.dtype)
+    """A parameter (or the resolved weight) in the dtype of the input x
+    (the tensor itself when it has that dtype: no cast in a traced graph)."""
+    return p if p is None or p.dtype == x.dtype else p.to(x.dtype)
 
 
 class Conv1d(nn.Conv1d):

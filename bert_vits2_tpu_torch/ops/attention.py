@@ -40,11 +40,15 @@ Beside them:
   sums); the band terms from the fp32 ds and dropped p against the table;
   dq, dk, dv rounded to bf16 at the end; dek, dev summed in fp32 and
   rounded to the table's dtype.
-- `banded_rel_self_attention`, the public wrapper: the plain version for
-  CPU tensors (in bf16 with a gradient wanted, `BandedAttentionFn` on the
-  plain versions, so the backward rounds as the kernels do); for CUDA
-  tensors the inference launch of K1, or, when a gradient is wanted or
-  dropout is on, `BandedAttentionFn` (K1 in train mode forward, B5 and B6
+- `banded_rel_self_attention`, the public wrapper: without a gradient or
+  dropout, one of the four forward ops `torch.ops.bv2.banded_attn_fwd`,
+  `banded_attn_fwd_bf16`, `banded_attn_wide_fwd`, `banded_attn_wide_fwd_bf16`
+  (`FORWARD_OPS`, `ops/library.py`), chosen by dtype and shape: on CUDA
+  tensors the op launches the kernel, on CPU tensors it runs the plain
+  version; when a gradient is wanted or dropout is on, the plain version
+  on the CPU (in bf16 with a gradient, `BandedAttentionFn` on the plain
+  versions, so the backward rounds as the kernels do) and
+  `BandedAttentionFn` on the card (K1 in train mode forward, B5 and B6
   backward), each in the variant the shape takes; an error for anything
   else. Every entry point takes float32 or bfloat16 operands: the bf16
   modes are K1's (`banded_attention_fwd_bf16`,
@@ -55,8 +59,10 @@ Beside them:
 - `banded_kernels_support`, the tensor-core kernels' range of shapes.
 
 Each kernel launcher counts its launches in its `launches` attribute: the
-wrappers count the tensor-core kernels' float32 launches, the `*_bf16` and
-`wide_*` functions their own.
+wrappers count the tensor-core kernels' float32 launches (the inference
+one in `banded_attention_fwd`, the launch of the `banded_attn_fwd` op),
+the `*_bf16` and `wide_*` functions their own; a program that
+`torch.export` traced runs the same ops, so its launches count too.
 
 Dropout is the JAX package's counter-based position hash (`hash_keep`):
 the keep mask of probability (row i, column j) of batch row b and head
@@ -72,6 +78,7 @@ import torch
 import torch.nn.functional as F
 
 from bert_vits2_tpu_torch import _build
+from bert_vits2_tpu_torch.ops import library
 
 NEG_FILL = -1e4  # the reference's mask fill: a fully masked row is uniform
 MAX_HEAD_DIM = 128  # the tensor-core kernels' widest head and window
@@ -629,7 +636,13 @@ def banded_rel_self_attention(q, k, v, x_mask, emb_rel_k, emb_rel_v,
     probabilities at rate `dropout_p` from the int32 `dropout_seed`
     (required when dropout_p > 0). Returns [b, h, t, d]; rows where x_mask
     is 0 are unspecified. Differentiable with respect to q, k, v and the
-    tables."""
+    tables.
+
+    Without a gradient or dropout the call goes through one of the four
+    `bv2` forward ops (`ops/library.py`), chosen by dtype and by
+    `banded_kernels_support`: on the card each launches its kernel, on the
+    CPU each runs the plain version. Inside `plain_functions()` the plain
+    version runs directly on CPU tensors, and other tensors raise."""
     w = int(window_size)
     tensors = (q, k, v, x_mask, emb_rel_k, emb_rel_v)
     _check_shapes(*tensors, w)
@@ -642,17 +655,25 @@ def banded_rel_self_attention(q, k, v, x_mask, emb_rel_k, emb_rel_v,
         if grad and q.dtype == torch.bfloat16:  # the explicit bf16 backward
             return BandedAttentionFn.apply(*tensors, w, float(dropout_p),
                                            dropout_seed)
-        return banded_attention_plain(*tensors, w, dropout_p, dropout_seed)
+        if grad or dropout_p or library.plain_only():
+            return banded_attention_plain(*tensors, w, dropout_p, dropout_seed)
+        return _forward_op(q.dtype, banded_kernels_support(*q.shape, w, q.dtype))(
+            *tensors, w)
+    library.refuse_plain(q.device)
     if grad or dropout_p:
         return BandedAttentionFn.apply(*tensors, w, float(dropout_p),
                                        dropout_seed)
     tensor_cores = _check_kernel_inputs(tensors, w)
     if q.dtype == torch.bfloat16:
         tensors = (q, k, v, x_mask.to(q.dtype), emb_rel_k, emb_rel_v)
-        return (banded_attention_fwd_bf16 if tensor_cores else wide_fwd_bf16)(
-            tensors, w)
-    if not tensor_cores:
-        return wide_fwd(tensors, w)
+    return _forward_op(q.dtype, tensor_cores)(*tensors, w)
+
+
+def banded_attention_fwd(tensors, w: int) -> torch.Tensor:
+    """K1's inference launch (csrc/banded_attn.cu) on checked float32
+    inputs (q, k, v, x_mask, emb_rel_k, emb_rel_v) -> out, counted in
+    `banded_rel_self_attention.launches`."""
+    q = tensors[0]
     b, h, t, d = q.shape
     out = torch.empty_like(q)
     err = _build.library("banded_attn.cu").banded_attn_fwd(
@@ -660,6 +681,42 @@ def banded_rel_self_attention(q, k, v, x_mask, emb_rel_k, emb_rel_v,
     _build.check(err, "banded_attn_fwd")
     banded_rel_self_attention.launches += 1
     return out
+
+
+_FWD_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor x_mask, Tensor emb_rel_k, "
+               "Tensor emb_rel_v, int window_size) -> Tensor")
+
+
+def _define_forward(name: str, launch):
+    """bv2::<name>: the CPU implementation the plain version, the CUDA one
+    `launch` on the inputs the wrapper checked."""
+    return library.define(
+        name, _FWD_SCHEMA,
+        lambda q, k, v, x_mask, ek, ev, window_size: banded_attention_plain(
+            q, k, v, x_mask, ek, ev, window_size),
+        lambda q, k, v, x_mask, ek, ev, window_size: launch(
+            (q, k, v, x_mask, ek, ev), window_size),
+        lambda q, *_: torch.empty_like(q))
+
+
+# the inference entry points: torch.ops.bv2.banded_attn_fwd (K1 fp32),
+# banded_attn_fwd_bf16 (K1 bf16), banded_attn_wide_fwd and
+# banded_attn_wide_fwd_bf16 (csrc/banded_attn_wide.cu)
+FORWARD_OPS = {
+    (torch.float32, True): _define_forward("banded_attn_fwd", banded_attention_fwd),
+    (torch.bfloat16, True): _define_forward("banded_attn_fwd_bf16",
+                                            banded_attention_fwd_bf16),
+    (torch.float32, False): _define_forward("banded_attn_wide_fwd", wide_fwd),
+    (torch.bfloat16, False): _define_forward("banded_attn_wide_fwd_bf16",
+                                             wide_fwd_bf16),
+}
+
+
+def _forward_op(dtype: torch.dtype, tensor_cores: bool):
+    """The forward op of a dtype (bf16, or float32 for any other on the
+    CPU) and of the tensor-core kernels or the wide ones."""
+    return FORWARD_OPS[(torch.bfloat16 if dtype == torch.bfloat16 else torch.float32,
+                        tensor_cores)]
 
 
 banded_rel_self_attention.launches = 0

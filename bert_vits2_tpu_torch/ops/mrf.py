@@ -18,9 +18,12 @@ the design answers that. Beside it:
 - `fused_mrf_plain`, the same function in plain PyTorch (`F.conv1d`), which
   the CPU runs and the tests and `chip_smoke.py` hold the kernel against;
   in bf16 it rounds where the TPU kernel rounds (mrf_pallas.py:150-203).
-- `fused_mrf`, the wrapper: plain version for CPU tensors, the kernel for
-  CUDA tensors. Its `launches` attribute counts launches of the float32
-  mode, `mrf_fwd_bf16.launches` those of the bf16 mode.
+- `fused_mrf`, the wrapper: through the custom op of x's dtype,
+  `torch.ops.bv2.mrf_fwd` or `mrf_fwd_bf16` (`MRF_OPS`, `ops/library.py`,
+  the weights as `MrfWeights.op_args`), the plain version for CPU tensors,
+  the kernel for CUDA tensors. Its `launches` attribute counts launches of
+  the float32 mode (`mrf_fwd`), `mrf_fwd_bf16.launches` those of the bf16
+  mode.
 
 Layout is the port's [B, C, T]; the mask is [B, T] and always applied (an
 all-ones mask reproduces the unmasked ResBlock, the zero padding at the
@@ -31,11 +34,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from bert_vits2_tpu_torch import _build
+from bert_vits2_tpu_torch.ops import library
 from bert_vits2_tpu_torch.nn.conv import resolved_weight
 
 LRELU_SLOPE = 0.1
@@ -92,6 +97,31 @@ class MrfWeights:
     def halo(self) -> int:
         return max(sum((k - 1) // 2 * d + (k - 1) // 2 for d in ds)
                    for k, ds in zip(self.kernel_sizes, self.dilations))
+
+    @functools.cached_property
+    def op_args(self) -> tuple:
+        """The weights as the `bv2` MRF ops take them: (flat, convs,
+        kernel_sizes, stages, dilations, offsets), the nested tuples
+        flattened (`stages`: the dilations per block)."""
+        return (self.flat, [p for blk in self.convs for quad in blk for p in quad],
+                list(self.kernel_sizes), [len(ds) for ds in self.dilations],
+                [d for ds in self.dilations for d in ds],
+                [o for offs in self.offsets for o in offs])
+
+    @classmethod
+    def from_op_args(cls, flat, convs, kernel_sizes, stages, dilations, offsets,
+                     dtype: torch.dtype) -> "MrfWeights":
+        """The inverse of `op_args`."""
+        nested, dils, i = [], [], 0
+        for n in stages:
+            nested.append(tuple(tuple(convs[4 * (i + s):4 * (i + s + 1)])
+                                for s in range(n)))
+            dils.append(tuple(dilations[i:i + n]))
+            i += n
+        return cls(kernel_sizes=tuple(kernel_sizes), dilations=tuple(dils),
+                   convs=tuple(nested), flat=flat,
+                   offsets=tuple(tuple(offsets[4 * j:4 * j + 4]) for j in range(i)),
+                   dtype=dtype)
 
 
 def tf32_round(v: torch.Tensor) -> torch.Tensor:
@@ -243,7 +273,11 @@ def pick_tile(channels: int, t: int, halo: int) -> int:
 
 def fused_mrf(x: torch.Tensor, mask: torch.Tensor,
               weights: MrfWeights) -> torch.Tensor:
-    """Averaged MRF output [B, C, T] of x [B, C, T] under mask [B, T]."""
+    """Averaged MRF output [B, C, T] of x [B, C, T] under mask [B, T],
+    through the `bv2` MRF op of x's dtype (`ops/library.py`): the kernel
+    for CUDA tensors, the plain version for CPU ones; inside
+    `plain_functions()` the plain version directly on CPU tensors (others
+    raise)."""
     if torch.is_grad_enabled() and x.requires_grad:
         raise RuntimeError("fused_mrf is inference-only")
     b, c, t = x.shape
@@ -255,22 +289,19 @@ def fused_mrf(x: torch.Tensor, mask: torch.Tensor,
     if c != weights.channels or not stage_supported(
             c, weights.kernel_sizes, weights.dilations, x.dtype):
         raise ValueError(f"unsupported MRF stage: C={c}, {x.dtype}")
-    if x.device.type == "cpu":
+    if x.device.type != "cpu":
+        library.refuse_plain(x.device)
+        if x.device.type != "cuda":
+            raise ValueError(f"no kernel for device {x.device}")
+        if mask.dtype != x.dtype or weights.flat.dtype != torch.float32:
+            raise ValueError("the kernel takes x and the mask in one dtype")
+        if mask.device != x.device or weights.flat.device != x.device:
+            raise ValueError("all inputs must lie on one device")
+        if not (x.is_contiguous() and mask.is_contiguous()):
+            raise ValueError("the kernel takes contiguous inputs")
+    elif library.plain_only():
         return fused_mrf_plain(x, mask, weights)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    if mask.dtype != x.dtype or weights.flat.dtype != torch.float32:
-        raise ValueError("the kernel takes x and the mask in one dtype")
-    if mask.device != x.device or weights.flat.device != x.device:
-        raise ValueError("all inputs must lie on one device")
-    if not (x.is_contiguous() and mask.is_contiguous()):
-        raise ValueError("the kernel takes contiguous inputs")
-    if x.dtype == torch.bfloat16:
-        return mrf_fwd_bf16(x, mask, weights)
-    out = torch.empty_like(x)
-    _launch("mrf_fwd", x, mask, weights, out)
-    fused_mrf.launches += 1
-    return out
+    return MRF_OPS[x.dtype](x, mask, *weights.op_args)
 
 
 def _launch(entry: str, x, mask, weights, out, *scratch) -> None:
@@ -298,6 +329,16 @@ def _launch(entry: str, x, mask, weights, out, *scratch) -> None:
     _build.check(err, entry)
 
 
+def mrf_fwd(x: torch.Tensor, mask: torch.Tensor,
+            weights: MrfWeights) -> torch.Tensor:
+    """K2's float32 mode on checked inputs (`fused_mrf` checks them),
+    counted in `fused_mrf.launches`."""
+    out = torch.empty_like(x)
+    _launch("mrf_fwd", x, mask, weights, out)
+    fused_mrf.launches += 1
+    return out
+
+
 def mrf_fwd_bf16(x: torch.Tensor, mask: torch.Tensor,
                  weights: MrfWeights) -> torch.Tensor:
     """K2's bf16 mode on checked inputs (`fused_mrf` checks them): bf16 x,
@@ -310,6 +351,25 @@ def mrf_fwd_bf16(x: torch.Tensor, mask: torch.Tensor,
     mrf_fwd_bf16.launches += 1
     return out
 
+
+_MRF_SCHEMA = ("(Tensor x, Tensor mask, Tensor flat, Tensor[] convs, int[] kernel_sizes, "
+               "int[] stages, int[] dilations, int[] offsets) -> Tensor")
+
+
+def _define_mrf(name: str, launch):
+    """bv2::<name>: the CPU implementation the plain version, the CUDA one
+    `launch` on the inputs `fused_mrf` checked."""
+
+    def unpack(fn):
+        return lambda x, mask, *args: fn(x, mask, MrfWeights.from_op_args(*args, x.dtype))
+
+    return library.define(name, _MRF_SCHEMA, unpack(fused_mrf_plain), unpack(launch),
+                          lambda x, *_: torch.empty_like(x))
+
+
+# the inference entry points: torch.ops.bv2.mrf_fwd and mrf_fwd_bf16
+MRF_OPS = {torch.float32: _define_mrf("mrf_fwd", mrf_fwd),
+           torch.bfloat16: _define_mrf("mrf_fwd_bf16", mrf_fwd_bf16)}
 
 fused_mrf.launches = 0
 mrf_fwd_bf16.launches = 0

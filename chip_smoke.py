@@ -7,6 +7,7 @@ and check them.
     python3 chip_smoke.py --bf16      # the build and phase 6b' alone
     python3 chip_smoke.py --train-bf16  # the build and phases 7a and 9c alone
     python3 chip_smoke.py --prep      # the build and phase 9d alone
+    python3 chip_smoke.py --stages    # the build and phases 6c' and 6c'' alone
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -78,6 +79,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
    launches K1 28 times (12 with the vits1 flow) and K2 3 times; one
    zero-noise call per emotion input card against CPU within WAVE_BOUND;
    each family's median time beside the 2.3 engine's.
+6c'. the six inference stages ([stages]): make_stages over the engine's
+   flow, decoder and packed MRF weights (default V2.3 widths, fp32), the
+   seed-7 batch of 8 at zero noise: run_stages against Synthesizer.infer on
+   the card (STAGE_BOUND, equal lengths) and the CPU (WAVE_BOUND, one
+   item); K1 and K2 launches per stage (enc_p 6, flow 16, dec K2 3, nothing
+   else); export_stages on the card, torch.export.load, the six programs
+   run once each on the same inputs (the same launches, the live stages'
+   outputs); each of the six torch.ops.bv2.* ops bit-equal to the direct
+   launch of its kernel at the main path's shapes; each program's and
+   live stage's time (events and device) beside utils/flops.py's FLOPs,
+   run_stages through the programs and the live stages beside
+   run_prepared's median.
+6c''. ONNX export ([onnx]): the six graphs of the same model exported on
+   the CPU (compat/onnx_export.py) at (ONNX_T_X, ONNX_FRAMES), each
+   conformant to compat/onnx_check.py and, on the numpy evaluator, within
+   ONNX_BOUND of the card's stage on verify_onnx's random inputs; file
+   sizes and the phase's seconds.
 6d. the HTTP server in process ([serve]): a ModelRegistry with the loader
    that the server's main() builds (load_tts_engine on the card) over the
    same config.json and G_0.pth, warmup over batches 1, 4 and 16 and
@@ -1203,6 +1221,328 @@ def run_text(dev, smi, counters):
     del engine
     torch.cuda.empty_cache()
     return totals
+
+
+STAGE_BOUND = 1e-6  # run_stages / the .pt2 programs vs infer / the live stages, on the card
+STAGE_TIMED = 5  # calls timed per stage and per end-to-end path
+ONNX_T_X, ONNX_FRAMES = 64, 32  # [onnx]'s bucket (the numpy evaluator loops per sample)
+ONNX_BOUND = 1e-3  # the numpy evaluator (fp32) vs the card's stage (3xTF32, TF32 off)
+
+
+def _k12(counters):
+    return counters["banded_attn_fwd"].launches, counters["mrf_fwd"].launches
+
+
+def _stage_chain(fns, batch, knobs, max_frames, z_sdp, counters):
+    """The six stages of `fns` in run_stages' order on the batch, each with
+    the counts zeroed just before it and read just after -> (outputs of
+    dec, y_lengths, {stage: (K1, K2)}, {stage: its arguments}). fns' sdp
+    takes (x_h, x_mask, g, noise_scale_w [b], z)."""
+    from bert_vits2_tpu_torch.models.synthesizer import durations, expand_prior
+
+    counts, calls = {}, {}
+
+    def run(name, *args):
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        with torch.inference_mode():
+            out = fns[name](*args)
+        torch.cuda.synchronize()
+        others = {k: c.launches for k, c in counters.items()
+                  if k not in ("banded_attn_fwd", "mrf_fwd") and c.launches}
+        if others:
+            raise AssertionError(f"[stages] {name}: other kernels launched: {others}")
+        counts[name], calls[name] = _k12(counters), args
+        return out
+
+    b = batch
+    g = run("emb", b["sid"])
+    x_h, m_p, logs_p, x_mask = run("enc_p", b["x"], b["x_lengths"], b["tone"],
+                                   b["language"], b["bert"], b["ja_bert"], b["en_bert"], g)
+    logw_sdp = run("sdp", x_h, x_mask, g, knobs["noise_scale_w"], z_sdp)
+    logw_dp = run("dp", x_h, x_mask, g)
+    with torch.inference_mode():
+        w = durations(logw_sdp, logw_dp, x_mask, knobs["sdp_ratio"], knobs["length_scale"])
+        z_p, _, y_mask, y_len = expand_prior(w, m_p, logs_p, x_mask, max_frames,
+                                             knobs["noise_scale"],
+                                             torch.Generator(device="cuda").manual_seed(3))
+    z = run("flow", z_p, y_mask[:, None, :], g)
+    wave = run("dec", z * y_mask[:, None, :], g, y_mask[:, None, :])
+    return wave, y_len, counts, calls
+
+
+def run_stages_phase(dev, smi, counters):
+    """The six inference stages ([stages]): make_stages over the engine's
+    flow, decoder and packed MRF weights at the default V2.3 widths, the
+    seed-7 batch of 8 at zero noise: run_stages against
+    Synthesizer.infer on the card (STAGE_BOUND, equal lengths) and against
+    the CPU (WAVE_BOUND); K1 and K2 launches per stage (enc_p 6, flow 16,
+    dec K2 3, the rest none); export_stages on the card, torch.export.load,
+    each program run once on the same inputs (the same launches, outputs
+    equal to the live stages'); each of the six bv2 ops bit-equal to the
+    direct launch of its kernel at the main path's shapes; each program's
+    and live stage's time (CUDA events and the profiler's kernel time)
+    beside infer_stage_flops, run_stages through the programs and through
+    the live stages beside run_prepared's median. Returns (the launches of
+    the run_stages call and of the programs' chain, the model, the live
+    stages)."""
+    from bert_vits2_tpu_torch.compat.stages import (
+        STAGES, export_stages, load_stages, make_stages, run_stages)
+    from bert_vits2_tpu_torch.infer import TTSEngine
+    from bert_vits2_tpu_torch.ops import attention, mrf
+    from bert_vits2_tpu_torch.utils.flops import infer_stage_flops
+
+    t_phase = time.perf_counter()
+    model = make_model("cuda")
+    cfg = model.cfg
+    engine = TTSEngine(model, device="cuda")
+    reqs = [r._replace(noise_scale=0.0, noise_scale_w=0.0)
+            for r in make_requests(cfg, MAIN_BATCH, seed=7)]
+    frames = engine.predict_frames(reqs)
+    m = engine.frame_multiple
+    max_frames = max(-(-int(frames.max()) // m) * m, m)
+    with torch.inference_mode():
+        batch = engine._batch(reqs)
+    knobs = {k: batch.pop(k) for k in ("noise_scale", "length_scale", "noise_scale_w",
+                                       "sdp_ratio")}
+    t_x = batch["x"].shape[1]
+    stages = make_stages(model, engine.stages, engine.mrf_packed)
+    log(f"[stages] default V2.3 config, the seed-7 batch of {MAIN_BATCH} at zero noise: "
+        f"t_x {t_x}, max_frames {max_frames}, predicted frames {sorted(frames.tolist())}")
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(7)
+
+    with torch.inference_mode():
+        ref, _, _, y_ref = model.infer(max_frames=max_frames, generator=gen(),
+                                       mrf_packed=engine.mrf_packed, stages=engine.stages,
+                                       **batch, **knobs)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    wave, y_len = run_stages(stages, max_frames=max_frames, generator=gen(), **batch,
+                             **knobs)
+    torch.cuda.synchronize()
+    run_launches = {k: c.launches for k, c in counters.items()}
+    n_enc, n_flow = cfg.n_layers, cfg.n_flow_layer * cfg.n_layers_trans_flow
+    want = {k: 0 for k in counters}
+    want.update(banded_attn_fwd=n_enc + n_flow, mrf_fwd=3)
+    err = (wave - ref).abs().max().item()
+    log(f"[stages] run_stages vs Synthesizer.infer on the card: y_lengths "
+        f"{y_len.tolist()} vs {y_ref.tolist()}, wave max_abs_err {err:.3e} (bound "
+        f"{STAGE_BOUND:g}); launches of the run_stages call: K1 "
+        f"{run_launches['banded_attn_fwd']} K2 {run_launches['mrf_fwd']} (want "
+        f"{n_enc + n_flow} and 3, no other kernel)")
+    if not (torch.equal(y_len, y_ref) and err <= STAGE_BOUND) or run_launches != want:
+        raise AssertionError("[stages] run_stages disagrees with infer or launched "
+                             f"other kernels: {run_launches}")
+
+    n_cpu = 1
+    cpu_model = make_model("cpu", state_dict={k: v.cpu() for k, v in
+                                              model.state_dict().items()})
+    t0 = time.perf_counter()
+    cpu_wave, cpu_len = run_stages(
+        make_stages(cpu_model), max_frames=max_frames,
+        **{k: v[:n_cpu].cpu() for k, v in {**batch, **knobs}.items()})
+    cpu_s = time.perf_counter() - t0
+    cpu_err = (wave[:n_cpu].cpu() - cpu_wave).abs().max().item()
+    log(f"[stages] {smi}: card vs CPU (the first {n_cpu} item, zero noise): y_lengths "
+        f"{cpu_len.tolist()} vs {y_len[:n_cpu].tolist()}, wave max_abs_err "
+        f"{cpu_err:.3e} (bound {WAVE_BOUND:g}); CPU run {cpu_s:.1f} s")
+    if not (torch.equal(cpu_len, y_len[:n_cpu].cpu()) and cpu_err <= WAVE_BOUND):
+        raise AssertionError("[stages] card and CPU disagree")
+    del cpu_model
+
+    z_sdp = torch.randn(MAIN_BATCH, 2, t_x, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5))
+    live = dict(stages, sdp=lambda x_h, x_mask, g, nsw, z: stages["sdp"](
+        x_h, x_mask, g, nsw, z=z))
+    live_wave, _, live_counts, calls = _stage_chain(live, batch, knobs, max_frames, z_sdp,
+                                                    counters)
+    want_counts = {s: (0, 0) for s in STAGES}
+    want_counts.update(enc_p=(n_enc, 0), flow=(n_flow, 0), dec=(0, 3))
+    log(f"[stages] K1, K2 launches per live stage call: {live_counts}")
+    if live_counts != want_counts:
+        raise AssertionError(f"[stages] launches per stage {live_counts}, want "
+                             f"{want_counts}")
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        paths = export_stages(model, root, t_x=t_x, max_frames=max_frames,
+                              batch=MAIN_BATCH, stages=engine.stages,
+                              mrf_packed=engine.mrf_packed)
+        export_s = time.perf_counter() - t0
+        sizes = {k: os.path.getsize(p) / 2**20 for k, p in paths.items()}
+        t0 = time.perf_counter()
+        progs = load_stages(root)
+        load_s = time.perf_counter() - t0
+    ops = {k: sorted({str(n.target) for n in p.module.graph.nodes
+                      if str(n.target).startswith("bv2.")}) for k, p in progs.items()}
+    log(f"[stages] {smi}: export_stages on the card in {export_s:.1f} s, "
+        f"torch.export.load of the six in {load_s:.1f} s; .pt2 MiB "
+        f"{ {k: round(v, 2) for k, v in sizes.items()} }; bv2 ops in the programs {ops}")
+    prog_wave, prog_len, prog_counts, _ = _stage_chain(progs, batch, knobs, max_frames,
+                                                       z_sdp, counters)
+    prog_err = (prog_wave - live_wave).abs().max().item()
+    log(f"[stages] K1, K2 launches per loaded program: {prog_counts}; dec output vs "
+        f"the live stages' max_abs_err {prog_err:.3e} (bound {STAGE_BOUND:g})")
+    if prog_counts != want_counts or not prog_err <= STAGE_BOUND:
+        raise AssertionError("[stages] the loaded programs launch otherwise or disagree")
+    for name in STAGES:
+        a, b_ = (o if isinstance(o, tuple) else (o,) for o in (
+            live[name](*calls[name]), progs[name](*calls[name])))
+        e = max((x - y).abs().max().item() for x, y in zip(a, b_))
+        if not e <= STAGE_BOUND:
+            raise AssertionError(f"[stages] program {name} max_abs_err {e}")
+    prog_launches = {"banded_attn_fwd": sum(c[0] for c in prog_counts.values()),
+                     "mrf_fwd": sum(c[1] for c in prog_counts.values())}
+
+    # each bv2 op against the direct launch of its kernel, at the main path's
+    # shapes: K1 at the flow's [8, 2, max_frames, 96] (bf16 and the wide
+    # variant too), K2 at the decoder's three stages
+    g = torch.Generator(device=dev).manual_seed(9)
+    d = cfg.hidden_channels // cfg.n_heads
+    att = [torch.randn(MAIN_BATCH, cfg.n_heads, max_frames, d, device=dev, generator=g)
+           * d ** -0.5 for _ in range(3)]
+    mask = (torch.arange(max_frames, device=dev)[None] < y_len[:, None]).float()
+    tables = [torch.randn(9, d, device=dev, generator=g) * d ** -0.5 for _ in range(2)]
+    bit = {}
+    for name, direct, dt in (("banded_attn_fwd", attention.banded_attention_fwd, None),
+                             ("banded_attn_fwd_bf16", attention.banded_attention_fwd_bf16,
+                              torch.bfloat16),
+                             ("banded_attn_wide_fwd", attention.wide_fwd, None),
+                             ("banded_attn_wide_fwd_bf16", attention.wide_fwd_bf16,
+                              torch.bfloat16)):
+        ts = [a.to(dt) if dt else a for a in att] + [mask.to(dt) if dt else mask] + [
+            t.to(dt) if dt else t for t in tables]
+        with torch.inference_mode():
+            via_op = getattr(torch.ops.bv2, name)(*ts, 4)
+            ref_out = direct(tuple(ts), 4)
+        bit[name] = torch.equal(via_op, ref_out)
+    for i, packed in enumerate(engine.mrf_packed):
+        if packed is None:
+            continue
+        up = int(np.prod(cfg.upsample_rates[:i + 1]))
+        x = torch.randn(MAIN_BATCH, packed.channels, max_frames * up, device=dev,
+                        generator=g)
+        mk = mask.repeat_interleave(up, dim=1).contiguous()
+        for name, direct, dt in (("mrf_fwd", mrf.mrf_fwd, torch.float32),
+                                 ("mrf_fwd_bf16", mrf.mrf_fwd_bf16, torch.bfloat16)):
+            wts = packed if dt == torch.float32 else mrf.prepare_mrf_weights(
+                model.dec._stage_blocks(i), dt)
+            xs, ms = x.to(dt), mk.to(dt)
+            with torch.inference_mode():
+                via_op = getattr(torch.ops.bv2, name)(xs, ms, *wts.op_args)
+                ref_out = direct(xs, ms, wts)
+            bit[f"{name} C={packed.channels}"] = torch.equal(via_op, ref_out)
+    log(f"[stages] each bv2 op bit-equal to the direct launch of its kernel: {bit}")
+    if not all(bit.values()):
+        raise AssertionError(f"[stages] an op differs from its kernel's launch: {bit}")
+
+    fl = infer_stage_flops(cfg, MAIN_BATCH, t_x, max_frames)
+    for name in STAGES:
+        a = calls[name]
+        p_ms = cuda_ms(lambda: progs[name](*a), iters=STAGE_TIMED)
+        p_dev = device_ms(lambda: progs[name](*a), iters=3)
+        with torch.inference_mode():
+            l_ms = cuda_ms(lambda: live[name](*a), iters=STAGE_TIMED)
+            l_dev = device_ms(lambda: live[name](*a), iters=3)
+        log(f"[stages-timing] {smi}: {name}: program {p_ms:.3f} ms (device {p_dev:.3f} "
+            f"ms), live stage {l_ms:.3f} ms (device {l_dev:.3f} ms); "
+            f"{fl[name] / 1e9:.2f} GFLOP (utils/flops.py), "
+            f"{fl[name] / max(p_dev, 1e-9) / 1e9:.1f} TFLOP/s at the program's device time")
+
+    def prog_sdp(x_h, x_mask, g_, nsw, generator=None, z=None):
+        from bert_vits2_tpu_torch.models.synthesizer import sdp_noise
+        return progs["sdp"](x_h, x_mask, g_, nsw,
+                            z if z is not None else sdp_noise(x_h, 1.0, generator))
+
+    prog_stages = dict(progs, sdp=prog_sdp)
+    paths_timed = {}
+    for label, fn in (("run_stages (programs)", lambda: run_stages(
+            prog_stages, max_frames=max_frames, generator=gen(), **batch, **knobs)),
+                      ("run_stages (live stages)", lambda: run_stages(
+            stages, max_frames=max_frames, generator=gen(), **batch, **knobs)),
+                      ("run_prepared", lambda: engine.run_prepared(reqs))):
+        fn()
+        torch.cuda.synchronize()
+        lat = []
+        for _ in range(STAGE_TIMED):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+        paths_timed[label] = (float(np.median(lat)) * 1e3,
+                              device_ms(fn, iters=2))
+    log(f"[stages-timing] {smi}: batch {MAIN_BATCH}, t_x {t_x}, max_frames {max_frames}: "
+        + "; ".join(f"{k} median {v[0]:.1f} ms over {STAGE_TIMED} calls (device "
+                    f"{v[1]:.1f} ms)" for k, v in paths_timed.items())
+        + " (run_prepared adds its duration pass and host batching)")
+    log(f"[stages] {smi}: phase {time.perf_counter() - t_phase:.1f} s")
+    del engine
+    return run_launches, prog_launches, model, stages
+
+
+def run_onnx_phase(dev, smi, model, stages):
+    """ONNX export ([onnx]): the six graphs of the [stages] model, exported
+    on the CPU (compat/onnx_export.py: torch.export of float32 copies with
+    weight norm resolved, the plain functions in place of the kernels) at
+    the bucket (ONNX_T_X, ONNX_FRAMES); each checked by
+    compat/onnx_check.py and evaluated by the numpy evaluator on
+    verify_onnx's random inputs against the card's live stage on the same
+    inputs (ONNX_BOUND); file sizes and the phase's seconds."""
+    from bert_vits2_tpu_torch.compat.onnx_check import check_model
+    from bert_vits2_tpu_torch.compat.onnx_eval import OnnxEvaluator
+    from bert_vits2_tpu_torch.compat.onnx_export import (
+        STAGES, export_onnx, make_onnx_stage_fns, random_stage_inputs)
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        fns = make_onnx_stage_fns(model)
+        paths = export_onnx(model, root, "BertVits2.3PT", ONNX_T_X, ONNX_FRAMES, fns=fns)
+        export_s = time.perf_counter() - t0
+        graphs = {k: open(p, "rb").read() for k, p in paths.items()}
+    del fns
+    inputs = random_stage_inputs(cfg, ONNX_T_X, ONNX_FRAMES, seed=0)
+
+    def card(stage, args):
+        a = [torch.from_numpy(x).to(dev) for x in args]
+        with torch.inference_mode():
+            if stage == "emb":
+                out = stages["emb"](a[0])
+            elif stage == "enc_p":
+                out = stages["enc_p"](*a[:4], *(b[None] for b in a[4:7]), a[7][..., 0])
+            elif stage == "sdp":
+                out = stages["sdp"](a[0], a[1], a[3][..., 0], 1.0, z=a[2])
+            elif stage == "dp":
+                out = stages["dp"](a[0], a[1], a[2][..., 0])
+            elif stage == "flow":
+                out = stages["flow"](a[0], a[1], a[2][..., 0])
+            else:
+                ones = torch.ones(1, 1, a[0].shape[2], device=dev)
+                out = stages["dec"](a[0], a[1][..., 0], ones)[:, None, :]
+        return [o.cpu().numpy() for o in (out if isinstance(out, tuple) else (out,))]
+
+    rows = []
+    for stage in STAGES:
+        issues = check_model(graphs[stage])
+        t0 = time.perf_counter()
+        got = OnnxEvaluator(graphs[stage])(*inputs[stage])
+        eval_s = time.perf_counter() - t0
+        want = card(stage, inputs[stage])
+        err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+        rows.append((stage, len(graphs[stage]) / 2**20, issues, err, eval_s))
+        if issues or not err <= ONNX_BOUND:
+            raise AssertionError(f"[onnx] {stage}: checker {issues[:3]}, max_abs_err "
+                                 f"{err} (bound {ONNX_BOUND:g})")
+    log(f"[onnx] {smi}: six graphs of the default V2.3 model at t_x {ONNX_T_X}, max_frames "
+        f"{ONNX_FRAMES}, exported on the CPU in {export_s:.1f} s: "
+        + "; ".join(f"{s} {mb:.2f} MiB, conformant, evaluator vs card max_abs_err "
+                    f"{e:.3e} (evaluated in {t:.1f} s)" for s, mb, _, e, t in rows)
+        + f" (bound {ONNX_BOUND:g}); phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def log_mel(waves, dev):
@@ -3040,6 +3380,10 @@ def main(argv=None) -> int:
                          "phases alone (the bf16 training kernels against their "
                          "plain versions, fp32 and bf16 steps in turns, the bf16 "
                          "Trainer); no ok line")
+    ap.add_argument("--stages", action="store_true",
+                    help="the build, then the [stages] and [onnx] phases alone (the "
+                         "six stages and their .pt2 programs on the card, the ONNX "
+                         "graphs); no ok line")
     ap.add_argument("--prep", action="store_true",
                     help="the build, then the [prep] phase alone (a raw corpus "
                          "through the wizard, the Trainer on the native loader, "
@@ -3102,6 +3446,13 @@ def main(argv=None) -> int:
         return 0
     if args.prep:
         print(json.dumps({"launches_prep": run_prep(dev, smi, counters)}), flush=True)
+        return 0
+    if args.stages:
+        stage_launches, program_launches, model, stages = run_stages_phase(
+            dev, smi, counters)
+        run_onnx_phase(dev, smi, model, stages)
+        print(json.dumps({"launches_stages": stage_launches,
+                          "launches_stage_programs": program_launches}), flush=True)
         return 0
     k1 = check_attention(dev)
     k2 = check_mrf(dev)
@@ -3185,6 +3536,11 @@ def main(argv=None) -> int:
     text_launches = run_text(dev, smi, counters)
     bf16_rows, bf16_launches = run_bf16(dev, smi, counters)
     versions_launches = run_versions(dev, smi, counters)
+    stage_launches, program_launches, stage_model, stages = run_stages_phase(
+        dev, smi, counters)
+    run_onnx_phase(dev, smi, stage_model, stages)
+    del stage_model, stages
+    torch.cuda.empty_cache()
     serve_launches = run_serve(smi, counters)
     run_serve_cli(smi)
     run_bert(smi)
@@ -3264,11 +3620,16 @@ def main(argv=None) -> int:
     versions_basis = ("; launches_versions: over the [versions] phase's checked calls "
                       "of the V1.0-V2.3 families and the vits1 flow (counts zeroed "
                       "before each)")
+    stages_basis = ("; launches_stages: the [stages] phase's run_stages call (counts "
+                    "zeroed before it); launches_stage_programs: its six loaded .pt2 "
+                    "programs run once each (counts zeroed before each)")
     for row in record["kernels"][:2]:
         row["launches_text"] = text_launches[row["name"]]
         row["launches_versions"] = versions_launches[row["name"]]
         row["launches_serve"] = serve_launches[row["name"]]
-        row["basis"] += text_basis + versions_basis + serve_basis
+        row["launches_stages"] = stage_launches[row["name"]]
+        row["launches_stage_programs"] = program_launches[row["name"]]
+        row["basis"] += text_basis + versions_basis + serve_basis + stages_basis
     wide_src = "bert_vits2_tpu_torch/csrc/banded_attn_wide.cu"
     ranged = ("per MultiHeadAttention call of the [attention-range] phase (launches: "
               "that phase's, counts zeroed before it)")

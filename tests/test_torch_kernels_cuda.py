@@ -989,3 +989,153 @@ def test_old_family_card_against_cpu(card, family, transformer_flow, n_attn):
         want_wave, wave = waves
         assert len(wave) == len(want_wave) > 0 and np.isfinite(wave).all()
         assert np.abs(wave - want_wave).max() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["banded_attn_fwd", "banded_attn_fwd_bf16",
+                                  "banded_attn_wide_fwd", "banded_attn_wide_fwd_bf16",
+                                  "mrf_fwd", "mrf_fwd_bf16"])
+def test_custom_op_launches_its_kernel(card, name):
+    """Each bv2 custom op (ops/library.py) on the card: bit for bit its
+    kernel's direct launch, within the kernel's bound of the plain version
+    (fp32: K1 1e-4, K2 2e-4; bf16: 4 bf16 ulps), one launch counted by the
+    op; the same op on CPU tensors is the plain version and counts none."""
+    from bert_vits2_tpu_torch.ops import attention, mrf
+
+    op = getattr(torch.ops.bv2, name)
+    bf16 = name.endswith("bf16")
+    dt = torch.bfloat16 if bf16 else torch.float32
+    if name.startswith("banded"):
+        direct, counter = {
+            "banded_attn_fwd": (attention.banded_attention_fwd, banded_rel_self_attention),
+            "banded_attn_fwd_bf16": (banded_attention_fwd_bf16, banded_attention_fwd_bf16),
+            "banded_attn_wide_fwd": (wide_fwd, wide_fwd),
+            "banded_attn_wide_fwd_bf16": (wide_fwd_bf16, wide_fwd_bf16)}[name]
+        tensors = _attention_inputs(card, 8, 2, 768, 96, None, dt)
+        if bf16:
+            tensors = (*tensors[:3], tensors[3].to(dt), *tensors[4:])
+        args, plain = (*tensors, 4), banded_attention_plain(*tensors, 4)
+        want = direct(tensors, 4)
+        bound = 1e-4
+    else:
+        direct, counter = {"mrf_fwd": (mrf.mrf_fwd, fused_mrf),
+                           "mrf_fwd_bf16": (mrf_fwd_bf16, mrf_fwd_bf16)}[name]
+        torch.manual_seed(0)
+        blocks = [ResBlock1(32, k, d).to(card) for k, d in zip(KS, DS)]
+        weights = prepare_mrf_weights(blocks, dt)
+        x = torch.randn(4, 32, 5000, device=card).to(dt)
+        m = _lens_mask([5000, 4000, 1234, 17], 5000, card).to(dt)
+        args, plain = (x, m, *weights.op_args), fused_mrf_plain(x, m, weights)
+        want = direct(x, m, weights)
+        bound = 2e-4
+    torch.cuda.synchronize()
+    before = counter.launches
+    with torch.inference_mode():
+        got = op(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert got.dtype == dt and torch.equal(got, want)
+    bound = _bf16_bound(plain.float()) if bf16 else bound
+    if name.startswith("banded"):  # rows the mask drops are unspecified
+        keep = tensors[3][:, None, :, None].expand_as(got) != 0
+        assert (got.float() - plain.float())[keep].abs().max().item() <= bound
+    else:
+        assert (got.float() - plain.float()).abs().max().item() <= bound
+    cpu_args = [a.cpu() if isinstance(a, torch.Tensor) else
+                [t.cpu() if isinstance(t, torch.Tensor) else t for t in a]
+                if isinstance(a, list) else a for a in args]
+    cpu_plain = (banded_attention_plain(*cpu_args) if name.startswith("banded") else
+                 fused_mrf_plain(*cpu_args[:2], mrf.MrfWeights.from_op_args(*cpu_args[2:], dt)))
+    assert torch.equal(op(*cpu_args), cpu_plain) and counter.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_plain_functions_refuse_card_tensors(card):
+    """Inside plain_functions() (the ONNX exporter's CPU trace) the
+    wrappers raise on card tensors, in inference and in training, and
+    launch nothing: the plain versions never take a kernel's place on the
+    card."""
+    from bert_vits2_tpu_torch.ops.library import plain_functions
+
+    tensors = _attention_inputs(card, 2, 2, 128, 96, None, torch.float32)
+    blocks = [ResBlock1(32, k, d).to(card) for k, d in zip(KS, DS)]
+    weights = prepare_mrf_weights(blocks, torch.float32)
+    x, m = torch.randn(2, 32, 256, device=card), torch.ones(2, 256, device=card)
+    before = (banded_rel_self_attention.launches, fused_mrf.launches)
+    q = tensors[0].clone().requires_grad_(True)
+    with plain_functions():
+        for call in (lambda: banded_rel_self_attention(*tensors, 4),
+                     lambda: banded_rel_self_attention(q, *tensors[1:], 4),
+                     lambda: fused_mrf(x, m, weights)):
+            with pytest.raises(RuntimeError, match="plain_functions"):
+                call()
+    torch.cuda.synchronize()
+    assert (banded_rel_self_attention.launches, fused_mrf.launches) == before
+    with torch.inference_mode():  # outside it, the kernels
+        banded_rel_self_attention(*tensors, 4)
+        fused_mrf(x, m, weights)
+    assert (banded_rel_self_attention.launches, fused_mrf.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_stage_programs_launch_k1_and_k2(card, tmp_path):
+    """make_stages / run_stages and export_stages on the card for a small
+    model (K2 on its two vocoder stages): run_stages equals
+    Synthesizer.infer; each program loaded by torch.export.load launches K1
+    in enc_p (n_layers) and in the flow (n_flow_layer x its layers) and K2
+    in dec (2), and gives the live stage's outputs."""
+    from bert_vits2_tpu_torch.compat.stages import (
+        STAGES, export_stages, load_stages, make_stages, run_stages, stage_inputs)
+    from bert_vits2_tpu_torch.config import ModelConfig
+    from bert_vits2_tpu_torch.models import build_synthesizer
+
+    cfg = ModelConfig(hidden_channels=32, filter_channels=64, inter_channels=16,
+                      n_layers=2, n_layers_trans_flow=2, gin_channels=16,
+                      upsample_initial_channel=64, upsample_rates=(4, 4),
+                      upsample_kernel_sizes=(8, 8), resblock_kernel_sizes=(3, 7),
+                      resblock_dilation_sizes=((1, 3, 5), (1, 3, 5)))
+    model = build_synthesizer(cfg, device=card, seed=0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".post." in name or (name.startswith("sdp.") and ".proj." in name):
+                p.copy_(0.02 * torch.randn(p.shape, generator=g).to(card))
+    b, t_x, frames = 2, 24, 128
+    stages = make_stages(model)
+    gen = torch.Generator(device=card)
+    text = dict(x=torch.randint(1, cfg.n_vocab, (b, t_x), device=card, generator=gen),
+                x_lengths=torch.tensor([t_x, 17], device=card),
+                sid=torch.tensor([0, 3], device=card),
+                tone=torch.randint(0, cfg.num_tones, (b, t_x), device=card, generator=gen),
+                language=torch.randint(0, 3, (b, t_x), device=card, generator=gen),
+                **{k: 0.5 * torch.randn(b, t_x, 1024, device=card, generator=gen)
+                   for k in ("bert", "ja_bert", "en_bert")})
+    with torch.inference_mode():
+        want, _, _, y_want = model.infer(max_frames=frames, mrf_packed=model.dec.pack_mrf(),
+                                         generator=gen.manual_seed(4), **text)
+    wave, y_len = run_stages(stages, max_frames=frames, generator=gen.manual_seed(4), **text)
+    assert torch.equal(y_len, y_want) and (wave - want).abs().max().item() <= 1e-6
+
+    export_stages(model, str(tmp_path), t_x=t_x, max_frames=frames, batch=b)
+    progs = load_stages(str(tmp_path))
+    args = stage_inputs(cfg, t_x, frames, b, card)
+    args["emb"] = (text["sid"],)
+    args["enc_p"] = (*(text[k] for k in ("x", "x_lengths", "tone", "language", "bert",
+                                          "ja_bert", "en_bert")), stages["emb"](text["sid"]))
+    for k in ("sdp", "dp", "flow", "dec"):  # random features, masks kept
+        args[k] = tuple(torch.randn(a.shape, device=card, generator=gen)
+                        if a.is_floating_point() and a.dim() == 3 and a.shape[1] != 1
+                        else a for a in args[k])
+    want_launches = {"enc_p": (2, 0), "flow": (8, 0), "dec": (0, 2)}
+    for name in STAGES:
+        torch.cuda.synchronize()
+        banded_rel_self_attention.launches = fused_mrf.launches = 0
+        got = progs[name](*args[name])
+        torch.cuda.synchronize()
+        assert (banded_rel_self_attention.launches, fused_mrf.launches) == \
+            want_launches.get(name, (0, 0)), name
+        live = (stages[name](*args[name]) if name != "sdp"
+                else stages["sdp"](*args[name][:4], z=args[name][4]))
+        for o, w in zip(*(v if isinstance(v, tuple) else (v,) for v in (got, live))):
+            assert (o - w).abs().max().item() <= 1e-6, name

@@ -118,14 +118,17 @@ for name in ("text.cleaner", "text.mandarin", "text.japanese", "text.english",
              "serve", "serve.server", "serve.batcher", "serve.registry",
              "serve.textseg", "serve.markup", "serve.translate", "serve.webui",
              "utils.audio", "compat.versions", "nn.vq", "text.emotion",
-             "models.text_encoder", "models.flow"):
+             "models.text_encoder", "models.flow", "compat.stages",
+             "compat.torch2onnx", "compat.onnx_export", "compat.onnx_pb",
+             "compat.onnx_eval", "compat.onnx_check", "compat.onnx_infer",
+             "utils.flops", "ops.library"):
     assert "bert_vits2_tpu_torch." + name in sys.modules, name
 from bert_vits2_tpu_torch.text import clean_text
 for text, lang in (("こんにちは", "JP"), ("Hello world.", "EN")):
     clean_text(text, lang)
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                       "bert_vits2_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                       "onnx", "onnxruntime", "bert_vits2_tpu"))
 raised = []
 try:
     build_synthesizer(ModelConfig(n_layers=1))
@@ -211,7 +214,8 @@ def test_import_boundary_and_default_device():
     included) default to CUDA and raise instead of falling back to the CPU;
     an engine on the card builds the default V2.1 and V2.2 emotion
     extractors on the card.
-    The serving layer (`serve.*`, `utils.audio`) and the old-version
+    The serving layer (`serve.*`, `utils.audio`), the stages and the ONNX
+    export (`compat.stages`, `compat.torch2onnx`, ...) and the old-version
     modules (`compat.versions`, `nn.vq`, `text.emotion`) are among the
     modules imported."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
@@ -228,17 +232,21 @@ def test_import_boundary_and_default_device():
 @pytest.mark.parametrize("path", ["bert_vits2_tpu_torch", "chip_smoke.py"])
 def test_port_sources_name_no_jax(path):
     """No source file of the port or of chip_smoke.py imports JAX, flax,
-    optax or the JAX package (its JAX-free modules too: the port keeps its
-    own `compat/versions.py`, `nn/vq.py` and `text/emotion.py`)."""
+    optax, orbax, the `onnx` package or the JAX package (its JAX-free
+    modules too: the port keeps its own `compat/versions.py`, `nn/vq.py`,
+    `text/emotion.py`, `utils/flops.py` and the ONNX codec, evaluator,
+    checker and pipeline)."""
     root = REPO / path
     files = [root] if root.is_file() else sorted(root.rglob("*.py"))
     if root.is_dir():
         names = {str(f.relative_to(root)) for f in files}
-        assert {"compat/versions.py", "nn/vq.py", "text/emotion.py"} <= names
+        assert {"compat/versions.py", "nn/vq.py", "text/emotion.py", "utils/flops.py",
+                "compat/onnx_pb.py", "compat/onnx_eval.py", "compat/onnx_check.py",
+                "compat/onnx_infer.py"} <= names
     for f in files:
         for line in f.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 top = words[1].split(".")[0].rstrip(",")
-                assert top not in ("jax", "jaxlib", "flax", "optax",
+                assert top not in ("jax", "jaxlib", "flax", "optax", "orbax", "onnx",
                                    "bert_vits2_tpu"), (f, line)
