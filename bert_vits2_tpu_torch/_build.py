@@ -36,42 +36,43 @@ SIGNATURES = {
         # q, k, v, mask, ek, ev, out, b, h, t, d, w, device, stream
         "banded_attn_fwd": [_P] * 7 + [_I] * 6 + [_P],
         # q, k, v, mask, ek, ev, out, m, l, b, h, t, d, w, drop, thr, seed,
-        # scale, device, stream
-        "banded_attn_fwd_train": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
+        # salt_base, salt_stride, scale, device, stream
+        "banded_attn_fwd_train": [_P] * 9 + [_I] * 10 + [_F, _I, _P],
         # as banded_attn_fwd, every tensor bf16
         "banded_attn_fwd_bf16": [_P] * 7 + [_I] * 6 + [_P],
         # as banded_attn_fwd_train: q, k, v, mask, ek, ev, out bf16; m, l fp32
-        "banded_attn_fwd_train_bf16": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
+        "banded_attn_fwd_train_bf16": [_P] * 9 + [_I] * 10 + [_F, _I, _P],
     },
     "banded_attn_bwd.cu": {
         # b, h, t
         "banded_attn_bwd_q_blocks": [_I] * 3,
         # q, k, v, mask, ek, ev, g, m, l, D, dq, partials, dek, dev, b, h, t,
-        # d, w, drop, thr, seed, scale, device, stream
-        "banded_attn_bwd_q": [_P] * 14 + [_I] * 8 + [_F, _I, _P],
+        # d, w, drop, thr, seed, salt_base, salt_stride, scale, device, stream
+        "banded_attn_bwd_q": [_P] * 14 + [_I] * 10 + [_F, _I, _P],
         # q, k, v, mask, ek, ev, g, m, l, D, dk, dv, b, h, t, d, w, drop, thr,
-        # seed, scale, device, stream
-        "banded_attn_bwd_k": [_P] * 12 + [_I] * 8 + [_F, _I, _P],
+        # seed, salt_base, salt_stride, scale, device, stream
+        "banded_attn_bwd_k": [_P] * 12 + [_I] * 10 + [_F, _I, _P],
         # as the two above: q, k, v, mask, ek, ev, g and the outputs dq, dek,
         # dev, dk, dv bf16; m, l, D and the partials fp32
-        "banded_attn_bwd_q_bf16": [_P] * 14 + [_I] * 8 + [_F, _I, _P],
-        "banded_attn_bwd_k_bf16": [_P] * 12 + [_I] * 8 + [_F, _I, _P],
+        "banded_attn_bwd_q_bf16": [_P] * 14 + [_I] * 10 + [_F, _I, _P],
+        "banded_attn_bwd_k_bf16": [_P] * 12 + [_I] * 10 + [_F, _I, _P],
     },
     "banded_attn_wide.cu": {
         # as banded_attn.cu's two entry points
         "banded_attn_wide_fwd": [_P] * 7 + [_I] * 6 + [_P],
-        "banded_attn_wide_fwd_train": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
+        "banded_attn_wide_fwd_train": [_P] * 9 + [_I] * 10 + [_F, _I, _P],
         "banded_attn_wide_fwd_bf16": [_P] * 7 + [_I] * 6 + [_P],
         # q, k, v, mask, ek, ev, g, m, l, D, dq, band_ds, band_pd, dek, dev,
-        # b, h, t, d, w, drop, thr, seed, scale, device, stream
-        "banded_attn_wide_bwd_q": [_P] * 15 + [_I] * 8 + [_F, _I, _P],
+        # b, h, t, d, w, drop, thr, seed, salt_base, salt_stride, scale,
+        # device, stream
+        "banded_attn_wide_bwd_q": [_P] * 15 + [_I] * 10 + [_F, _I, _P],
         # as banded_attn_bwd.cu's banded_attn_bwd_k
-        "banded_attn_wide_bwd_k": [_P] * 12 + [_I] * 8 + [_F, _I, _P],
+        "banded_attn_wide_bwd_k": [_P] * 12 + [_I] * 10 + [_F, _I, _P],
         # the train forward, B5 and B6 on bf16 operands (m, l, D and the
         # band scratch fp32), arguments as above
-        "banded_attn_wide_fwd_train_bf16": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
-        "banded_attn_wide_bwd_q_bf16": [_P] * 15 + [_I] * 8 + [_F, _I, _P],
-        "banded_attn_wide_bwd_k_bf16": [_P] * 12 + [_I] * 8 + [_F, _I, _P],
+        "banded_attn_wide_fwd_train_bf16": [_P] * 9 + [_I] * 10 + [_F, _I, _P],
+        "banded_attn_wide_bwd_q_bf16": [_P] * 15 + [_I] * 10 + [_F, _I, _P],
+        "banded_attn_wide_bwd_k_bf16": [_P] * 12 + [_I] * 10 + [_F, _I, _P],
     },
     "mrf.cu": {
         # x, mask, weights, out, b, c, t, tile, nb, ks, ns, dils, offs,

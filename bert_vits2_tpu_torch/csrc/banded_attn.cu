@@ -107,7 +107,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[4 * NKT], float (&o)[4 
                                              float (&band)[2][NBAND], float (&m_run)[2],
                                              float (&l_run)[2], const float* rw,
                                              const float* Mk, int j0, int r0, int t, int w,
-                                             int g, int i4, int bh, bool drop,
+                                             int g, int i4, uint32_t salt, bool drop,
                                              uint32_t thr, uint32_t seed,
                                              float keep_scale) {
   const int nb = 2 * w + 1;
@@ -149,7 +149,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[4 * NKT], float (&o)[4 
     psum[e / 2] += p;
     float pv = p;  // what multiplies v and ev
     if (TRAIN && drop)
-      pv = hash_keep(r0 + rr, j0 + jj, bh, seed, thr) ? p * keep_scale : 0.f;
+      pv = hash_keep(r0 + rr, j0 + jj, salt, seed, thr) ? p * keep_scale : 0.f;
     if (in_band) {
       const int c = j0 + jj - (r0 + rr) + w;
 #pragma unroll
@@ -193,7 +193,8 @@ banded_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ ek, const float* __restrict__ ev,
                        float* __restrict__ out, float* __restrict__ m_out,
                        float* __restrict__ l_out, int h, int t, int d, int w,
-                       bool drop, uint32_t thr, uint32_t seed, float keep_scale) {
+                       bool drop, uint32_t thr, uint32_t seed, uint32_t salt_base,
+                       uint32_t salt_stride, float keep_scale) {
   using L = Layout<DK>;
   extern __shared__ __align__(16) float4 smem4[];
   float* Qc = reinterpret_cast<float*>(smem4);          // Q, split
@@ -207,6 +208,8 @@ banded_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane / 4, i4 = lane % 4;
   const int bh = blockIdx.y;
   const int b = bh / h;
+  // the dropout's salt: affine in (batch row, head), b * h + head by default
+  const uint32_t salt = salt_base + (uint32_t)b * salt_stride + (uint32_t)(bh - b * h);
   const int r0 = (blockIdx.x * 4 + warp) * 16;  // this warp's first row
   const size_t base = (size_t)bh * t * d;
   const float* qb = q + base;
@@ -282,7 +285,7 @@ banded_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     wg_wait<0>();
     fence_operands(sc);
 
-    softmax_tile<DK, TRAIN>(sc, o, band, m_run, l_run, rw, Mk, j0, r0, t, w, g, i4, bh,
+    softmax_tile<DK, TRAIN>(sc, o, band, m_run, l_run, rw, Mk, j0, r0, t, w, g, i4, salt,
                             drop, thr, seed, keep_scale);
 
     // O += P V: P straight from the accumulator registers
@@ -340,7 +343,8 @@ banded_attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
                             const bf16* __restrict__ ek, const bf16* __restrict__ ev,
                             bf16* __restrict__ out, float* __restrict__ m_out,
                             float* __restrict__ l_out, int h, int t, int d, int w,
-                            bool drop, uint32_t thr, uint32_t seed, float keep_scale) {
+                            bool drop, uint32_t thr, uint32_t seed, uint32_t salt_base,
+                            uint32_t salt_stride, float keep_scale) {
   static_assert(DK % 2 == 0, "k16 steps of the head width");
   using L = LayoutBf16<DK>;
   constexpr int ND = 8 * DK;                   // padded head width
@@ -357,6 +361,8 @@ banded_attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   const int g = lane / 4, i4 = lane % 4;
   const int bh = blockIdx.y;
   const int b = bh / h;
+  // the dropout's salt: affine in (batch row, head), b * h + head by default
+  const uint32_t salt = salt_base + (uint32_t)b * salt_stride + (uint32_t)(bh - b * h);
   const int r0 = (blockIdx.x * 4 + warp) * 16;  // this warp's first row
   const size_t base = (size_t)bh * t * d;
   const bf16* qb = q + base;
@@ -447,7 +453,7 @@ banded_attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
     wg_wait<0>();
     fence_operands(sc);
 
-    softmax_tile<DK, TRAIN>(sc, o, band, m_run, l_run, rw, Mk, j0, r0, t, w, g, i4, bh,
+    softmax_tile<DK, TRAIN>(sc, o, band, m_run, l_run, rw, Mk, j0, r0, t, w, g, i4, salt,
                             drop, thr, seed, keep_scale);
 
     // O += P V: P rounded to bf16 straight from the accumulator registers
@@ -513,7 +519,8 @@ template <int DK, bool TRAIN>
 int launch_dk(const float* q, const float* k, const float* v, const float* mask,
               const float* ek, const float* ev, float* out, float* m, float* l,
               int b, int h, int t, int d, int w, bool drop, uint32_t thr,
-              uint32_t seed, float keep_scale, int device, cudaStream_t stream) {
+              uint32_t seed, uint32_t salt_base, uint32_t salt_stride, float keep_scale,
+              int device, cudaStream_t stream) {
   static size_t configured[MAXDEV] = {};
   const size_t bytes = sizeof(float) * Layout<DK>::total;
   const cudaError_t err = allow_smem((const void*)banded_attn_fwd_kernel<DK, TRAIN>,
@@ -521,7 +528,8 @@ int launch_dk(const float* q, const float* k, const float* v, const float* mask,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((t + 63) / 64, b * h);
   banded_attn_fwd_kernel<DK, TRAIN><<<grid, 128, bytes, stream>>>(
-      q, k, v, mask, ek, ev, out, m, l, h, t, d, w, drop, thr, seed, keep_scale);
+      q, k, v, mask, ek, ev, out, m, l, h, t, d, w, drop, thr, seed, salt_base,
+      salt_stride, keep_scale);
   return (int)cudaGetLastError();
 }
 
@@ -529,7 +537,8 @@ template <bool TRAIN>
 int launch(const float* q, const float* k, const float* v, const float* mask,
            const float* ek, const float* ev, float* out, float* m, float* l,
            int b, int h, int t, int d, int w, bool drop, uint32_t thr,
-           uint32_t seed, float keep_scale, int device, void* stream) {
+           uint32_t seed, uint32_t salt_base, uint32_t salt_stride, float keep_scale,
+           int device, void* stream) {
   if (bad_attn_shape(b, h, t, d, w, device)) return (int)cudaErrorInvalidValue;
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
@@ -537,7 +546,8 @@ int launch(const float* q, const float* k, const float* v, const float* mask,
   const int steps = (d + 7) / 8;
 #define BANDED_ATTN_LAUNCH(DK)                                                   \
   return launch_dk<DK, TRAIN>(q, k, v, mask, ek, ev, out, m, l, b, h, t, d, w,  \
-                              drop, thr, seed, keep_scale, device, s)
+                              drop, thr, seed, salt_base, salt_stride,          \
+                              keep_scale, device, s)
   if (steps <= 2) BANDED_ATTN_LAUNCH(2);
   if (steps <= 4) BANDED_ATTN_LAUNCH(4);
   if (steps <= 8) BANDED_ATTN_LAUNCH(8);
@@ -550,7 +560,8 @@ template <int DK, bool TRAIN>
 int launch_bf16_dk(const bf16* q, const bf16* k, const bf16* v, const bf16* mask,
                    const bf16* ek, const bf16* ev, bf16* out, float* m, float* l, int b,
                    int h, int t, int d, int w, bool drop, uint32_t thr, uint32_t seed,
-                   float keep_scale, int device, cudaStream_t stream) {
+                   uint32_t salt_base, uint32_t salt_stride, float keep_scale,
+                   int device, cudaStream_t stream) {
   static size_t configured[MAXDEV] = {};
   const size_t bytes = LayoutBf16<DK>::bytes;
   const cudaError_t err = allow_smem((const void*)banded_attn_fwd_bf16_kernel<DK, TRAIN>,
@@ -558,7 +569,8 @@ int launch_bf16_dk(const bf16* q, const bf16* k, const bf16* v, const bf16* mask
   if (err != cudaSuccess) return (int)err;
   dim3 grid((t + 63) / 64, b * h);
   banded_attn_fwd_bf16_kernel<DK, TRAIN><<<grid, 128, bytes, stream>>>(
-      q, k, v, mask, ek, ev, out, m, l, h, t, d, w, drop, thr, seed, keep_scale);
+      q, k, v, mask, ek, ev, out, m, l, h, t, d, w, drop, thr, seed, salt_base,
+      salt_stride, keep_scale);
   return (int)cudaGetLastError();
 }
 
@@ -566,7 +578,8 @@ template <bool TRAIN>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* mask,
                 const bf16* ek, const bf16* ev, bf16* out, float* m, float* l, int b,
                 int h, int t, int d, int w, bool drop, uint32_t thr, uint32_t seed,
-                float keep_scale, int device, void* stream) {
+                uint32_t salt_base, uint32_t salt_stride, float keep_scale, int device,
+                void* stream) {
   if (bad_attn_shape(b, h, t, d, w, device)) return (int)cudaErrorInvalidValue;
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
@@ -574,7 +587,8 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* mask,
   const int steps = (d + 15) / 16;  // k16 steps
 #define BANDED_ATTN_BF16_LAUNCH(DK)                                              \
   return launch_bf16_dk<DK, TRAIN>(q, k, v, mask, ek, ev, out, m, l, b, h, t, d,  \
-                                   w, drop, thr, seed, keep_scale, device, s)
+                                   w, drop, thr, seed, salt_base, salt_stride,    \
+                                   keep_scale, device, s)
   if (steps <= 1) BANDED_ATTN_BF16_LAUNCH(2);
   if (steps <= 2) BANDED_ATTN_BF16_LAUNCH(4);
   if (steps <= 4) BANDED_ATTN_BF16_LAUNCH(8);
@@ -591,21 +605,24 @@ extern "C" int banded_attn_fwd(const float* q, const float* k, const float* v,
                                const float* ev, float* out, int b, int h, int t,
                                int d, int w, int device, void* stream) {
   return launch<false>(q, k, v, mask, ek, ev, out, nullptr, nullptr, b, h, t, d,
-                       w, false, 0u, 0u, 1.f, device, stream);
+                       w, false, 0u, 0u, 0u, 0u, 1.f, device, stream);
 }
 
 // Train mode: also m, l [b, h, t]; with drop, the hash dropout at threshold
-// thr from seed, kept probabilities scaled by scale = 1 / (1 - p_drop).
+// thr from seed, batch row b and head hh salted salt_base + b * salt_stride +
+// hh (0 and h: the TPU kernel's b * h + hh), kept probabilities scaled by
+// scale = 1 / (1 - p_drop).
 extern "C" int banded_attn_fwd_train(const float* q, const float* k,
                                      const float* v, const float* mask,
                                      const float* ek, const float* ev,
                                      float* out, float* m, float* l, int b,
                                      int h, int t, int d, int w, int drop,
-                                     int thr, int seed, float scale, int device,
+                                     int thr, int seed, int salt_base,
+                                     int salt_stride, float scale, int device,
                                      void* stream) {
   return launch<true>(q, k, v, mask, ek, ev, out, m, l, b, h, t, d, w,
-                      drop != 0, (uint32_t)thr, (uint32_t)seed, scale, device,
-                      stream);
+                      drop != 0, (uint32_t)thr, (uint32_t)seed, (uint32_t)salt_base,
+                      (uint32_t)salt_stride, scale, device, stream);
 }
 
 // K1's bf16 mode (inference): every pointer to bf16 data, [b, h, t, d]
@@ -615,7 +632,7 @@ extern "C" int banded_attn_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
                                     bf16* out, int b, int h, int t, int d, int w,
                                     int device, void* stream) {
   return launch_bf16<false>(q, k, v, mask, ek, ev, out, nullptr, nullptr, b, h, t, d, w,
-                            false, 0u, 0u, 1.f, device, stream);
+                            false, 0u, 0u, 0u, 0u, 1.f, device, stream);
 }
 
 // K1's train mode on bf16 operands: q, k, v, mask, ek, ev and out bf16,
@@ -624,8 +641,10 @@ extern "C" int banded_attn_fwd_train_bf16(const bf16* q, const bf16* k, const bf
                                           const bf16* mask, const bf16* ek,
                                           const bf16* ev, bf16* out, float* m, float* l,
                                           int b, int h, int t, int d, int w, int drop,
-                                          int thr, int seed, float scale, int device,
+                                          int thr, int seed, int salt_base,
+                                          int salt_stride, float scale, int device,
                                           void* stream) {
   return launch_bf16<true>(q, k, v, mask, ek, ev, out, m, l, b, h, t, d, w, drop != 0,
-                           (uint32_t)thr, (uint32_t)seed, scale, device, stream);
+                           (uint32_t)thr, (uint32_t)seed, (uint32_t)salt_base,
+                           (uint32_t)salt_stride, scale, device, stream);
 }

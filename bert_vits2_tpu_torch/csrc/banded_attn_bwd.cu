@@ -104,6 +104,12 @@ struct Drop {
   bool on;
   uint32_t thr, seed;
   float scale;
+  // batch row b, head hh of h salted salt_base + b * salt_stride + hh
+  uint32_t salt_base, salt_stride;
+  __device__ uint32_t salt(int bh, int h) const {
+    const int b = bh / h;
+    return salt_base + (uint32_t)b * salt_stride + (uint32_t)(bh - b * h);
+  }
 };
 
 // Shared memory of a block, in floats: the A side (64 rows or keys of
@@ -205,6 +211,7 @@ attn_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int gq = lane / 4, i4 = lane % 4;
   const int bh = blockIdx.y;
   const int b = bh / h;
+  const uint32_t salt = drop.salt(bh, h);
   const int q0 = blockIdx.x * 64;
   const int r0 = q0 + 16 * warp;  // this warp's first row
   const size_t base = (size_t)bh * t * d;
@@ -300,7 +307,7 @@ attn_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const float p = expf(x - mi[r]) * linv[r];
         float pd = p;
         if (drop.on) {
-          const float ks = hash_keep(i, j, bh, drop.seed, drop.thr) ? drop.scale : 0.f;
+          const float ks = hash_keep(i, j, salt, drop.seed, drop.thr) ? drop.scale : 0.f;
           pd = p * ks;
           dpv *= ks;
         }
@@ -508,6 +515,7 @@ attn_bwd_q_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int gq = lane / 4, i4 = lane % 4;
   const int bh = blockIdx.y;
   const int b = bh / h;
+  const uint32_t salt = drop.salt(bh, h);
   const int q0 = blockIdx.x * 64;
   const int r0 = q0 + 16 * warp;  // this warp's first row
   const size_t base = (size_t)bh * t * d;
@@ -612,7 +620,7 @@ attn_bwd_q_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float p = expf(x - mi[r]) * linv[r];
         float pd = p;
         if (drop.on) {
-          const float ks = hash_keep(i, j, bh, drop.seed, drop.thr) ? drop.scale : 0.f;
+          const float ks = hash_keep(i, j, salt, drop.seed, drop.thr) ? drop.scale : 0.f;
           pd = p * ks;
           dpv *= ks;
         }
@@ -701,6 +709,7 @@ attn_bwd_k_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int gq = lane / 4, i4 = lane % 4;
   const int bh = blockIdx.y;
   const int b = bh / h;
+  const uint32_t salt = drop.salt(bh, h);
   const int k0 = blockIdx.x * 64;
   const size_t base = (size_t)bh * t * d;
   const size_t sbase = (size_t)bh * t;
@@ -810,7 +819,7 @@ attn_bwd_k_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const float p = i < t && j < t ? expf(x - Ms[ii]) * Li[ii] : 0.f;
       float pd = p;
       if (drop.on) {
-        const float ks = hash_keep(i, j, bh, drop.seed, drop.thr) ? drop.scale : 0.f;
+        const float ks = hash_keep(i, j, salt, drop.seed, drop.thr) ? drop.scale : 0.f;
         pd = p * ks;
         dpv *= ks;
       }
@@ -866,6 +875,7 @@ attn_bwd_k_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int gq = lane / 4, i4 = lane % 4;
   const int bh = blockIdx.y;
   const int b = bh / h;
+  const uint32_t salt = drop.salt(bh, h);
   const int k0 = blockIdx.x * 64;
   const size_t base = (size_t)bh * t * d;
   const size_t sbase = (size_t)bh * t;
@@ -1037,7 +1047,7 @@ attn_bwd_k_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float dpv = gv[e4];
       if (in_band && c >= 0 && c < nb) dpv += Rv[(i - r0) * NBAND + c];
       if (drop.on) {
-        const float ks = hash_keep(i, j, bh, drop.seed, drop.thr) ? drop.scale : 0.f;
+        const float ks = hash_keep(i, j, salt, drop.seed, drop.thr) ? drop.scale : 0.f;
         sc[e4] = p * ks;
         dpv *= ks;
       }
@@ -1168,9 +1178,11 @@ int launch_k_bf16(const ArgsBf16& a, bf16* dk, bf16* dv, int device) {
 Args make_args(const float* q, const float* k, const float* v, const float* mask,
                const float* ek, const float* ev, const float* g, const float* m,
                const float* l, const float* dd, int b, int h, int t, int d, int w,
-               int drop, int thr, int seed, float scale, void* stream) {
+               int drop, int thr, int seed, int salt_base, int salt_stride, float scale,
+               void* stream) {
   return Args{q, k, v, mask, ek, ev, g, m, l, dd, b, h, t, d, w,
-              Drop{drop != 0, (uint32_t)thr, (uint32_t)seed, scale},
+              Drop{drop != 0, (uint32_t)thr, (uint32_t)seed, scale, (uint32_t)salt_base,
+                   (uint32_t)salt_stride},
               (cudaStream_t)stream};
 }
 
@@ -1204,12 +1216,13 @@ extern "C" int banded_attn_bwd_q(const float* q, const float* k, const float* v,
                                  const float* dd, float* dq, float* partials,
                                  float* dek, float* dev, int b, int h, int t,
                                  int d, int w, int drop, int thr, int seed,
-                                 float scale, int device, void* stream) {
+                                 int salt_base, int salt_stride, float scale,
+                                 int device, void* stream) {
   if (bad_attn_shape(b, h, t, d, w, device)) return (int)cudaErrorInvalidValue;
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   const Args a = make_args(q, k, v, mask, ek, ev, g, m, l, dd, b, h, t, d, w, drop,
-                           thr, seed, scale, stream);
+                           thr, seed, salt_base, salt_stride, scale, stream);
 #define B5_CALL(DK, TN, WGS) launch_q<DK, TN>(a, dq, partials, dek, dev, device)
   BANDED_ATTN_BWD_DISPATCH(B5_CALL);
 #undef B5_CALL
@@ -1222,13 +1235,13 @@ extern "C" int banded_attn_bwd_k(const float* q, const float* k, const float* v,
                                  const float* m, const float* l,
                                  const float* dd, float* dk, float* dv, int b,
                                  int h, int t, int d, int w, int drop, int thr,
-                                 int seed, float scale, int device,
-                                 void* stream) {
+                                 int seed, int salt_base, int salt_stride,
+                                 float scale, int device, void* stream) {
   if (bad_attn_shape(b, h, t, d, w, device)) return (int)cudaErrorInvalidValue;
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   const Args a = make_args(q, k, v, mask, ek, ev, g, m, l, dd, b, h, t, d, w, drop,
-                           thr, seed, scale, stream);
+                           thr, seed, salt_base, salt_stride, scale, stream);
 #define B6_CALL(DK, TN, WGS) launch_k<DK, TN, WGS>(a, dk, dv, device)
   BANDED_ATTN_BWD_DISPATCH(B6_CALL);
 #undef B6_CALL
@@ -1251,13 +1264,15 @@ extern "C" int banded_attn_bwd_q_bf16(const bf16* q, const bf16* k, const bf16* 
                                       const bf16* g, const float* m, const float* l,
                                       const float* dd, bf16* dq, float* partials,
                                       bf16* dek, bf16* dev, int b, int h, int t, int d,
-                                      int w, int drop, int thr, int seed, float scale,
-                                      int device, void* stream) {
+                                      int w, int drop, int thr, int seed, int salt_base,
+                                      int salt_stride, float scale, int device,
+                                      void* stream) {
   if (bad_attn_shape(b, h, t, d, w, device)) return (int)cudaErrorInvalidValue;
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   const ArgsBf16 a{q, k, v, mask, ek, ev, g, m, l, dd, b, h, t, d, w,
-                   Drop{drop != 0, (uint32_t)thr, (uint32_t)seed, scale},
+                   Drop{drop != 0, (uint32_t)thr, (uint32_t)seed, scale,
+                        (uint32_t)salt_base, (uint32_t)salt_stride},
                    (cudaStream_t)stream};
 #define B5_BF16_CALL(DK) launch_q_bf16<DK>(a, dq, partials, dek, dev, device)
   BANDED_ATTN_BWD_BF16_DISPATCH(B5_BF16_CALL);
@@ -1270,12 +1285,14 @@ extern "C" int banded_attn_bwd_k_bf16(const bf16* q, const bf16* k, const bf16* 
                                       const bf16* g, const float* m, const float* l,
                                       const float* dd, bf16* dk, bf16* dv, int b, int h,
                                       int t, int d, int w, int drop, int thr, int seed,
-                                      float scale, int device, void* stream) {
+                                      int salt_base, int salt_stride, float scale,
+                                      int device, void* stream) {
   if (bad_attn_shape(b, h, t, d, w, device)) return (int)cudaErrorInvalidValue;
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   const ArgsBf16 a{q, k, v, mask, ek, ev, g, m, l, dd, b, h, t, d, w,
-                   Drop{drop != 0, (uint32_t)thr, (uint32_t)seed, scale},
+                   Drop{drop != 0, (uint32_t)thr, (uint32_t)seed, scale,
+                        (uint32_t)salt_base, (uint32_t)salt_stride},
                    (cudaStream_t)stream};
 #define B6_BF16_CALL(DK) launch_k_bf16<DK>(a, dk, dv, device)
   BANDED_ATTN_BWD_BF16_DISPATCH(B6_BF16_CALL);

@@ -1,6 +1,9 @@
 // The attention dropout's keep mask: a copy of the JAX package's `_hash_keep`
 // (bert_vits2_tpu/ops/attention_pallas.py:71-85), a murmur-style finalizer
-// over (row, column, salt = batch * heads + head, seed). The TPU computes it
+// over (row, column, salt, seed). The TPU kernels salt with batch * heads +
+// head; the callers here take the affine salt_base + batch * salt_stride +
+// head, whose default (0, heads) is that, so that a data-parallel rank can
+// salt its rows as the global batch's. The TPU computes it
 // in int32 with wrapping multiplies and logical right shifts; uint32
 // arithmetic is the same bits. A probability is kept when the low 31 bits
 // of the hash reach thr = min(int(p_drop * 2^31), 2^31 - 1).

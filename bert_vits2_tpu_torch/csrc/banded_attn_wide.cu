@@ -61,13 +61,16 @@ struct Drop {
   bool on;
   uint32_t thr, seed;
   float scale;
+  uint32_t salt_base, salt_stride;
 };
 
-// keep(i, j) / (1 - p_drop), or 1 without dropout
-__device__ __forceinline__ float keep_scale(const Drop& dr, int i, int j, int bh) {
+// keep(i, j) / (1 - p_drop), or 1 without dropout; batch row b, head hh of
+// bh = b * h + hh salted salt_base + b * salt_stride + hh
+__device__ __forceinline__ float keep_scale(const Drop& dr, int i, int j, int bh, int h) {
   if (!dr.on) return 1.f;
-  return hash_keep((uint32_t)i, (uint32_t)j, (uint32_t)bh, dr.seed, dr.thr) ? dr.scale
-                                                                           : 0.f;
+  const int b = bh / h;
+  const uint32_t salt = dr.salt_base + (uint32_t)b * dr.salt_stride + (uint32_t)(bh - b * h);
+  return hash_keep((uint32_t)i, (uint32_t)j, salt, dr.seed, dr.thr) ? dr.scale : 0.f;
 }
 
 // a . b over n values by one warp (each float or bf16); every lane gets the sum
@@ -150,7 +153,7 @@ wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float alpha = expf(m - m_new);
       float p = tid < n ? expf(sc[tid] - m_new) : 0.f;
       l = l * alpha + block_reduce<false>(p, red);  // the undropped sum
-      if (TRAIN && tid < n) p *= keep_scale(dr, i, j0 + tid, bh);
+      if (TRAIN && tid < n) p *= keep_scale(dr, i, j0 + tid, bh, h);
       if (tid < n) sc[tid] = p;  // a thread rewrites only its own entry
       __syncthreads();
       for (int c = tid; c < nb; c += THREADS) {
@@ -234,7 +237,7 @@ wide_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
           if (band) s += bl[c], gv += gl[c];
           const bool masked = to_f(mrow[j]) == 0.f;
           const float p = expf((masked ? NEG_FILL : s) - mi) / li;
-          const float ks = keep_scale(dr, i, j, bh);
+          const float ks = keep_scale(dr, i, j, bh, h);
           const float dsv = masked ? 0.f : p * (gv * ks - Di);
           ds[jj] = dsv;
           if (band) bds[c] = dsv, bpd[c] = p * ks;
@@ -332,7 +335,7 @@ wide_bwd_k_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
         if (lane == 0) {
           const float p = expf((masked ? NEG_FILL : s) - m[rows + i]) / l[rows + i];
-          const float kss = keep_scale(dr, i, j, bh);
+          const float kss = keep_scale(dr, i, j, bh, h);
           ds[ii] = masked ? 0.f : p * (gv * kss - D[rows + i]);
           pd[ii] = p * kss;
         }
@@ -365,8 +368,10 @@ inline bool bad_wide_shape(int b, int h, int t, int d, int w, int device) {
 
 inline dim3 row_grid(int b, int h, int t) { return dim3(t, min(b * h, MAX_GRID_Y)); }
 
-Drop drop_of(int drop, int thr, int seed, float scale) {
-  return Drop{drop != 0, (uint32_t)thr, (uint32_t)seed, scale};
+Drop drop_of(int drop, int thr, int seed, int salt_base, int salt_stride,
+             float scale) {
+  return Drop{drop != 0, (uint32_t)thr, (uint32_t)seed, scale, (uint32_t)salt_base,
+              (uint32_t)salt_stride};
 }
 
 template <bool TRAIN, typename T>
@@ -433,7 +438,7 @@ extern "C" int banded_attn_wide_fwd(const float* q, const float* k, const float*
                                     const float* ev, float* out, int b, int h, int t,
                                     int d, int w, int device, void* stream) {
   return launch_fwd<false>(q, k, v, mask, ek, ev, out, nullptr, nullptr, b, h, t, d,
-                           w, drop_of(0, 0, 0, 1.f), device, stream);
+                           w, drop_of(0, 0, 0, 0, 0, 1.f), device, stream);
 }
 
 // Inference on bf16 operands: every pointer to bf16 data.
@@ -442,7 +447,7 @@ extern "C" int banded_attn_wide_fwd_bf16(const bf16* q, const bf16* k, const bf1
                                          const bf16* ev, bf16* out, int b, int h, int t,
                                          int d, int w, int device, void* stream) {
   return launch_fwd<false>(q, k, v, mask, ek, ev, out, nullptr, nullptr, b, h, t, d,
-                           w, drop_of(0, 0, 0, 1.f), device, stream);
+                           w, drop_of(0, 0, 0, 0, 0, 1.f), device, stream);
 }
 
 // Train mode: also the row statistics m, l [b, h, t] and the hash dropout.
@@ -451,9 +456,11 @@ extern "C" int banded_attn_wide_fwd_train(const float* q, const float* k,
                                           const float* ek, const float* ev, float* out,
                                           float* m, float* l, int b, int h, int t,
                                           int d, int w, int drop, int thr, int seed,
+                                          int salt_base, int salt_stride,
                                           float scale, int device, void* stream) {
   return launch_fwd<true>(q, k, v, mask, ek, ev, out, m, l, b, h, t, d, w,
-                          drop_of(drop, thr, seed, scale), device, stream);
+                          drop_of(drop, thr, seed, salt_base, salt_stride, scale), device,
+                          stream);
 }
 
 // Train mode on bf16 operands: out bf16, m, l fp32.
@@ -462,9 +469,11 @@ extern "C" int banded_attn_wide_fwd_train_bf16(const bf16* q, const bf16* k,
                                                const bf16* ek, const bf16* ev, bf16* out,
                                                float* m, float* l, int b, int h, int t,
                                                int d, int w, int drop, int thr, int seed,
+                                               int salt_base, int salt_stride,
                                                float scale, int device, void* stream) {
   return launch_fwd<true>(q, k, v, mask, ek, ev, out, m, l, b, h, t, d, w,
-                          drop_of(drop, thr, seed, scale), device, stream);
+                          drop_of(drop, thr, seed, salt_base, salt_stride, scale), device,
+                          stream);
 }
 
 // B5: dq [b, h, t, d] and dek, dev [2w+1, d]; band_ds, band_pd: scratch
@@ -475,10 +484,12 @@ extern "C" int banded_attn_wide_bwd_q(const float* q, const float* k, const floa
                                       const float* l, const float* D, float* dq,
                                       float* band_ds, float* band_pd, float* dek,
                                       float* dev, int b, int h, int t, int d, int w,
-                                      int drop, int thr, int seed, float scale,
-                                      int device, void* stream) {
+                                      int drop, int thr, int seed, int salt_base,
+                                      int salt_stride, float scale, int device,
+                                      void* stream) {
   return launch_bwd_q(q, k, v, mask, ek, ev, g, m, l, D, dq, band_ds, band_pd, dek, dev,
-                      b, h, t, d, w, drop_of(drop, thr, seed, scale), device, stream);
+                      b, h, t, d, w, drop_of(drop, thr, seed, salt_base, salt_stride, scale),
+                      device, stream);
 }
 
 // B5 on bf16 operands: q, k, v, mask, ek, ev, g, dq, dek, dev bf16; m, l, D
@@ -489,10 +500,12 @@ extern "C" int banded_attn_wide_bwd_q_bf16(const bf16* q, const bf16* k, const b
                                            const float* l, const float* D, bf16* dq,
                                            float* band_ds, float* band_pd, bf16* dek,
                                            bf16* dev, int b, int h, int t, int d, int w,
-                                           int drop, int thr, int seed, float scale,
-                                           int device, void* stream) {
+                                           int drop, int thr, int seed, int salt_base,
+                                           int salt_stride, float scale, int device,
+                                           void* stream) {
   return launch_bwd_q(q, k, v, mask, ek, ev, g, m, l, D, dq, band_ds, band_pd, dek, dev,
-                      b, h, t, d, w, drop_of(drop, thr, seed, scale), device, stream);
+                      b, h, t, d, w, drop_of(drop, thr, seed, salt_base, salt_stride, scale),
+                      device, stream);
 }
 
 // B6: dk, dv [b, h, t, d].
@@ -501,10 +514,12 @@ extern "C" int banded_attn_wide_bwd_k(const float* q, const float* k, const floa
                                       const float* ev, const float* g, const float* m,
                                       const float* l, const float* D, float* dk,
                                       float* dv, int b, int h, int t, int d, int w,
-                                      int drop, int thr, int seed, float scale,
-                                      int device, void* stream) {
+                                      int drop, int thr, int seed, int salt_base,
+                                      int salt_stride, float scale, int device,
+                                      void* stream) {
   return launch_bwd_k(q, k, v, mask, ek, ev, g, m, l, D, dk, dv, b, h, t, d, w,
-                      drop_of(drop, thr, seed, scale), device, stream);
+                      drop_of(drop, thr, seed, salt_base, salt_stride, scale), device,
+                      stream);
 }
 
 // B6 on bf16 operands: dk, dv bf16.
@@ -513,8 +528,10 @@ extern "C" int banded_attn_wide_bwd_k_bf16(const bf16* q, const bf16* k, const b
                                            const bf16* ev, const bf16* g, const float* m,
                                            const float* l, const float* D, bf16* dk,
                                            bf16* dv, int b, int h, int t, int d, int w,
-                                           int drop, int thr, int seed, float scale,
-                                           int device, void* stream) {
+                                           int drop, int thr, int seed, int salt_base,
+                                           int salt_stride, float scale, int device,
+                                           void* stream) {
   return launch_bwd_k(q, k, v, mask, ek, ev, g, m, l, D, dk, dv, b, h, t, d, w,
-                      drop_of(drop, thr, seed, scale), device, stream);
+                      drop_of(drop, thr, seed, salt_base, salt_stride, scale), device,
+                      stream);
 }

@@ -19,14 +19,30 @@ Every version family of `compat/versions.py`: the engine's `version_spec`
 picks the symbol table, tone offsets, languages and inactive-language fill
 of `get_text`, and the V2.1/V2.2 families take an emotion input per
 request (`_resolve_emotion`: a codebook index, a zero CLAP feature, or an
-extractor's vector from reference audio or a CLAP text prompt). The JAX
-engine's `pack_requests` (its two-buffer device pool, which
-its `predict_frames` and `run_packed` address by row) is not ported: here
-the request tensors are handed to the device directly for each call.
+extractor's vector from reference audio or a CLAP text prompt).
+
+The request pool (JAX `pack_requests`): every request tensor rides in two
+contiguous buffers, one int32 and one float32 (`_pack_host`, the JAX
+engine's layout), shipped in one pair of host-to-device copies
+(`_put_pool`); a call gathers its rows on the device (`index_select`) and
+slices the layout apart (`_unpack`). `run_prepared` without a pool packs
+its own requests, `run_packed` ships the pile once and each chunk is a
+gather with no request bytes copied.
+
+The data-parallel engine (`mesh=`, JAX `TTSEngine(mesh=)`): one replica of
+the model, its bf16 stages and K2's packed weights per device of the
+mesh's data axis (one per distinct device: a mesh may name one card
+twice); the padded batch's rows are split over the replicas, each replica
+draws the whole padded batch's noise from the call's seed and keeps its
+rows (`parallel/data.py`), so the waves equal the single engine's, and
+every replica's launches go out before any host sync. The pool and the
+BERT extractor stay on the first device; a replica's rows are gathered
+there and copied to its device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 from typing import NamedTuple, Sequence
@@ -36,6 +52,7 @@ import torch
 
 from bert_vits2_tpu_torch.device import resolve_device
 from bert_vits2_tpu_torch.models.synthesizer import Synthesizer
+from bert_vits2_tpu_torch.parallel import batch_sharding, data_shard, replicate
 from bert_vits2_tpu_torch.text import clean_text, cleaned_text_to_sequence
 from bert_vits2_tpu_torch.text.bert import BERT_DIM, AutoBertExtractor
 
@@ -153,14 +170,24 @@ class TTSEngine:
 
     `stats` counts, across run_prepared calls: frames_capacity (padded batch
     x frame cap), frames_delivered (frames inside real requests' y_len) and
-    bytes_h2d (request tensors shipped to the device)."""
+    bytes_h2d (request tensors shipped to the device: the pools' buffers).
+
+    mesh: a one-process `parallel.Mesh` (`make_mesh(n_data, devices=...)`)
+    for data-parallel synthesis (module note); the engine's device is then
+    the mesh's first, and `device` is not read."""
 
     def __init__(self, model: Synthesizer, spk2id: dict | None = None,
                  sampling_rate: int = 44100, bert_extractor=None,
                  text_buckets: Sequence[int] = (32, 64, 128, 256, 384),
                  frames_per_token: int = 6, frame_multiple: int = 64,
                  version_spec=None, emotion_extractor=None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None):
+        if mesh is not None:
+            if mesh.distributed or mesh.n_model != 1:
+                raise ValueError("the engine takes a one-process data mesh "
+                                 "(make_mesh(n_data, devices=...), n_model 1)")
+            device = mesh.data_devices[0]
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.spk2id = spk2id or {}
@@ -188,6 +215,23 @@ class TTSEngine:
             self.stages = self.model.compute_stages()
         with torch.inference_mode():
             self.mrf_packed = self.model.dec.pack_mrf(self.model.compute_dtype)
+        # (model, stages, mrf_packed) per device of the data axis: one copy
+        # of the model per distinct device, its stages and K2's weights made
+        # there
+        self.replicas = [(self.model, self.stages, self.mrf_packed)]
+        if mesh is not None:
+            for d in mesh.data_devices:
+                resolve_device(d)  # every device of the mesh must exist
+            made = {id(self.model): self.replicas[0]}
+            self.replicas = []
+            for replica in replicate(mesh, self.model):
+                if id(replica) not in made:
+                    with torch.no_grad():
+                        stages = replica.eval().compute_stages()
+                    with torch.inference_mode():
+                        made[id(replica)] = (replica, stages,
+                                             replica.dec.pack_mrf(replica.compute_dtype))
+                self.replicas.append(made[id(replica)])
 
     def _resolve_emotion(self, emotion, reference_audio, batch: int):
         """-> the emotion rows for the model, or None for emotion-less versions.
@@ -248,59 +292,162 @@ class TTSEngine:
         return max(m, ((cap + m - 1) // m) * m)
 
     def _pad_idx(self, idx: list[int]) -> np.ndarray:
-        """Pad the batch to a power of two by repeating the last row."""
+        """Pad the batch to a power of two by repeating the last row; under
+        a mesh, to a multiple of the data axis too (JAX api.py:595-602)."""
         n_pad = 1 << max(len(idx) - 1, 0).bit_length()
+        if self.mesh is not None:
+            n_pad = -(-n_pad // self.mesh.n_data) * self.mesh.n_data
         return np.asarray(list(idx) + [idx[-1]] * (n_pad - len(idx)), np.int32)
 
-    # ---- batching ----
+    # ---- the request pool (the JAX engine's packed transport) ----
 
-    def _batch(self, reqs: Sequence[PreparedRequest]) -> dict:
-        """Pad requests to their bucket and the power-of-two batch -> the
-        model's keyword tensors on the device; `emo` rides as [b] int64
-        codebook indices or [b, d] float32 rows."""
-        t_x = self._bucket(max(len(r.inputs[0]) for r in reqs))
-        rows = [reqs[i] for i in self._pad_idx(list(range(len(reqs))))]
-        b = len(rows)
-        ints = np.zeros((3, b, t_x), np.int64)
-        feats = [np.zeros((b, t_x, np.asarray(reqs[0].inputs[3 + j]).shape[1]),
-                          np.float32) for j in range(3)]
-        for i, r in enumerate(rows):
-            n = len(r.inputs[0])
+    def _emo_kind(self, reqs) -> tuple[int, int]:
+        """-> (e_int, e_f): 1/0 codebook-index column, float emo width."""
+        emo0 = reqs[0].emo
+        if emo0 is None:
+            return 0, 0
+        a = np.asarray(emo0)
+        if np.issubdtype(a.dtype, np.integer):
+            return 1, 0
+        return 0, int(a.shape[-1])
+
+    def _bert_offsets(self, t_x: int):
+        """Per-row float-buffer layout: the three BERT widths are not
+        uniform across version families (V1.1 takes a 768-d ja_bert,
+        ModelConfig.ja_bert_dim). -> (dims, offsets[4])."""
+        cfg = self.model.cfg
+        dims = (cfg.bert_dim, getattr(cfg, "ja_bert_dim", cfg.bert_dim),
+                cfg.bert_dim)
+        offs = [0]
+        for d in dims:
+            offs.append(offs[-1] + t_x * d)
+        return dims, offs
+
+    def _pack_host(self, reqs: list, t_x: int):
+        """-> (ints [b, 3*t_x + 2 + e_int] int32: phones, tones, languages,
+        length, sid, codebook index; floats [b, sum(t_x * D_j) + 4 + e_f]
+        float32: bert, ja_bert, en_bert, noise_scale, length_scale,
+        noise_scale_w, sdp_ratio, emotion vector)."""
+        b = len(reqs)
+        e_int, e_f = self._emo_kind(reqs)
+        dims, offs = self._bert_offsets(t_x)
+        ints = np.zeros((b, 3 * t_x + 2 + e_int), np.int32)
+        floats = np.zeros((b, offs[-1] + 4 + e_f), np.float32)
+        for i, r in enumerate(reqs):
+            tl = len(r.inputs[0])
             for j in range(3):
-                ints[j, i, :n] = r.inputs[j]
-                feats[j][i, :n] = r.inputs[3 + j]
-        host = {
-            "x": ints[0], "tone": ints[1], "language": ints[2],
-            "x_lengths": np.asarray([len(r.inputs[0]) for r in rows], np.int64),
-            "sid": np.asarray([r.sid for r in rows], np.int64),
-            "bert": feats[0], "ja_bert": feats[1], "en_bert": feats[2],
-        }
-        for k in ("noise_scale", "length_scale", "noise_scale_w", "sdp_ratio"):
-            host[k] = np.asarray([getattr(r, k) for r in rows], np.float32)
-        if reqs[0].emo is not None:
-            emo = np.concatenate([np.asarray(r.emo) for r in rows])
-            host["emo"] = (emo.astype(np.int64) if np.issubdtype(emo.dtype, np.integer)
-                           else emo.astype(np.float32))
-        self.stats["bytes_h2d"] += sum(a.nbytes for a in host.values())
-        return {k: torch.from_numpy(a).to(self.device) for k, a in host.items()}
+                ints[i, j * t_x: j * t_x + tl] = r.inputs[j]
+            ints[i, 3 * t_x] = tl
+            ints[i, 3 * t_x + 1] = r.sid
+            if e_int:
+                ints[i, 3 * t_x + 2] = int(np.asarray(r.emo).reshape(-1)[0])
+            for j in range(3):
+                flat = np.asarray(r.inputs[3 + j], np.float32).reshape(-1)
+                floats[i, offs[j]: offs[j] + tl * dims[j]] = flat
+            floats[i, offs[-1]: offs[-1] + 4] = (
+                r.noise_scale, r.length_scale, r.noise_scale_w, r.sdp_ratio)
+            if e_f:
+                floats[i, offs[-1] + 4:] = np.asarray(r.emo, np.float32).reshape(-1)
+        return ints, floats
 
-    def _generator(self, seed: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(int(seed))
+    def _put_pool(self, ints: np.ndarray, floats: np.ndarray):
+        """The two host buffers -> the device (the first of a mesh), one copy
+        each, counted in bytes_h2d."""
+        self.stats["bytes_h2d"] += ints.nbytes + floats.nbytes
+        return (torch.from_numpy(ints).to(self.device),
+                torch.from_numpy(floats).to(self.device))
 
-    def _predict(self, batch: dict, seed: int) -> np.ndarray:
-        kw = {k: v for k, v in batch.items() if k != "noise_scale"}
-        frames = self.model.predict_durations(
-            generator=self._generator(seed), **kw)
-        return frames.cpu().numpy()
+    def _unpack(self, ibuf, fbuf, idx: torch.Tensor, t_x: int, e_int: int,
+                e_f: int) -> dict:
+        """Gather rows `idx` of the pool on its device and slice the packed
+        layout apart -> the model's keyword tensors (integers int64, the
+        slices contiguous; `emo` [b] int64 or [b, d] float32)."""
+        dims, offs = self._bert_offsets(t_x)
+        ii = ibuf.index_select(0, idx)
+        ff = fbuf.index_select(0, idx)
+        b = ii.shape[0]
+        batch = {"x": ii[:, :t_x].long(), "tone": ii[:, t_x:2 * t_x].long(),
+                 "language": ii[:, 2 * t_x:3 * t_x].long(),
+                 "x_lengths": ii[:, 3 * t_x].long(), "sid": ii[:, 3 * t_x + 1].long()}
+        for j, key in enumerate(("bert", "ja_bert", "en_bert")):
+            batch[key] = ff[:, offs[j]:offs[j + 1]].reshape(b, t_x, dims[j]).contiguous()
+        k0 = offs[-1]
+        for j, key in enumerate(("noise_scale", "length_scale", "noise_scale_w",
+                                 "sdp_ratio")):
+            batch[key] = ff[:, k0 + j].contiguous()
+        if e_int:
+            batch["emo"] = ii[:, 3 * t_x + 2].long()
+        elif e_f:
+            batch["emo"] = ff[:, k0 + 4:].contiguous()
+        return batch
+
+    def pack_requests(self, reqs: Sequence[PreparedRequest]):
+        """Pack a request pile into a device-resident pool: one pair of
+        host-to-device copies for the whole pile; predict and synthesis
+        calls then address rows by index (a gather on the device).
+        -> (pool, t_x, (e_int, e_f))."""
+        self._check_one_kind(reqs)
+        t_x = self._bucket(max(len(r.inputs[0]) for r in reqs))
+        ints, floats = self._pack_host(list(reqs), t_x)
+        return self._put_pool(ints, floats), t_x, self._emo_kind(reqs)
+
+    def model_inputs(self, reqs: Sequence[PreparedRequest]) -> dict:
+        """The model's keyword tensors of one padded batch of `reqs`, as
+        run_prepared builds them (pack_requests, then the gather), on the
+        engine's device."""
+        (ibuf, fbuf), t_x, kinds = self.pack_requests(reqs)
+        idx = torch.from_numpy(self._pad_idx(list(range(len(reqs)))).astype(np.int64))
+        return self._unpack(ibuf, fbuf, idx.to(ibuf.device), t_x, *kinds)
+
+    def _run_rows(self, pool, rows: Sequence[int], seed: int,
+                  max_frames: int | None = None) -> list:
+        """The duration pass (max_frames None) or synthesis over pool rows
+        `rows`, padded (`_pad_idx`), one call per replica on its share of
+        the padded rows -> the replicas' outputs, in row order, still on
+        their devices (no host sync here). The replicas draw the noise of
+        the batch that one device pads to (a power of two), so a row's
+        numbers do not depend on the mesh."""
+        (ibuf, fbuf), t_x, (e_int, e_f) = pool
+        idx = torch.from_numpy(self._pad_idx(list(rows)).astype(np.int64))
+        idx = idx.to(ibuf.device)
+        n = len(idx)
+        n_draw = 1 << max(len(rows) - 1, 0).bit_length()
+        parts = ([(slice(0, n), self.device)] if self.mesh is None
+                 else batch_sharding(self.mesh, n))
+        outs = []
+        for (part, dev), (model, stages, mrf_packed) in zip(parts, self.replicas):
+            batch = {k: v.to(dev) for k, v in
+                     self._unpack(ibuf, fbuf, idx[part], t_x, e_int, e_f).items()}
+            gen = torch.Generator(device=dev).manual_seed(int(seed))
+            shard = (contextlib.nullcontext() if self.mesh is None
+                     else data_shard(part.start, n, draw_rows=n_draw))
+            with shard:
+                if max_frames is None:
+                    batch.pop("noise_scale")
+                    outs.append(model.predict_durations(generator=gen, **batch))
+                else:
+                    outs.append(model.infer(max_frames=max_frames, generator=gen,
+                                            mrf_packed=mrf_packed, stages=stages,
+                                            **batch))
+        return outs
+
+    def _predict_rows(self, pool, rows: list[int], seed: int) -> np.ndarray:
+        """Duration pass over pool rows -> predicted frames [len(rows)]."""
+        outs = self._run_rows(pool, rows, seed)
+        return torch.cat([o.cpu() for o in outs]).numpy()[: len(rows)]
 
     # ---- public API ----
 
     @torch.inference_mode()
-    def predict_frames(self, reqs: Sequence[PreparedRequest]) -> np.ndarray:
+    def predict_frames(self, reqs: Sequence[PreparedRequest],
+                       pool=None) -> np.ndarray:
         """Predicted output frames per request [n] from the duration-only
-        pass; exact for run_prepared on the same batch (same noise)."""
+        pass; exact for run_prepared on the same batch (same noise). `pool`
+        (from pack_requests over these reqs) skips shipping them again."""
         self._check_one_kind(reqs)
-        return self._predict(self._batch(reqs), reqs[0].seed)[: len(reqs)]
+        if pool is None:
+            pool = self.pack_requests(reqs)
+        return self._predict_rows(pool, list(range(len(reqs))), reqs[0].seed)
 
     def _check_one_kind(self, reqs):
         if len({self.group_key(r)[1] for r in reqs}) > 1:
@@ -309,7 +456,8 @@ class TTSEngine:
     @torch.inference_mode()
     def run_prepared(self, reqs: Sequence[PreparedRequest],
                      predicted_frames: np.ndarray | None = None,
-                     return_waves: bool = True) -> list:
+                     return_waves: bool = True, pool=None,
+                     pool_rows: Sequence[int] | None = None) -> list:
         """Synthesize prepared requests in one batched call -> trimmed
         float32 waveforms in request order (or, with return_waves=False,
         their lengths in samples).
@@ -317,30 +465,33 @@ class TTSEngine:
         The frame cap is the predicted maximum rounded up to the frame
         multiple, never above the worst-case tokens x frames_per_token
         bound; pass `predicted_frames` (from predict_frames over the same
-        requests) to skip the duration pass."""
+        requests) to skip the duration pass. `pool` / `pool_rows` (from
+        pack_requests over a pile that holds these requests) make the call a
+        gather on the device with no request bytes copied; `reqs` must then
+        be [pile[i] for i in pool_rows]."""
         self._check_one_kind(reqs)
         n_req = len(reqs)
-        batch = self._batch(reqs)
-        t_x = batch["x"].shape[1]
+        if pool is None:
+            pool = self.pack_requests(reqs)
+            pool_rows = range(n_req)
         if predicted_frames is None:
-            predicted_frames = self._predict(batch, reqs[0].seed)[:n_req]
+            predicted_frames = self._predict_rows(pool, list(pool_rows), reqs[0].seed)
+        t_x = pool[1]
+        idx = self._pad_idx(list(pool_rows))
         m = self.frame_multiple
         cap = -(-int(max(int(np.max(predicted_frames)), 1)) // m) * m
         max_frames = min(max(cap, m),
                          self._frame_cap(t_x, max(r.length_scale for r in reqs)))
-        wave, _, _, y_len = self.model.infer(
-            max_frames=max_frames, generator=self._generator(reqs[0].seed),
-            mrf_packed=self.mrf_packed, stages=self.stages, **batch)
-        y_len = y_len.cpu().numpy()
-        n_pad = batch["x"].shape[0]
-        self.stats["frames_capacity"] += n_pad * max_frames
+        outs = self._run_rows(pool, list(pool_rows), reqs[0].seed, max_frames)
+        y_len = torch.cat([o[3].cpu() for o in outs]).numpy()
+        self.stats["frames_capacity"] += len(idx) * max_frames
         self.stats["frames_delivered"] += int(
             np.minimum(y_len[:n_req], max_frames).sum())
         lens = [min(int(y_len[i]), max_frames) * self.hop_length
                 for i in range(n_req)]
         if not return_waves:
             return lens
-        wave = wave[:n_req].cpu().numpy()
+        wave = torch.cat([o[0].cpu() for o in outs])[:n_req].numpy()
         return [wave[i, :lens[i]] for i in range(n_req)]
 
     def plan_packed(self, frames: np.ndarray, max_batch: int):
@@ -359,14 +510,18 @@ class TTSEngine:
                    return_waves: bool = True) -> list:
         """Length-aware batched synthesis: predict every request's frames,
         sort by them and cut the pile into <= max_batch chunks, each with its
-        own frame cap. Returns waveforms in request order. Each chunk
-        re-predicts its own batch, since the SDP noise is positional."""
+        own frame cap. Returns waveforms in request order. The pile ships to
+        the device once (pack_requests); each chunk is a gather from that
+        pool and re-predicts its own batch, since the SDP noise is
+        positional."""
         self._check_one_kind(reqs)
-        frames = self.predict_frames(reqs)
+        pool = self.pack_requests(reqs)
+        frames = self.predict_frames(reqs, pool=pool)
         waves = {}
         for rows, _ in self.plan_packed(frames, max_batch):
             out = self.run_prepared([reqs[i] for i in rows],
-                                    return_waves=return_waves)
+                                    return_waves=return_waves, pool=pool,
+                                    pool_rows=rows)
             waves.update(zip(rows, out))
         return [waves[i] for i in range(len(reqs))]
 
@@ -382,31 +537,27 @@ class TTSEngine:
         run_prepared picks tighter caps from the predicted durations, so a
         cap below the worst case still meets cuDNN afresh the first time."""
         cfg = self.model.cfg
+        e_int, e_f = {"vq210": (1, 0), "clap220": (0, 512)}.get(cfg.emotion, (0, 0))
         n = 0
         for t_x in list(buckets or self.text_buckets):
             max_frames = self._frame_cap(t_x, length_scale)
+            _, offs = self._bert_offsets(t_x)
             for b in batch_sizes:
-                ints = torch.zeros((b, t_x), dtype=torch.long, device=self.device)
-                bert = torch.zeros((b, t_x, cfg.bert_dim), device=self.device)
-                ja_bert = torch.zeros((b, t_x, cfg.ja_bert_dim), device=self.device)
-                knob = torch.full((b,), 0.5, device=self.device)
-                batch = dict(x=ints, tone=ints, language=ints,
-                             x_lengths=torch.full((b,), t_x, dtype=torch.long,
-                                                  device=self.device),
-                             sid=torch.zeros((b,), dtype=torch.long, device=self.device),
-                             bert=bert, ja_bert=ja_bert, en_bert=bert,
-                             noise_scale=knob, length_scale=knob,
-                             noise_scale_w=knob, sdp_ratio=knob)
-                if cfg.emotion == "vq210":  # the codebook-index kind
-                    batch["emo"] = torch.zeros((b,), dtype=torch.long, device=self.device)
-                elif cfg.emotion == "clap220":
-                    batch["emo"] = torch.zeros((b, 512), device=self.device)
-                self._predict(batch, 0)
-                self.model.infer(max_frames=max_frames, generator=self._generator(0),
-                                 mrf_packed=self.mrf_packed, stages=self.stages, **batch)
+                # a pool of b zero requests made on the device: lengths t_x,
+                # knobs 0.5
+                ibuf = torch.zeros((b, 3 * t_x + 2 + e_int), dtype=torch.int32,
+                                   device=self.device)
+                ibuf[:, 3 * t_x] = t_x
+                fbuf = torch.zeros((b, offs[-1] + 4 + e_f), device=self.device)
+                fbuf[:, offs[-1]:offs[-1] + 4] = 0.5
+                pool = ((ibuf, fbuf), t_x, (e_int, e_f))
+                self._run_rows(pool, range(b), 0)
+                self._run_rows(pool, range(b), 0, max_frames)
                 n += 1
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in set(self.mesh.data_devices if self.mesh is not None
+                       else [self.device]):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return n
 
     def resolve_speaker(self, speaker) -> int:

@@ -122,11 +122,16 @@ def load_tts_engine(
     compute_dtype: "float32" or "bfloat16", the model's infer_compute_dtype
     (the flow and the decoder; the weights stay float32), for every version
     family, as the JAX loader applies it; None keeps the config's.
+
+    `mesh=` (a one-process `parallel.make_mesh`) among `engine_kw` makes the
+    data-parallel engine; its first device is then the engine's and the
+    BERT extractor's, in place of `device`.
     """
     from bert_vits2_tpu_torch.infer.api import TTSEngine
     from bert_vits2_tpu_torch.text.bert import AutoBertExtractor
 
-    dev = resolve_device(device)
+    mesh = engine_kw.get("mesh")
+    dev = resolve_device(mesh.data_devices[0] if mesh is not None else device)
     hps = get_hparams_from_file(config_path)
     spec = spec_for(str(hps.get("version", "2.3")))
     if bert_extractor is None:

@@ -103,7 +103,7 @@ class StochasticDurationPredictor(nn.Module):
         h_w = self.post_proj(h_w) * x_mask
 
         b, _, t = x.shape
-        e_q = noise.randn((b, 2, t), generator, x.device, x.dtype) * x_mask
+        e_q = noise.randn((b, 2, t), generator, x.device, x.dtype, batch_axis=0) * x_mask
         z_q, logdet_tot_q = _run_flows(self.post_flows, e_q, x_mask, x + h_w)
         z_u, z1 = z_q[:, :1], z_q[:, 1:]
         u = torch.sigmoid(z_u) * x_mask

@@ -38,6 +38,6 @@ class PosteriorEncoder(nn.Module):
         h = self.enc(h, y_mask, g=g)
         stats = self.proj(h) * y_mask
         m, logs = torch.split(stats, self.out_channels, dim=1)
-        eps = noise.randn(m.shape, generator, m.device, m.dtype)
+        eps = noise.randn(m.shape, generator, m.device, m.dtype, batch_axis=0)
         z = (m + eps * torch.exp(logs)) * y_mask
         return z, m, logs, y_mask

@@ -14,7 +14,11 @@ The training forward runs monotonic alignment search on the device (kernel
 K3, `ops/align.py`) with no gradient, then the duration losses, the prior
 expansion and a random decoder slice. It draws noise five times, in this
 order, through `ops/noise.py`: the posterior sample, the MAS noise, the SDP
-`e_q`, the SDP reverse `z` and the slice starts.
+`e_q`, the SDP reverse `z` and the slice starts. Under a data-parallel step
+(`parallel/data.py`) the draws are the global batch's rows, the MAS noise
+is scaled by the global batch's std and the duration losses divide by the
+global mask sum, as in the JAX package's one program over the global
+batch.
 
 Synthesis is statically shaped like the JAX version: the caller fixes
 `max_frames`, predicted durations are masked into it, and `y_lengths` says
@@ -61,6 +65,7 @@ from bert_vits2_tpu_torch.models.reference_encoder import ReferenceEncoder
 from bert_vits2_tpu_torch.models.text_encoder import TextEncoder
 from bert_vits2_tpu_torch.nn.norm import LayerNorm
 from bert_vits2_tpu_torch.ops import noise
+from bert_vits2_tpu_torch.parallel.data import global_count, global_std
 from bert_vits2_tpu_torch.ops.align import maximum_path
 from bert_vits2_tpu_torch.ops.masking import (
     generate_path,
@@ -84,8 +89,8 @@ def sdp_noise(x_h: torch.Tensor, noise_scale_w, generator=None) -> torch.Tensor:
     """The SDP's reverse noise [b, 2, t_x]: a standard normal draw from
     `generator` times noise_scale_w (() or [b])."""
     b, _, t = x_h.shape
-    return torch.randn((b, 2, t), generator=generator, device=x_h.device,
-                       dtype=x_h.dtype) * _knob(noise_scale_w, 3, x_h)
+    return noise.randn((b, 2, t), generator, x_h.device, x_h.dtype,
+                       batch_axis=0) * _knob(noise_scale_w, 3, x_h)
 
 
 def durations(logw_sdp, logw_dp, x_mask, sdp_ratio, length_scale) -> torch.Tensor:
@@ -112,8 +117,8 @@ def expand_prior(w, m_p, logs_p, x_mask, max_frames: int, noise_scale,
     if eps is not None:
         eps = eps.transpose(1, 2).to(m_p_y.dtype)
     else:
-        eps = torch.randn(m_p_y.shape, generator=generator,
-                          device=m_p_y.device, dtype=m_p_y.dtype)
+        eps = noise.randn(m_p_y.shape, generator, m_p_y.device, m_p_y.dtype,
+                          batch_axis=0)
     z_p = m_p_y + eps * torch.exp(logs_p_y) * _knob(noise_scale, 3, m_p_y)
     return z_p, attn, y_mask, y_lengths
 
@@ -262,20 +267,20 @@ class Synthesizer(nn.Module):
             nc4 = torch.sum(-0.5 * m_p ** 2 * s_p_sq_r, dim=1)
             neg_cent = nc1[:, None, :] + nc2 + nc3 + nc4[:, None, :]
             if self.cfg.use_noise_scaled_mas:
-                eps = noise.randn(neg_cent.shape, generator, neg_cent.device)
-                neg_cent = neg_cent + (torch.std(neg_cent, correction=0) * eps
-                                       * mas_noise_scale)
+                eps = noise.randn(neg_cent.shape, generator, neg_cent.device,
+                                  batch_axis=0)
+                neg_cent = neg_cent + (global_std(neg_cent) * eps * mas_noise_scale)
             attn = maximum_path(neg_cent.contiguous(), y_lengths, x_lengths)
         w = attn.sum(dim=1)[:, None, :]  # [b, 1, t_x]
 
         # duration losses (models.py:993-1004)
-        denom = torch.sum(x_mask)
+        denom = global_count(torch.sum(x_mask))
         l_length_sdp = self.sdp.nll(x_h, x_mask, w, g=g,
                                     generator=generator) / denom
         logw_ = torch.log(w + 1e-6) * x_mask
         logw = self.dp(x_h, x_mask, g=g)
         z_dur = noise.randn((x_h.shape[0], 2, x_h.shape[2]), generator,
-                            x_h.device, x_h.dtype)
+                            x_h.device, x_h.dtype, batch_axis=0)
         logw_sdp = self.sdp.reverse(x_h, x_mask, z_dur, g=g)
         l_length_dp = torch.sum((logw - logw_) ** 2, dim=(1, 2)) / denom
         l_length_sdp = l_length_sdp + torch.sum(

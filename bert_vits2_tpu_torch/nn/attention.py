@@ -10,7 +10,10 @@ formula in plain PyTorch with `F.dropout` on the probabilities, or, with
 `BV2_FUSED_ATTENTION_TRAIN=1` in the environment (read at each call, as
 the JAX package reads it while tracing), the fused op: K1 in train mode
 and the backward kernels B5/B6 on the card, the plain version on the CPU,
-both with the position-hash dropout. Every head width, window and b*h
+both with the position-hash dropout, salted with each row's place in the
+global batch and seeded alike on every rank under a data-parallel step
+(`parallel/data.py`), so a rank's rows get the masks the one-process
+step gives them. Every head width, window and b*h
 goes to the kernels, as the JAX module sends them to its TPU kernels (the
 wrappers pick the tensor-core kernels or, outside their range, those of
 `csrc/banded_attn_wide.cu`). A shorter sequence takes the window-embedding
@@ -46,12 +49,16 @@ from bert_vits2_tpu_torch.ops.attention import (
     banded_attention_plain,
     banded_rel_self_attention,
 )
+from bert_vits2_tpu_torch.parallel.data import dropout_salt, dropout_seeds
 
 
 def _dropout_seed() -> int:
-    """One int32 seed of the hash dropout, from torch's global generator
-    (the one every other dropout of the port draws from)."""
-    return int(torch.randint(-2**31, 2**31, (), dtype=torch.int64))
+    """One int32 seed of the hash dropout: inside a data shard (the train
+    step, `parallel/data.py`) from the shard's generator, which every rank
+    draws from alike; elsewhere from torch's global generator (the one the
+    other dropouts draw from)."""
+    return int(torch.randint(-2**31, 2**31, (), dtype=torch.int64,
+                             generator=dropout_seeds()))
 
 
 def _rel_to_abs(x: torch.Tensor) -> torch.Tensor:
@@ -126,7 +133,7 @@ class MultiHeadAttention(nn.Module):
                 q.contiguous(), k.contiguous(), v.contiguous(),
                 x_mask[:, 0].contiguous(), self.emb_rel_k[0].to(q.dtype),
                 self.emb_rel_v[0].to(q.dtype), w, dropout_p=p_drop,
-                dropout_seed=seed)
+                dropout_seed=seed, dropout_salt=dropout_salt(h))
         else:
             # the training direction (the JAX package's deterministic=False)
             out = banded_attention_plain(

@@ -66,8 +66,13 @@ the `*_bf16` and `wide_*` functions their own; a program that
 
 Dropout is the JAX package's counter-based position hash (`hash_keep`):
 the keep mask of probability (row i, column j) of batch row b and head
-h is a function of (i, j, b*h + h_idx, seed), so the backward kernels
-regenerate it instead of storing a [t, t] mask.
+h_idx is a function of (i, j, salt, seed), so the backward kernels
+regenerate it instead of storing a [t, t] mask. The salt is affine,
+salt_base + b * salt_stride + h_idx (`dropout_salt` = (salt_base,
+salt_stride), every entry point's argument): the default (0, h) is the
+JAX kernels' b * h + h_idx, and a data-parallel rank passes (row_offset *
+h, h), the salt its rows have in the global batch, which the TPU kernels
+see whole (`parallel/data.py:dropout_salt`).
 """
 
 from __future__ import annotations
@@ -122,15 +127,26 @@ def hash_keep(rows: torch.Tensor, cols: torch.Tensor, salt: torch.Tensor,
     return ((x & 0x7FFFFFFF) >= thr).to(torch.float32)
 
 
+def salt_args(dropout_salt, h: int) -> tuple[int, int]:
+    """(salt_base, salt_stride) of a `dropout_salt` (None: (0, h), the
+    salt b * h + head)."""
+    if dropout_salt is None:
+        return 0, h
+    base, stride = dropout_salt
+    return int(base), int(stride)
+
+
 def hash_dropout_probs(p_attn: torch.Tensor, p_drop: float,
-                       seed) -> torch.Tensor:
+                       seed, dropout_salt=None) -> torch.Tensor:
     """[b, h, t, t] probabilities -> dropped and rescaled with the position
-    hash (attention_pallas.py:458-470): the same keep mask as the kernels."""
+    hash (attention_pallas.py:458-470): the same keep mask as the kernels,
+    row b and head h_idx salted salt_base + b * salt_stride + h_idx."""
     b, h, t, _ = p_attn.shape
     dev = p_attn.device
+    base, stride = salt_args(dropout_salt, h)
     pos = torch.arange(t, device=dev)
-    salt = (torch.arange(b, device=dev)[:, None] * h
-            + torch.arange(h, device=dev)[None, :])[:, :, None, None]
+    salt = ((base + torch.arange(b, device=dev)[:, None] * stride
+             + torch.arange(h, device=dev)[None, :]) & _M32)[:, :, None, None]
     keep = hash_keep(pos[:, None], pos[None, :], salt, seed,
                      drop_threshold(p_drop))
     return p_attn * keep.to(p_attn.dtype) / (1.0 - p_drop)
@@ -177,7 +193,7 @@ def banded_scores_plain(q, k, x_mask, emb_rel_k, window_size: int) -> torch.Tens
 
 def banded_attention_plain(q, k, v, x_mask, emb_rel_k, emb_rel_v,
                            window_size: int, dropout_p: float = 0.0,
-                           dropout_seed=None) -> torch.Tensor:
+                           dropout_seed=None, dropout_salt=None) -> torch.Tensor:
     """The plain PyTorch version of the kernels (same arguments as the
     wrapper): differentiable. With `dropout_p` > 0 it drops probabilities
     with the position hash when given a `dropout_seed` (the JAX `_dense`
@@ -189,7 +205,7 @@ def banded_attention_plain(q, k, v, x_mask, emb_rel_k, emb_rel_v,
             a.float() for a in (q, k, v, emb_rel_k, emb_rel_v))
     p = torch.softmax(banded_scores_plain(q, k, x_mask, emb_rel_k, w), dim=-1)
     if dropout_p and dropout_seed is not None:
-        p = hash_dropout_probs(p, dropout_p, dropout_seed)
+        p = hash_dropout_probs(p, dropout_p, dropout_seed, dropout_salt)
     elif dropout_p:
         p = F.dropout(p, dropout_p)
     out = torch.matmul(p.to(dt).float() if dt != torch.float32 else p, v)
@@ -209,7 +225,7 @@ def banded_attention_stats_plain(q, k, x_mask, emb_rel_k, window_size: int):
 
 def banded_attention_bwd_plain(q, k, v, x_mask, emb_rel_k, emb_rel_v, g,
                                window_size: int, dropout_p: float = 0.0,
-                               dropout_seed=None):
+                               dropout_seed=None, dropout_salt=None):
     """The plain version of B5 and B6: the autograd of
     `banded_attention_plain` for the output gradient g ->
     (dq, dk, dv, dek, dev)."""
@@ -218,13 +234,14 @@ def banded_attention_bwd_plain(q, k, v, x_mask, emb_rel_k, emb_rel_v, g,
                   (q, k, v, emb_rel_k, emb_rel_v)]
         out = banded_attention_plain(leaves[0], leaves[1], leaves[2], x_mask,
                                      leaves[3], leaves[4], window_size,
-                                     dropout_p, dropout_seed)
+                                     dropout_p, dropout_seed, dropout_salt)
         return torch.autograd.grad(out, leaves, g)
 
 
 def banded_attention_bwd_plain_bf16(q, k, v, x_mask, emb_rel_k, emb_rel_v, g,
                                     m, l, delta, window_size: int,
-                                    dropout_p: float = 0.0, dropout_seed=None):
+                                    dropout_p: float = 0.0, dropout_seed=None,
+                                    dropout_salt=None):
     """The plain version of B5 and B6 on bf16 operands (module note) ->
     (dq, dk, dv, dek, dev), the first three bf16, the tables' in their
     dtype. m, l: the forward's row statistics; delta: rowsum(g * out) in
@@ -239,7 +256,8 @@ def banded_attention_bwd_plain_bf16(q, k, v, x_mask, emb_rel_k, emb_rel_v, g,
     dp = dp + band_to_abs(torch.einsum("bhtd,cd->bhtc", gf, evf), w)
     pd = p
     if dropout_p:
-        scale = hash_dropout_probs(torch.ones_like(p), dropout_p, dropout_seed)
+        scale = hash_dropout_probs(torch.ones_like(p), dropout_p, dropout_seed,
+                                   dropout_salt)
         pd, dp = p * scale, dp * scale
     key = (x_mask != 0)[:, None, None, :]
     ds = torch.where(key, p * (dp - delta[..., None]), 0.0)
@@ -317,21 +335,29 @@ def _stream(x: torch.Tensor):
     return x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _dropout_args(p_drop: float, seed) -> tuple[int, int, int, ctypes.c_float]:
-    """(dropping, threshold, seed, 1 / (1 - p)) as the kernels take them."""
+def _i32(x: int) -> int:
+    """x modulo 2**32 as a signed int32 (the kernels read it as uint32)."""
+    return ((int(x) + 2**31) % 2**32) - 2**31
+
+
+def _dropout_args(p_drop: float, seed, salt, h: int) -> tuple:
+    """(dropping, threshold, seed, salt_base, salt_stride, 1 / (1 - p)) as
+    the kernels take them."""
     if not p_drop:
-        return 0, 0, 0, ctypes.c_float(1.0)
+        return 0, 0, 0, 0, 0, ctypes.c_float(1.0)
     if seed is None:
         raise ValueError("dropout in the kernels needs a dropout_seed")
     seed = int(seed)
     if not -2**31 <= seed < 2**31:
         raise ValueError(f"dropout_seed {seed} is not an int32")
-    return 1, drop_threshold(p_drop), seed, ctypes.c_float(1.0 / (1.0 - p_drop))
+    base, stride = salt_args(salt, h)
+    return (1, drop_threshold(p_drop), seed, _i32(base), _i32(stride),
+            ctypes.c_float(1.0 / (1.0 - p_drop)))
 
 
 def banded_attention_fwd_train(q, k, v, x_mask, emb_rel_k, emb_rel_v,
                                window_size: int, dropout_p: float = 0.0,
-                               dropout_seed=None):
+                               dropout_seed=None, dropout_salt=None):
     """K1 in train mode -> (out [b, h, t, d], m [b, h, t], l [b, h, t]):
     the output with the hash dropout applied (in the operands' dtype), and
     the float32 softmax row max and sum that B5 and B6 rebuild the
@@ -340,34 +366,36 @@ def banded_attention_fwd_train(q, k, v, x_mask, emb_rel_k, emb_rel_v,
     tensors = (q, k, v, x_mask, emb_rel_k, emb_rel_v)
     _check_shapes(*tensors, w)
     if q.device.type == "cpu":
-        out = banded_attention_plain(*tensors, w, dropout_p, dropout_seed)
+        out = banded_attention_plain(*tensors, w, dropout_p, dropout_seed,
+                                     dropout_salt)
         return (out, *banded_attention_stats_plain(q, k, x_mask, emb_rel_k, w))
     tensor_cores = _check_kernel_inputs(tensors, w)
     if q.dtype == torch.bfloat16:
         tensors = (q, k, v, x_mask.to(q.dtype), emb_rel_k, emb_rel_v)
         return (banded_attention_fwd_train_bf16 if tensor_cores
-                else wide_fwd_train_bf16)(tensors, w, dropout_p, dropout_seed)
+                else wide_fwd_train_bf16)(tensors, w, dropout_p, dropout_seed,
+                                                      dropout_salt)
     if not tensor_cores:
-        return wide_fwd_train(tensors, w, dropout_p, dropout_seed)
+        return wide_fwd_train(tensors, w, dropout_p, dropout_seed, dropout_salt)
     out, m, l = _fwd_train_launch("banded_attn_fwd_train", tensors, w, dropout_p,
-                                  dropout_seed)
+                                  dropout_seed, dropout_salt)
     banded_attention_fwd_train.launches += 1
     return out, m, l
 
 
 def _fwd_train_launch(entry: str, tensors, w: int, dropout_p: float, dropout_seed,
-                      source: str = "banded_attn.cu"):
+                      dropout_salt=None, source: str = "banded_attn.cu"):
     """One train-mode forward launch of `entry` on checked inputs ->
     (out in the operands' dtype, m, l float32)."""
     q = tensors[0]
     b, h, t, d = q.shape
-    drop, thr, seed, scale = _dropout_args(dropout_p, dropout_seed)
+    drop = _dropout_args(dropout_p, dropout_seed, dropout_salt, h)
     out = torch.empty_like(q)
     m = torch.empty((b, h, t), device=q.device)
     l = torch.empty_like(m)
     err = getattr(_build.library(source), entry)(
         *(x.data_ptr() for x in (*tensors, out, m, l)),
-        b, h, t, d, w, drop, thr, seed, scale, *_stream(q))
+        b, h, t, d, w, *drop, *_stream(q))
     _build.check(err, entry)
     return out, m, l
 
@@ -383,43 +411,50 @@ def _bwd_args(q, k, v, x_mask, emb_rel_k, emb_rel_v, g, m, l, delta, w):
     return tensors
 
 
-def _bwd_plain(tensors, w: int, dropout_p: float, dropout_seed):
+def _bwd_plain(tensors, w: int, dropout_p: float, dropout_seed,
+               dropout_salt=None):
     """B5's and B6's plain versions on the CPU -> (dq, dk, dv, dek, dev):
     the autograd of the plain forward in float32, the explicit bf16
     backward on bf16 operands."""
     if tensors[0].dtype == torch.float32:
-        return banded_attention_bwd_plain(*tensors[:7], w, dropout_p, dropout_seed)
-    return banded_attention_bwd_plain_bf16(*tensors, w, dropout_p, dropout_seed)
+        return banded_attention_bwd_plain(*tensors[:7], w, dropout_p, dropout_seed,
+                                          dropout_salt)
+    return banded_attention_bwd_plain_bf16(*tensors, w, dropout_p, dropout_seed,
+                                           dropout_salt)
 
 
 def banded_attention_bwd_q(q, k, v, x_mask, emb_rel_k, emb_rel_v, g, m, l,
                            delta, window_size: int, dropout_p: float = 0.0,
-                           dropout_seed=None):
+                           dropout_seed=None, dropout_salt=None):
     """B5 -> (dq [b, h, t, d], dek [2w+1, d], dev [2w+1, d]) for the output
     gradient g, from K1's row statistics m, l and delta = rowsum(g * out)
     [b, h, t] (all three float32)."""
     w = int(window_size)
     tensors = _bwd_args(q, k, v, x_mask, emb_rel_k, emb_rel_v, g, m, l, delta, w)
     if q.device.type == "cpu":
-        dq, _, _, dek, dev = _bwd_plain(tensors, w, dropout_p, dropout_seed)
+        dq, _, _, dek, dev = _bwd_plain(tensors, w, dropout_p, dropout_seed,
+                                        dropout_salt)
         return dq, dek, dev
     tensor_cores = _check_kernel_inputs(tensors, w)
     if q.dtype == torch.bfloat16:
         return (banded_attention_bwd_q_bf16 if tensor_cores
-                else wide_bwd_q_bf16)(tensors, w, dropout_p, dropout_seed)
+                else wide_bwd_q_bf16)(tensors, w, dropout_p, dropout_seed,
+                                                  dropout_salt)
     if not tensor_cores:
-        return wide_bwd_q(tensors, w, dropout_p, dropout_seed)
-    out = _bwd_q_launch("banded_attn_bwd_q", tensors, w, dropout_p, dropout_seed)
+        return wide_bwd_q(tensors, w, dropout_p, dropout_seed, dropout_salt)
+    out = _bwd_q_launch("banded_attn_bwd_q", tensors, w, dropout_p, dropout_seed,
+                        dropout_salt)
     banded_attention_bwd_q.launches += 1
     return out
 
 
-def _bwd_q_launch(entry: str, tensors, w: int, dropout_p: float, dropout_seed):
+def _bwd_q_launch(entry: str, tensors, w: int, dropout_p: float, dropout_seed,
+                  dropout_salt=None):
     """One launch of B5 (`entry` of csrc/banded_attn_bwd.cu, its partials
     reduced in block order) on checked inputs -> (dq, dek, dev)."""
     q = tensors[0]
     b, h, t, d = q.shape
-    drop, thr, seed, scale = _dropout_args(dropout_p, dropout_seed)
+    drop = _dropout_args(dropout_p, dropout_seed, dropout_salt, h)
     dq = torch.empty_like(q)
     dek, dev = torch.empty_like(tensors[4]), torch.empty_like(tensors[5])
     lib = _build.library("banded_attn_bwd.cu")
@@ -427,65 +462,72 @@ def _bwd_q_launch(entry: str, tensors, w: int, dropout_p: float, dropout_seed):
     partials = torch.empty((n_blocks, 2, 2 * w + 1, d), device=q.device)
     err = getattr(lib, entry)(
         *(x.data_ptr() for x in (*tensors, dq, partials, dek, dev)),
-        b, h, t, d, w, drop, thr, seed, scale, *_stream(q))
+        b, h, t, d, w, *drop, *_stream(q))
     _build.check(err, entry)
     return dq, dek, dev
 
 
 def banded_attention_bwd_k(q, k, v, x_mask, emb_rel_k, emb_rel_v, g, m, l,
                            delta, window_size: int, dropout_p: float = 0.0,
-                           dropout_seed=None):
+                           dropout_seed=None, dropout_salt=None):
     """B6 -> (dk, dv), each [b, h, t, d]; arguments as B5's."""
     w = int(window_size)
     tensors = _bwd_args(q, k, v, x_mask, emb_rel_k, emb_rel_v, g, m, l, delta, w)
     if q.device.type == "cpu":
-        _, dk, dv, _, _ = _bwd_plain(tensors, w, dropout_p, dropout_seed)
+        _, dk, dv, _, _ = _bwd_plain(tensors, w, dropout_p, dropout_seed,
+                                     dropout_salt)
         return dk, dv
     tensor_cores = _check_kernel_inputs(tensors, w)
     if q.dtype == torch.bfloat16:
         return (banded_attention_bwd_k_bf16 if tensor_cores
-                else wide_bwd_k_bf16)(tensors, w, dropout_p, dropout_seed)
+                else wide_bwd_k_bf16)(tensors, w, dropout_p, dropout_seed,
+                                                  dropout_salt)
     if not tensor_cores:
-        return wide_bwd_k(tensors, w, dropout_p, dropout_seed)
-    out = _bwd_k_launch("banded_attn_bwd_k", tensors, w, dropout_p, dropout_seed)
+        return wide_bwd_k(tensors, w, dropout_p, dropout_seed, dropout_salt)
+    out = _bwd_k_launch("banded_attn_bwd_k", tensors, w, dropout_p, dropout_seed,
+                        dropout_salt)
     banded_attention_bwd_k.launches += 1
     return out
 
 
 def _bwd_k_launch(entry: str, tensors, w: int, dropout_p: float, dropout_seed,
-                  source: str = "banded_attn_bwd.cu"):
+                  dropout_salt=None, source: str = "banded_attn_bwd.cu"):
     """One launch of B6 (`entry` of `source`) on checked inputs -> (dk, dv)."""
     q = tensors[0]
-    drop, thr, seed, scale = _dropout_args(dropout_p, dropout_seed)
+    drop = _dropout_args(dropout_p, dropout_seed, dropout_salt, q.shape[1])
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     err = getattr(_build.library(source), entry)(
-        *(x.data_ptr() for x in (*tensors, dk, dv)), *q.shape, w, drop, thr, seed,
-        scale, *_stream(q))
+        *(x.data_ptr() for x in (*tensors, dk, dv)), *q.shape, w, *drop, *_stream(q))
     _build.check(err, entry)
     return dk, dv
 
 
-def banded_attention_fwd_train_bf16(tensors, w: int, dropout_p: float, dropout_seed):
+def banded_attention_fwd_train_bf16(tensors, w: int, dropout_p: float, dropout_seed,
+                                    dropout_salt=None):
     """K1's train mode on bf16 operands (checked; the mask in their dtype)
     -> (out bf16, m, l float32)."""
     out = _fwd_train_launch("banded_attn_fwd_train_bf16", tensors, w, dropout_p,
-                            dropout_seed)
+                            dropout_seed, dropout_salt)
     banded_attention_fwd_train_bf16.launches += 1
     return out
 
 
-def banded_attention_bwd_q_bf16(tensors, w: int, dropout_p: float, dropout_seed):
+def banded_attention_bwd_q_bf16(tensors, w: int, dropout_p: float, dropout_seed,
+                                dropout_salt=None):
     """B5 on bf16 operands (checked, as `banded_attention_bwd_q`'s) -> (dq
     bf16, dek and dev in the tables' dtype: fp32 partials, reduced in block
     order, then rounded)."""
-    out = _bwd_q_launch("banded_attn_bwd_q_bf16", tensors, w, dropout_p, dropout_seed)
+    out = _bwd_q_launch("banded_attn_bwd_q_bf16", tensors, w, dropout_p, dropout_seed,
+                        dropout_salt)
     banded_attention_bwd_q_bf16.launches += 1
     return out
 
 
-def banded_attention_bwd_k_bf16(tensors, w: int, dropout_p: float, dropout_seed):
+def banded_attention_bwd_k_bf16(tensors, w: int, dropout_p: float, dropout_seed,
+                                dropout_salt=None):
     """B6 on bf16 operands (checked) -> (dk, dv), bf16."""
-    out = _bwd_k_launch("banded_attn_bwd_k_bf16", tensors, w, dropout_p, dropout_seed)
+    out = _bwd_k_launch("banded_attn_bwd_k_bf16", tensors, w, dropout_p, dropout_seed,
+                        dropout_salt)
     banded_attention_bwd_k_bf16.launches += 1
     return out
 
@@ -528,70 +570,78 @@ def wide_fwd_bf16(tensors, w: int) -> torch.Tensor:
     return out
 
 
-def wide_fwd_train(tensors, w: int, dropout_p: float, dropout_seed):
+def wide_fwd_train(tensors, w: int, dropout_p: float, dropout_seed,
+                   dropout_salt=None):
     """The train-mode launch of csrc/banded_attn_wide.cu -> (out, m, l)."""
     out = _fwd_train_launch("banded_attn_wide_fwd_train", tensors, w, dropout_p,
-                            dropout_seed, "banded_attn_wide.cu")
+                            dropout_seed, dropout_salt, "banded_attn_wide.cu")
     wide_fwd_train.launches += 1
     return out
 
 
-def wide_fwd_train_bf16(tensors, w: int, dropout_p: float, dropout_seed):
+def wide_fwd_train_bf16(tensors, w: int, dropout_p: float, dropout_seed,
+                        dropout_salt=None):
     """The train-mode launch of csrc/banded_attn_wide.cu on bf16 operands
     -> (out bf16, m, l float32)."""
     out = _fwd_train_launch("banded_attn_wide_fwd_train_bf16", tensors, w,
-                            dropout_p, dropout_seed, "banded_attn_wide.cu")
+                            dropout_p, dropout_seed, dropout_salt,
+                            "banded_attn_wide.cu")
     wide_fwd_train_bf16.launches += 1
     return out
 
 
-def _wide_bwd_q_launch(entry: str, tensors, w: int, dropout_p: float, dropout_seed):
+def _wide_bwd_q_launch(entry: str, tensors, w: int, dropout_p: float, dropout_seed,
+                       dropout_salt=None):
     """One launch of the wide B5 (`entry`) on checked inputs -> (dq, dek,
     dev); its band scratch float32."""
     q = tensors[0]
     b, h, t, _ = q.shape
-    drop, thr, seed, scale = _dropout_args(dropout_p, dropout_seed)
+    drop = _dropout_args(dropout_p, dropout_seed, dropout_salt, h)
     dq = torch.empty_like(q)
     dek, dev = torch.empty_like(tensors[4]), torch.empty_like(tensors[5])
     band = torch.empty((2, b * h * t, 2 * w + 1), device=q.device)
     err = getattr(_build.library("banded_attn_wide.cu"), entry)(
         *(x.data_ptr() for x in (*tensors, dq, band[0], band[1], dek, dev)),
-        *q.shape, w, drop, thr, seed, scale, *_stream(q))
+        *q.shape, w, *drop, *_stream(q))
     _build.check(err, entry)
     return dq, dek, dev
 
 
-def wide_bwd_q(tensors, w: int, dropout_p: float, dropout_seed):
+def wide_bwd_q(tensors, w: int, dropout_p: float, dropout_seed,
+               dropout_salt=None):
     """B5 of csrc/banded_attn_wide.cu on checked inputs (q, k, v, x_mask,
     emb_rel_k, emb_rel_v, g, m, l, delta) -> (dq, dek, dev)."""
     out = _wide_bwd_q_launch("banded_attn_wide_bwd_q", tensors, w, dropout_p,
-                             dropout_seed)
+                             dropout_seed, dropout_salt)
     wide_bwd_q.launches += 1
     return out
 
 
-def wide_bwd_q_bf16(tensors, w: int, dropout_p: float, dropout_seed):
+def wide_bwd_q_bf16(tensors, w: int, dropout_p: float, dropout_seed,
+                    dropout_salt=None):
     """B5 of csrc/banded_attn_wide.cu on bf16 operands -> (dq, dek, dev) in
     the operands' and the tables' dtype."""
     out = _wide_bwd_q_launch("banded_attn_wide_bwd_q_bf16", tensors, w, dropout_p,
-                             dropout_seed)
+                             dropout_seed, dropout_salt)
     wide_bwd_q_bf16.launches += 1
     return out
 
 
-def wide_bwd_k(tensors, w: int, dropout_p: float, dropout_seed):
+def wide_bwd_k(tensors, w: int, dropout_p: float, dropout_seed,
+               dropout_salt=None):
     """B6 of csrc/banded_attn_wide.cu on checked inputs (as `wide_bwd_q`'s)
     -> (dk, dv)."""
     out = _bwd_k_launch("banded_attn_wide_bwd_k", tensors, w, dropout_p,
-                        dropout_seed, "banded_attn_wide.cu")
+                        dropout_seed, dropout_salt, "banded_attn_wide.cu")
     wide_bwd_k.launches += 1
     return out
 
 
-def wide_bwd_k_bf16(tensors, w: int, dropout_p: float, dropout_seed):
+def wide_bwd_k_bf16(tensors, w: int, dropout_p: float, dropout_seed,
+                    dropout_salt=None):
     """B6 of csrc/banded_attn_wide.cu on bf16 operands -> (dk, dv), bf16."""
     out = _bwd_k_launch("banded_attn_wide_bwd_k_bf16", tensors, w, dropout_p,
-                        dropout_seed, "banded_attn_wide.cu")
+                        dropout_seed, dropout_salt, "banded_attn_wide.cu")
     wide_bwd_k_bf16.launches += 1
     return out
 
@@ -601,16 +651,17 @@ class BandedAttentionFn(torch.autograd.Function):
     forward, B5 and B6 backward (the JAX package's `_banded_core` custom
     VJP, attention_pallas.py:355-443), in float32 or on bf16 operands; on
     the CPU the same wrappers run the plain versions. Gradients flow to q,
-    k, v and the two relative tables; none to the mask or the seed."""
+    k, v and the two relative tables; none to the mask, the seed or the
+    salt."""
 
     @staticmethod
     def forward(ctx, q, k, v, x_mask, emb_rel_k, emb_rel_v, window_size,
-                dropout_p, dropout_seed):
+                dropout_p, dropout_seed, dropout_salt=None):
         out, m, l = banded_attention_fwd_train(
             q, k, v, x_mask, emb_rel_k, emb_rel_v, window_size, dropout_p,
-            dropout_seed)
+            dropout_seed, dropout_salt)
         ctx.save_for_backward(q, k, v, x_mask, emb_rel_k, emb_rel_v, m, l, out)
-        ctx.args = (window_size, dropout_p, dropout_seed)
+        ctx.args = (window_size, dropout_p, dropout_seed, dropout_salt)
         return out
 
     @staticmethod
@@ -625,16 +676,20 @@ class BandedAttentionFn(torch.autograd.Function):
         args = (q, k, v, x_mask, ek, ev, g, m, l, delta, *ctx.args)
         dq, dek, dev = banded_attention_bwd_q(*args)
         dk, dv = banded_attention_bwd_k(*args)
-        return dq, dk, dv, None, dek, dev, None, None, None
+        # one entry per input given to apply (the salt may be left out)
+        grads = (dq, dk, dv, None, dek, dev, None, None, None, None)
+        return grads[:len(ctx.needs_input_grad)]
 
 
 def banded_rel_self_attention(q, k, v, x_mask, emb_rel_k, emb_rel_v,
                               window_size: int, dropout_p: float = 0.0,
-                              dropout_seed=None) -> torch.Tensor:
+                              dropout_seed=None, dropout_salt=None) -> torch.Tensor:
     """q, k, v: [b, h, t, d] (q pre-scaled by 1/sqrt(d)); x_mask: [b, t] 0/1;
     emb_rel_k/v: [2w+1, d] (one table shared by the heads); dropout on the
     probabilities at rate `dropout_p` from the int32 `dropout_seed`
-    (required when dropout_p > 0). Returns [b, h, t, d]; rows where x_mask
+    (required when dropout_p > 0), batch row b and head h_idx salted
+    salt_base + b * salt_stride + h_idx for `dropout_salt` = (salt_base,
+    salt_stride) (None: (0, h)). Returns [b, h, t, d]; rows where x_mask
     is 0 are unspecified. Differentiable with respect to q, k, v and the
     tables.
 
@@ -654,15 +709,16 @@ def banded_rel_self_attention(q, k, v, x_mask, emb_rel_k, emb_rel_v,
     if q.device.type == "cpu":
         if grad and q.dtype == torch.bfloat16:  # the explicit bf16 backward
             return BandedAttentionFn.apply(*tensors, w, float(dropout_p),
-                                           dropout_seed)
+                                           dropout_seed, dropout_salt)
         if grad or dropout_p or library.plain_only():
-            return banded_attention_plain(*tensors, w, dropout_p, dropout_seed)
+            return banded_attention_plain(*tensors, w, dropout_p, dropout_seed,
+                                          dropout_salt)
         return _forward_op(q.dtype, banded_kernels_support(*q.shape, w, q.dtype))(
             *tensors, w)
     library.refuse_plain(q.device)
     if grad or dropout_p:
         return BandedAttentionFn.apply(*tensors, w, float(dropout_p),
-                                       dropout_seed)
+                                       dropout_seed, dropout_salt)
     tensor_cores = _check_kernel_inputs(tensors, w)
     if q.dtype == torch.bfloat16:
         tensors = (q, k, v, x_mask.to(q.dtype), emb_rel_k, emb_rel_v)

@@ -51,7 +51,7 @@ def rand_slice_segments(x: torch.Tensor, lengths: torch.Tensor,
     -> (segments [b, ..., s], starts [b]); start = int(u * max(len - s + 1, 0))
     with u uniform in [0, 1)."""
     max_start = (lengths - segment_size + 1).clamp(min=0).to(torch.float32)
-    u = noise.rand((x.shape[0],), generator, x.device)
+    u = noise.rand((x.shape[0],), generator, x.device, batch_axis=0)
     starts = (u * max_start).to(torch.int64)
     return slice_segments(x, starts, segment_size), starts
 

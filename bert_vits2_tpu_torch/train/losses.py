@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from bert_vits2_tpu_torch.parallel.data import global_count
+
 
 def feature_loss(fmap_r, fmap_g):
     """2 x the summed mean L1 between all real and fake feature maps."""
@@ -44,11 +46,14 @@ def generator_loss(disc_outputs):
 
 
 def kl_loss(z_p, logs_q, m_p, logs_p, z_mask):
-    """Masked KL(q||p) between the posterior and the aligned prior.
+    """Masked KL(q||p) between the posterior and the aligned prior,
+    normalized by the mask's sum over the global batch (`global_count`:
+    under a data-parallel step, the ranks' losses then average to the
+    global batch's).
 
     z_p, logs_q, m_p, logs_p: [b, d, t]; z_mask: [b, 1, t]."""
     z_p, logs_q, m_p, logs_p, mask = (
         a.float() for a in (z_p, logs_q, m_p, logs_p, z_mask))
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * ((z_p - m_p) ** 2) * torch.exp(-2.0 * logs_p)
-    return torch.sum(kl * mask) / torch.sum(mask)
+    return torch.sum(kl * mask) / global_count(torch.sum(mask))

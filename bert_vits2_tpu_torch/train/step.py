@@ -27,6 +27,21 @@ discriminators, the SLM and every loss stay float32, and each optimizer
 first clips its gradients by their global norm (`grad_clip_g` for the
 generator, `grad_clip_d` for the three discriminators) as optax's
 `clip_by_global_norm` does. The parameters stay float32 either way.
+
+Data parallelism (`make_train_step(mesh=)`, the JAX step's one program over
+a batch sharded on the mesh's data axis): each rank steps on its own rows
+inside a data shard (`parallel/data.py`), so its noise, its dropout masks
+and the masked ratios' denominators are the global batch's; between each
+backward and the clip, the optimizer's gradients are averaged over the
+data group in one all-reduce, so the grad norms and the clip are the
+global batch's, as optax's are; the losses come back averaged over the
+ranks. An explicit all-reduce, not `DistributedDataParallel`: the step
+runs the discriminators twice, the second time with their parameters'
+gradients off, which DDP's reducer does not expect of a wrapped module,
+and the all-reduce and the parameters' broadcast are the only collectives
+(both of which gloo takes on CUDA tensors). The hash dropout's seeds come
+from a generator seeded from the step's generator and counter, alike on
+every rank and in one process.
 """
 
 from __future__ import annotations
@@ -35,10 +50,12 @@ import contextlib
 import dataclasses
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from bert_vits2_tpu_torch.ops import noise
+from bert_vits2_tpu_torch.parallel.data import data_shard, reduce_gradients, reduce_mean
 from bert_vits2_tpu_torch.ops.masking import slice_segments
 from bert_vits2_tpu_torch.ops.stft import mel_spectrogram, spec_to_mel
 from bert_vits2_tpu_torch.train.losses import (
@@ -179,14 +196,17 @@ def clip_by_global_norm(grads: list[torch.Tensor], norm: torch.Tensor,
 
 
 def _update(opt: torch.optim.Optimizer, loss: torch.Tensor,
-            lr: float) -> torch.Tensor:
+            lr: float, mesh=None) -> torch.Tensor:
     """One optimizer update from `loss` -> the gradients' global norm,
     before any clipping. The norm covers the frozen group's gradients too,
-    as optax's clip runs before its `masked(set_to_zero)`."""
+    as optax's clip runs before its `masked(set_to_zero)`. Under a data
+    mesh the gradients are first averaged over its data group."""
     opt.zero_grad(set_to_none=True)
     loss.backward()
     grads = [p.grad for g in opt.param_groups for p in g["params"]
              if p.grad is not None]
+    if mesh is not None:
+        reduce_gradients(grads, mesh.data_group, mesh.n_data)
     norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     if opt.clip is not None:
         clip_by_global_norm(grads, norm, opt.clip)
@@ -220,7 +240,8 @@ def expand_bert(batch: dict, generator: torch.Generator | None) -> dict:
     if "utt_lang" not in batch:
         return batch
     active = batch["bert"]
-    draw = noise.randn((3, *active.shape), generator, active.device, active.dtype)
+    draw = noise.randn((3, *active.shape), generator, active.device, active.dtype,
+                       batch_axis=1)
     sel = batch["utt_lang"][:, None, None]
     batch = dict(batch)
     batch["bert"] = torch.where(sel == 0, active, draw[0])
@@ -229,11 +250,23 @@ def expand_bert(batch: dict, generator: torch.Generator | None) -> dict:
     return batch
 
 
+def _dropout_seeds(generator: torch.Generator | None,
+                   step: int) -> torch.Generator | None:
+    """The hash dropout's seed generator of one step: seeded from the step
+    generator's seed and the step counter (no draw from it, no host sync),
+    so every rank holds the same one; None without a generator (torch's
+    global generator then)."""
+    if generator is None:
+        return None
+    seed = np.random.SeedSequence([generator.initial_seed(), step]).generate_state(1)
+    return torch.Generator().manual_seed(int(seed[0]))
+
+
 def make_train_step(models: Models, train_cfg: TrainConfig,
                     data_cfg: DataConfig, segment_size_frames: int,
                     mas_noise_initial: float = 0.01,
                     mas_noise_delta: float = 2e-6,
-                    slm: nn.Module | None = None) -> Callable:
+                    slm: nn.Module | None = None, mesh=None) -> Callable:
     """Build the train step: (state, batch, generator, lr) -> (state, metrics).
 
     batch keys (tensors on the models' device): x, x_lengths, spec
@@ -249,7 +282,16 @@ def make_train_step(models: Models, train_cfg: TrainConfig,
 
     With `train_cfg.bf16_run` the multi-period discriminator takes its
     waves in bf16 and the optimizers clip (module note); the synthesizer's
-    own `train_compute_dtype` decides its dtype."""
+    own `train_compute_dtype` decides its dtype.
+
+    mesh: a `parallel.Mesh` of several processes (`make_mesh` after
+    `init_distributed`): `batch` is then this rank's rows, every rank has
+    the same number, the same padded shapes and the same generator seed,
+    and the step is the one-process step on the concatenated global batch
+    (module note). Its model axis must be 1."""
+    if mesh is not None and (not mesh.distributed or mesh.n_model != 1):
+        raise ValueError("the train step takes a data mesh of several processes "
+                         "(make_mesh after init_distributed) with n_model 1")
     synth, mpd, dur_disc, wavlm_disc = models
     if (slm is None) != (wavlm_disc is None):
         raise ValueError("the SLM losses need both the frozen SLM and the WavLM "
@@ -268,6 +310,19 @@ def make_train_step(models: Models, train_cfg: TrainConfig,
 
     def step(state: TrainState, batch: dict, generator: torch.Generator | None,
              lr: float):
+        b = batch["x"].shape[0]
+        n = 1 if mesh is None else mesh.n_data
+        shard = data_shard(b * (0 if mesh is None else mesh.data_rank), b * n,
+                           None if mesh is None else mesh.data_group, n,
+                           _dropout_seeds(generator, state.step))
+        with shard:
+            state, metrics = one_step(state, batch, generator, lr)
+        if mesh is not None:
+            losses = {k: v for k, v in metrics.items() if k.startswith("loss/")}
+            metrics.update(reduce_mean(losses, mesh.data_group, n))
+        return state, metrics
+
+    def one_step(state, batch, generator, lr):
         for m in (synth, mpd, dur_disc, wavlm_disc):
             if m is not None:
                 m.train()
@@ -291,13 +346,13 @@ def make_train_step(models: Models, train_cfg: TrainConfig,
         y_d_r, y_d_g, _, _ = mpd(y.to(disc_dtype), y_hat.detach().to(disc_dtype))
         loss_disc, _, _ = discriminator_loss(y_d_r, y_d_g)
         metrics["loss/d/total"] = loss_disc.detach()
-        metrics["grad_norm_d"] = _update(state.opt_d, loss_disc, lr)
+        metrics["grad_norm_d"] = _update(state.opt_d, loss_disc, lr, mesh)
 
         # ---- 2b. duration discriminator (train_ms.py:514-548) ----
         if dur_disc is not None:
             loss_dur_disc, _, _ = discriminator_loss(*dur_disc_pairs(out, True))
             metrics["loss/dur_disc/total"] = loss_dur_disc.detach()
-            metrics["grad_norm_dur"] = _update(state.opt_dd, loss_dur_disc, lr)
+            metrics["grad_norm_dur"] = _update(state.opt_dd, loss_dur_disc, lr, mesh)
 
         # ---- 2c. WavLM discriminator (train_ms.py:558-568) ----
         if slm is not None:
@@ -309,7 +364,7 @@ def make_train_step(models: Models, train_cfg: TrainConfig,
             d_g = wavlm_disc(emb_fake.detach())
             loss_wd = torch.mean((1.0 - d_r) ** 2) + torch.mean(d_g ** 2)
             metrics["loss/wd/total"] = loss_wd.detach()
-            metrics["grad_norm_wd"] = _update(state.opt_wd, loss_wd, lr)
+            metrics["grad_norm_wd"] = _update(state.opt_wd, loss_wd, lr, mesh)
 
         # ---- 3. generator, against the updated discriminators ----
         with _no_param_grads(mpd, dur_disc, wavlm_disc):
@@ -337,7 +392,7 @@ def make_train_step(models: Models, train_cfg: TrainConfig,
                 loss_all = loss_all + loss_lm + loss_lm_gen
                 aux["loss/g/lm"] = loss_lm
                 aux["loss/g/lm_gen"] = loss_lm_gen
-            grad_norm_g = _update(state.opt_g, loss_all, lr)
+            grad_norm_g = _update(state.opt_g, loss_all, lr, mesh)
         metrics.update({k: v.detach() for k, v in aux.items()})
         metrics["loss/g/total"] = loss_all.detach()
         metrics["grad_norm_g"] = grad_norm_g

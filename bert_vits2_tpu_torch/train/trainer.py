@@ -17,11 +17,22 @@ V2.3 trains with the SLM losses whenever config.json declares
 checkpoint directory) and the WavLM discriminator trains beside the
 others. `slm_path=None` (the CLI's --no-slm) trains without them.
 
-One device. config.json's `train.bf16_run` trains with the reference's
-autocast(bf16) policy, the JAX package's `train_compute_dtype` "bfloat16"
-and `bf16_run` (`train/step.py`): float32 parameters and checkpoints, so a
-run resumes under either dtype. Left for a later slice, and raising: data
-or model parallelism (ROADMAP §A.9).
+config.json's `train.bf16_run` trains with the reference's autocast(bf16)
+policy, the JAX package's `train_compute_dtype` "bfloat16" and `bf16_run`
+(`train/step.py`): float32 parameters and checkpoints, so a run resumes
+under either dtype.
+
+Data parallelism: in a process group (`parallel.init_distributed`, torchrun)
+the Trainer builds its mesh from the group (n_data = world / n_model), as
+the JAX one builds it from `jax.devices()`, and trains on N ranks: each rank
+on its own device (cuda:LOCAL_RANK for device "cuda"), its own sampler shard
+(`batch_size` rows per rank, every rank in the same bucket each step, the
+text padded to the global batch's cap) and its own native loader; the step
+is the one-process step on the global batch (`train/step.py`). The
+parameters are broadcast from rank 0 at start-up, after any resume; logging,
+the writers, `evaluate` and `save` run on rank 0 only. The reference-layout
+checkpoints carry no topology, so a run resumes under any rank count. The
+model axis (n_model > 1) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bert_vits2_tpu_torch.compat.hparams import (
     HParams,
@@ -51,6 +63,7 @@ from bert_vits2_tpu_torch.models.discriminators import (
 )
 from bert_vits2_tpu_torch.models.slm import SLM, WavLMConfig, load_wavlm
 from bert_vits2_tpu_torch.models.synthesizer import Synthesizer
+from bert_vits2_tpu_torch.parallel import make_mesh, rank_device, replicate
 from bert_vits2_tpu_torch.train import checkpoint as ckpt
 from bert_vits2_tpu_torch.train.step import (
     Models,
@@ -62,6 +75,23 @@ from bert_vits2_tpu_torch.utils.logging import get_logger, make_writer, summariz
 from bert_vits2_tpu_torch.utils.plot import alignment_to_image, spectrogram_to_image
 from bert_vits2_tpu_torch.utils.profiling import StepTimer
 from bert_vits2_tpu_torch.utils.repro import check_git_hash
+
+
+TEXT_PAD = 32  # load_collated_batch's text_pad_multiple
+
+
+def pad_text(batch: dict, t_x: int) -> dict:
+    """A collated batch's text arrays (x, tone, language, bert and, when
+    present, ja_bert and en_bert) zero-padded along their text axis to
+    t_x."""
+    out = dict(batch)
+    for key in ("x", "tone", "language", "bert", "ja_bert", "en_bert"):
+        if key in out and out[key].shape[1] < t_x:
+            a = out[key]
+            pad = [(0, 0)] * a.ndim
+            pad[1] = (0, t_x - a.shape[1])
+            out[key] = np.pad(a, pad)
+    return out
 
 
 def train_config_from_hparams(hps: HParams) -> TrainConfig:
@@ -128,14 +158,16 @@ def init_params(models: Models, mcfg: ModelConfig, seed: int = 1234) -> Models:
 
 
 class Trainer:
-    """End-to-end training loop on one device.
+    """End-to-end training loop on one device, or on one rank of several
+    (module note).
 
     Usage:
         t = Trainer(config_path, model_dir)
         t.run(epochs=100)
 
     `models` replaces the full-size models of config.json (the caller has
-    drawn their parameters); `device` defaults to the card. `slm_path`:
+    drawn their parameters); `device` defaults to the card (in a process
+    group, this rank's). `slm_path`:
     "auto" resolves config.json's model.slm.model, a directory loads that
     WavLM, None trains without the SLM losses. `use_wavlm_disc` asks for
     them too, and then needs a WavLM.
@@ -152,7 +184,21 @@ class Trainer:
         slm_path: str | None = "auto",
         device: str | torch.device = "cuda",
     ):
+        if n_model != 1:
+            raise NotImplementedError(
+                "the port trains on the data axis only: model parallelism "
+                "(n_model > 1) is ROADMAP §A.9 (n_model must be 1)")
+        self.mesh = None
+        if dist.is_available() and dist.is_initialized():
+            self.mesh = make_mesh(n_model=n_model)
+            if torch.device(device) == torch.device("cuda"):
+                device = rank_device()
+        self.data_rank = 0 if self.mesh is None else self.mesh.data_rank
+        self.n_data = 1 if self.mesh is None else self.mesh.n_data
+        self.is_lead = not dist.is_initialized() or dist.get_rank() == 0
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is not None:
+            torch.cuda.set_device(self.device)
         self.hps = get_hparams_from_file(config_path)
         if slm_path == "auto":
             # v2.3 trains with the SLM losses unconditionally
@@ -171,14 +217,11 @@ class Trainer:
         if use_wavlm_disc and slm_path is None:
             raise ValueError("the WavLM discriminator needs the frozen WavLM: "
                              "pass slm_path=<dir> or declare model.slm")
-        if n_model != 1:
-            raise NotImplementedError(
-                "the port trains on one device: model parallelism is ROADMAP "
-                "§A.9, multi-GPU (n_model must be 1)")
         self.model_dir = model_dir
         os.makedirs(model_dir, exist_ok=True)
-        self.logger = get_logger(model_dir)
-        check_git_hash(model_dir)
+        self.logger = get_logger(model_dir if self.is_lead else None)
+        if self.is_lead:
+            check_git_hash(model_dir)
         # bf16_run (config.json train.bf16_run) is the reference's
         # autocast(bf16): the synthesizer's hot stages in bf16, and the
         # step's bf16 policy through self.tcfg.bf16_run
@@ -205,8 +248,10 @@ class Trainer:
         self.models = Models(*(m if m is None else m.to(self.device).train()
                                for m in models))
 
-        self.writer = make_writer(os.path.join(model_dir, "logs"))
-        self.eval_writer = make_writer(os.path.join(model_dir, "logs", "eval"))
+        self.writer = self.eval_writer = None
+        if self.is_lead:
+            self.writer = make_writer(os.path.join(model_dir, "logs"))
+            self.eval_writer = make_writer(os.path.join(model_dir, "logs", "eval"))
 
         d = self.hps.data
         spk2id = d.spk2id.to_dict() if isinstance(d.spk2id, HParams) else d.spk2id
@@ -221,9 +266,13 @@ class Trainer:
         self.train_ds = dataset(d.training_files)
         val = d.get("validation_files")
         self.val_ds = dataset(val) if val and os.path.isfile(val) else None
-        self.sampler = BucketSampler(self.train_ds.lengths(),
-                                     batch_size=self.hps.train.batch_size,
-                                     seed=self.tcfg.seed)
+        # one sampler per data rank: this rank's, and the others' for the
+        # global batch's text cap
+        self.rank_samplers = [
+            BucketSampler(self.train_ds.lengths(), batch_size=self.hps.train.batch_size,
+                          num_replicas=self.n_data, rank=r, seed=self.tcfg.seed)
+            for r in range(self.n_data)]
+        self.sampler = self.rank_samplers[self.data_rank]
         self.logger.info("dataset: %d utterances (%d skipped), %d batches/epoch",
                          len(self.train_ds), self.train_ds.skipped,
                          len(self.sampler))
@@ -241,12 +290,14 @@ class Trainer:
             if it:
                 self.logger.info("bootstrapped from reference checkpoints "
                                  "(iteration %d)", it)
+        if self.mesh is not None:
+            replicate(self.mesh, [m for m in self.models if m is not None])
         self.start_epoch = self.global_step // max(len(self.sampler), 1)
         self.learning_rate = self.tcfg.learning_rate
         self.step_fn = make_train_step(
             self.models, self.tcfg, self.dcfg, self.mcfg.segment_size,
             mas_noise_initial=self.mcfg.mas_noise_scale_initial,
-            mas_noise_delta=self.mcfg.noise_scale_delta, slm=self.slm)
+            mas_noise_delta=self.mcfg.noise_scale_delta, slm=self.slm, mesh=self.mesh)
         self.generator = torch.Generator(device=self.device)
 
     # ---- data ----
@@ -293,13 +344,23 @@ class Trainer:
     def epoch_batches(self, epoch: int):
         """The host batches of one epoch (numpy), bucket by bucket as the
         sampler orders them, read by the native loader when it is
-        available; `bert` carries the active language only."""
-        self.sampler.set_epoch(epoch)
-        for bucket_idx, ids in self.sampler:
-            yield load_collated_batch(
+        available; `bert` carries the active language only. With several
+        data ranks, this rank's rows, their text padded to the cap of the
+        global batch (every rank's rows of the step), so that every rank's
+        arrays have one shape."""
+        for sampler in self.rank_samplers:
+            sampler.set_epoch(epoch)
+        for steps in zip(*self.rank_samplers):
+            bucket_idx, ids = steps[self.data_rank]
+            batch = load_collated_batch(
                 self.train_ds, ids,
                 max_frames=self.sampler.bucket_max_frames(bucket_idx),
                 loader=self.native_loader)
+            if self.n_data > 1:
+                longest = max(len(self.train_ds._sequences(self.train_ds.items[i])[0])
+                              for _, rank_ids in steps for i in rank_ids)
+                batch = pad_text(batch, -(-longest // TEXT_PAD) * TEXT_PAD)
+            yield batch
 
     def _prefetch(self, gen, depth: int = 2):
         """Load, collate and copy to the device ahead of the step in a host
@@ -344,9 +405,16 @@ class Trainer:
         """The step's random numbers are a function of (seed, step), as the
         JAX step folds the step into its key: the noise generator and
         torch's global generator (dropout) are reseeded per step, so a
-        resumed run draws what an uninterrupted one would."""
+        resumed run draws what an uninterrupted one would. The noise
+        generator (and with it the hash dropout's seeds) is seeded alike on
+        every data rank, since the step draws the global batch's numbers;
+        torch's global generator, which the other dropouts draw from, per
+        data rank (rank 0's seed is the one-process run's), so no two ranks
+        repeat a mask."""
         seed = self.tcfg.seed * 1_000_003 + self.global_step
         self.generator.manual_seed(seed)
+        if self.data_rank:
+            seed = int(np.random.SeedSequence([seed, self.data_rank]).generate_state(1)[0])
         torch.manual_seed(seed)
 
     def run(self, epochs: int | None = None, log_interval: int | None = None,
@@ -370,7 +438,7 @@ class Trainer:
             prev_term = signal.signal(signal.SIGTERM, _on_term)
         except ValueError:  # not on the main thread
             prev_term = None
-        seg_audio_s = (t.batch_size * self.mcfg.segment_samples
+        seg_audio_s = (t.batch_size * self.n_data * self.mcfg.segment_samples
                        / self.dcfg.sampling_rate)
         try:
             for epoch in range(self.start_epoch, epochs):
@@ -383,7 +451,7 @@ class Trainer:
                             self.state, batch, self.generator, self.learning_rate)
                         timer.tick()
                         self.global_step += 1
-                        if self.global_step % log_interval == 0:
+                        if self.global_step % log_interval == 0 and self.is_lead:
                             m = self._assert_finite(metrics)
                             rate = timer.steps_per_sec()
                             self.logger.info(
@@ -399,14 +467,16 @@ class Trainer:
                             # a non-finite step must never overwrite the
                             # last good checkpoint
                             self._assert_finite(metrics)
-                            self.evaluate()
-                            self.save(keep_ckpts)
+                            if self.is_lead:
+                                self.evaluate()
+                                self.save(keep_ckpts)
                         if stop["flag"]:
                             self.logger.info("SIGTERM: saving preemption checkpoint")
                         if stop["flag"] or (max_steps is not None
                                             and self.global_step >= max_steps):
                             self._assert_finite(metrics)
-                            self.save(keep_ckpts)
+                            if self.is_lead:
+                                self.save(keep_ckpts)
                             return
                 finally:
                     batches.close()

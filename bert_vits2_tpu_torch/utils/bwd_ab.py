@@ -33,16 +33,34 @@ from bert_vits2_tpu_torch.ops.attention import (
 SOURCE = "banded_attn_bwd.cu"
 
 
-def load_other(path: Path) -> ctypes.CDLL:
+class _NoSalt:
+    """A library whose B5/B6 entry points predate the salt arguments: calls
+    with this checkout's arguments drop salt_base and salt_stride (the two
+    before scale, device, stream)."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name.endswith("_blocks"):
+            return fn
+        return lambda *args: fn(*args[:-5], *args[-3:])
+
+
+def load_other(path: Path):
     out = path.with_suffix(".so")
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(path)],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out))
+    salted = "salt_stride" in path.read_text()
     for name, argtypes in _build.SIGNATURES[SOURCE].items():
         fn = getattr(lib, name)
+        if not salted and len(argtypes) > 3:
+            argtypes = argtypes[:-5] + argtypes[-3:]
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+    return lib if salted else _NoSalt(lib)
 
 
 def event_ms(fn, iters: int = 10, warmup: int = 2) -> float:

@@ -8,6 +8,8 @@ and check them.
     python3 chip_smoke.py --train-bf16  # the build and phases 7a and 9c alone
     python3 chip_smoke.py --prep      # the build and phase 9d alone
     python3 chip_smoke.py --stages    # the build and phases 6c' and 6c'' alone
+    python3 chip_smoke.py --pack      # the build and phase 6a alone
+    python3 chip_smoke.py --dist      # the build and phase 9e alone
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -41,6 +43,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    versions): equal frame counts and waves within a stated bound.
 6. serving timing: audio seconds per second and per-call latency of
    run_prepared at batch 8, peak device memory, a profiler breakdown.
+6a. the request pool ([pack]): the seed-7 batch of 8 through run_prepared
+   with a pool (pack_requests) and without one, each wave bit-equal (under
+   cuDNN's deterministic algorithms) to the per-tensor route the engine took
+   before its pool (its 13 host arrays rebuilt by `per_tensor_route`),
+   bytes_h2d a call (that route's, the pool's pair, 0 through a pool); PACK_PILE
+   requests through run_packed: one pair shipped for the pile, K1 28 and
+   K2 3 per chunk call.
 6b. text in, wave out: a config.json with the V2.3 model section and a
    G_0.pth of the random model, loaded by load_tts_engine; warmup over
    batches 1 and 8 and buckets 64 and 128; infer on a JP
@@ -193,6 +202,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
    noise card against CPU within WAVE_BOUND and equal to the checkpoint's
    engine; mix_params of the step-0 and the last generator served once.
 
+9e. the data axis ([dist]): (a) K1's train mode, B5 and B6, fp32 and bf16,
+   tensor-core and wide, on each half of a batch with the affine dropout
+   salt against the full batch: out, dq, dk, dv bit-equal, the tables'
+   gradients within SALT_TABLE_REL (fp32) or 8 bf16 ulps; (b) the Trainer
+   as the one rank of an NCCL group against the Trainer outside any group,
+   DIST_STEPS steps on one corpus, each in a child process of this script
+   (side by side) with deterministic algorithms: bit-equal parameters; (c) two processes of
+   this script sharing cuda:0 over gloo (torchrun's variables set), each a
+   rank of DIST_STEPS data-parallel steps of the V2.3 models at
+   TRAIN_BATCH / 2 rows, module dropouts off and the hash dropout on:
+   K1-train/B5/B6 22 and K3 1 per rank per step, metrics and parameters
+   equal across the ranks, the first step within DIST_REL_BOUND of the
+   one-process step on the TRAIN_BATCH rows, ms per step, peak memory per
+   rank and the step's gradient all-reduces alone; (d) TTSEngine on
+   make_mesh(2, [cuda:0, cuda:0]) against the single engine at noise
+   0.667 within DP_ENGINE_BOUND, K1 28 and K2 3 per replica, medians in
+   turns; (e) NCCL across two cards only where the machine shows two
+   (the phase says why it did not run).
+
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -201,6 +229,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import copy
 import io
 import json
@@ -1303,7 +1332,7 @@ def run_stages_phase(dev, smi, counters):
     m = engine.frame_multiple
     max_frames = max(-(-int(frames.max()) // m) * m, m)
     with torch.inference_mode():
-        batch = engine._batch(reqs)
+        batch = engine.model_inputs(reqs)
     knobs = {k: batch.pop(k) for k in ("noise_scale", "length_scale", "noise_scale_w",
                                        "sdp_ratio")}
     t_x = batch["x"].shape[1]
@@ -3365,6 +3394,577 @@ def run_prep(dev, smi, counters):
     return {k: totals.get(k, 0) for k in counters}
 
 
+PACK_PILE = 32  # [pack]'s run_packed pile
+# [pack] with the library's default algorithms: a route against itself moves a
+# few fp32 ulps from call to call (2.98e-8 on waves of ~1 on an H100)
+PACK_DEFAULT_BOUND = 1e-6
+DIST_STEPS = 2  # [dist] (b) and (c): Trainer / step steps per run
+DIST_REL_BOUND = 1e-4  # (c): the first two-rank step against the one-process one
+DP_ENGINE_BOUND = 1e-5  # (d): the data-parallel engine against the single one
+DIST_TIMEOUT_S = 600
+# (a): the tables' gradients of two halves summed against the full batch's:
+# fp32 sums over the rows in another order (relative to the largest entry);
+# bf16: each half rounded once, then summed
+SALT_TABLE_REL = 1e-5
+SALT_CASES = ((TRAIN_BATCH, 2, TRAIN_TY, 96), (4, 1, 200, 160))  # tensor-core; wide
+
+
+def per_tensor_route(engine, reqs):
+    """The per-tensor route to the model, the engine's route before its
+    request pool, rebuilt here as [pack]'s reference: `_batch` shipped 13
+    host arrays (int64 phones, tones, languages, lengths and speakers, three
+    float32 BERT arrays, four knobs) padded to the power-of-two batch, then
+    ran the duration pass and synthesis on them. -> (trimmed waves, bytes
+    shipped)."""
+    t_x = engine._bucket(max(len(r.inputs[0]) for r in reqs))
+    rows = [reqs[i] for i in engine._pad_idx(list(range(len(reqs))))]
+    b = len(rows)
+    ints = np.zeros((3, b, t_x), np.int64)
+    feats = [np.zeros((b, t_x, np.asarray(reqs[0].inputs[3 + j]).shape[1]), np.float32)
+             for j in range(3)]
+    for i, r in enumerate(rows):
+        n = len(r.inputs[0])
+        for j in range(3):
+            ints[j, i, :n] = r.inputs[j]
+            feats[j][i, :n] = r.inputs[3 + j]
+    host = {"x": ints[0], "tone": ints[1], "language": ints[2],
+            "x_lengths": np.asarray([len(r.inputs[0]) for r in rows], np.int64),
+            "sid": np.asarray([r.sid for r in rows], np.int64),
+            "bert": feats[0], "ja_bert": feats[1], "en_bert": feats[2]}
+    for k in ("noise_scale", "length_scale", "noise_scale_w", "sdp_ratio"):
+        host[k] = np.asarray([getattr(r, k) for r in rows], np.float32)
+    batch = {k: torch.from_numpy(a).to(engine.device) for k, a in host.items()}
+
+    def gen():
+        return torch.Generator(device=engine.device).manual_seed(int(reqs[0].seed))
+
+    with torch.inference_mode():
+        kw = {k: v for k, v in batch.items() if k != "noise_scale"}
+        frames = engine.model.predict_durations(generator=gen(), **kw)
+        frames = frames.cpu().numpy()[:len(reqs)]
+        m = engine.frame_multiple
+        cap = -(-int(max(int(frames.max()), 1)) // m) * m
+        max_frames = min(max(cap, m),
+                         engine._frame_cap(t_x, max(r.length_scale for r in reqs)))
+        wave, _, _, y_len = engine.model.infer(
+            max_frames=max_frames, generator=gen(), mrf_packed=engine.mrf_packed,
+            stages=engine.stages, **batch)
+    y_len, wave = y_len.cpu().numpy(), wave[:len(reqs)].cpu().numpy()
+    lens = [min(int(y_len[i]), max_frames) * engine.hop_length for i in range(len(reqs))]
+    return [wave[i, :lens[i]] for i in range(len(reqs))], sum(a.nbytes for a in host.values())
+
+
+def max_diff(waves, want) -> float:
+    return max(float(np.abs(a - b).max()) if len(a) == len(b) else math.inf
+               for a, b in zip(waves, want))
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(full: bool):
+    """cuDNN's deterministic algorithms and, with `full`, torch's
+    (`use_deterministic_algorithms`, warnings only), restored after."""
+    prev = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    if full:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev[0]
+        torch.use_deterministic_algorithms(prev[1], warn_only=prev[2])
+
+
+def run_pack(dev, smi, counters):
+    """[pack]: the engine's request pool at the default V2.3 width, fp32.
+    The seed-7 batch of 8 through run_prepared with a pool and without one
+    (the route packs its own), against the per-tensor route (rebuilt by
+    `per_tensor_route`): with the library's default algorithms a route repeats
+    itself only within a few fp32 ulps (printed), so the two routes are held
+    bit for bit under deterministic algorithms (cuDNN's; torch's too if
+    cuDNN's alone do not repeat). bytes_h2d per call; then PACK_PILE
+    requests through run_packed: one pile shipped, each chunk a gather
+    from it with no request bytes, K1 28 and K2 3 launches per chunk
+    call."""
+    from bert_vits2_tpu_torch.infer import TTSEngine
+
+    t_phase = time.perf_counter()
+    model = make_model("cuda")
+    cfg = model.cfg
+    engine = TTSEngine(model, device="cuda")
+    reqs = make_requests(cfg, MAIN_BATCH, seed=7)
+    n = len(reqs)
+    engine.run_prepared(reqs)  # warm-up
+    want, old_bytes = per_tensor_route(engine, reqs)
+    spread = max_diff(per_tensor_route(engine, reqs)[0], want)
+    before = engine.stats["bytes_h2d"]
+    pool = engine.pack_requests(reqs)
+    pair = engine.stats["bytes_h2d"] - before
+    for fn in counters.values():
+        fn.launches = 0
+    pooled = engine.run_prepared(reqs, pool=pool, pool_rows=range(n))
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    pooled_bytes = engine.stats["bytes_h2d"] - before - pair
+    before = engine.stats["bytes_h2d"]
+    unpooled = engine.run_prepared(reqs)
+    unpooled_bytes = engine.stats["bytes_h2d"] - before
+    diff = max(max_diff(pooled, want), max_diff(unpooled, want))
+    for full in (False, True):  # cuDNN's deterministic algorithms, then torch's too
+        with torch.inference_mode(), deterministic_algorithms(full):
+            want_d = per_tensor_route(engine, reqs)[0]
+            got_d = (engine.run_prepared(reqs, pool=pool, pool_rows=range(n)),
+                     engine.run_prepared(reqs))
+        equal = [np.array_equal(a, b) for w in got_d for a, b in zip(w, want_d)]
+        log(f"[pack] deterministic algorithms ({'cuDNN and torch' if full else 'cuDNN'}"
+            f"): the pool route and the unpooled one bit-equal to the per-tensor "
+            f"route: "
+            f"{all(equal)}")
+        if all(equal):
+            break
+    n_attn = 2 * cfg.n_layers + cfg.n_flow_layer * cfg.n_layers_trans_flow
+    n_mrf = sum(1 for w in engine.mrf_packed if w is not None)
+    log(f"[pack] {smi}: the seed-7 batch of {n} ({sorted(len(r.inputs[0]) for r in reqs)} "
+        f"tokens), the library's default algorithms: through a pool and unpooled "
+        f"within {diff:.3e} of the per-tensor route, which repeats itself within "
+        f"{spread:.3e}; launches of the pool call K1 {launches['banded_attn_fwd']} K2 "
+        f"{launches['mrf_fwd']} (expected {n_attn} and {n_mrf}); bytes_h2d per call: "
+        f"the per-tensor route {old_bytes} in 13 copies, this route {unpooled_bytes} "
+        f"in 2 "
+        f"(the pool's pair {pair}; a call through the pool {pooled_bytes})")
+    if not all(equal):
+        raise AssertionError("the pool route's waves differ from the per-tensor route")
+    if diff > PACK_DEFAULT_BOUND:
+        raise AssertionError("with the default algorithms the pool route lies further "
+                             f"than {PACK_DEFAULT_BOUND:g} from the per-tensor route")
+    if (launches["banded_attn_fwd"], launches["mrf_fwd"]) != (n_attn, n_mrf):
+        raise AssertionError(f"pool call launches {launches}")
+    if pooled_bytes != 0 or unpooled_bytes != pair:
+        raise AssertionError("bytes_h2d: a pool call shipped bytes, or a call shipped "
+                             "other than one pair")
+
+    pile = make_requests(cfg, PACK_PILE, seed=8)
+    calls, totals = [], collections.Counter()
+    run_prepared = engine.run_prepared
+
+    def counted(*a, **k):
+        for fn in counters.values():
+            fn.launches = 0
+        out = run_prepared(*a, **k)
+        torch.cuda.synchronize()
+        calls.append((len(a[0]), counters["banded_attn_fwd"].launches,
+                      counters["mrf_fwd"].launches))
+        totals.update({name: fn.launches for name, fn in counters.items()})
+        return out
+
+    engine.run_prepared = counted
+    for fn in counters.values():
+        fn.launches = 0
+    before = engine.stats["bytes_h2d"]
+    t0 = time.perf_counter()
+    waves = engine.run_packed(pile, max_batch=MAIN_BATCH)
+    packed_s = time.perf_counter() - t0
+    shipped = engine.stats["bytes_h2d"] - before
+    # the whole pile's duration pass ran before the first chunk
+    totals["banded_attn_fwd"] += cfg.n_layers
+    del engine.run_prepared
+    t_x = engine._bucket(max(len(r.inputs[0]) for r in pile))
+    ints, floats = engine._pack_host(pile, t_x)
+    ok = all(len(w) >= engine.hop_length and np.isfinite(w).all()
+             and np.abs(w).max() <= 1.0 for w in waves)
+    log(f"[pack] {smi}: run_packed of {PACK_PILE} requests, max_batch {MAIN_BATCH}: "
+        f"{len(calls)} chunk calls (rows, K1, K2) {calls}; bytes_h2d {shipped} (one "
+        f"pair: {ints.nbytes + floats.nbytes}); waves finite in [-1, 1]: {ok}; "
+        f"{packed_s:.2f} s; phase {time.perf_counter() - t_phase:.1f} s")
+    if shipped != ints.nbytes + floats.nbytes or not ok or len(waves) != PACK_PILE:
+        raise AssertionError("run_packed shipped other than one pair, or a wave is bad")
+    if any((k1, k2) != (n_attn, n_mrf) for _, k1, k2 in calls):
+        raise AssertionError(f"chunk launches {calls}")
+    del engine, model
+    torch.cuda.empty_cache()
+    return dict(totals)
+
+
+def no_module_dropout(models):
+    """Module dropouts off (torch's generator, per rank), the attention's
+    hash dropout kept: the two-rank step can then equal the one-process one."""
+    for m in models:
+        if m is not None:
+            for sub in m.modules():
+                if isinstance(sub, torch.nn.Dropout):
+                    sub.p = 0.0
+    return models
+
+
+def digest(modules) -> str:
+    import hashlib
+    h = hashlib.sha1()
+    for m in modules:
+        for p in m.parameters():
+            h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dist_step_models(device):
+    """The default V2.3 models from seed 1234, module dropouts off, with their
+    optimizers: (models, state)."""
+    from bert_vits2_tpu_torch.config import ModelConfig
+    from bert_vits2_tpu_torch.train import TrainConfig, init_train_state
+    from bert_vits2_tpu_torch.train.trainer import build_models, init_params
+
+    cfg = ModelConfig()
+    models = no_module_dropout(init_params(build_models(cfg, device=device), cfg,
+                                           seed=1234))
+    return models, init_train_state(models, TrainConfig())
+
+
+def dist_worker(mode: str, out_path: str) -> int:
+    """A child process of [dist]. mode "gloo": one of two ranks on cuda:0
+    (torchrun's variables in the environment), DIST_STEPS data-parallel
+    steps of the V2.3 models at TRAIN_BATCH / 2 rows each; mode "nccl": the
+    only rank of an NCCL group, the Trainer for DIST_STEPS steps on a
+    corpus; mode "plain": the same Trainer in no group. "nccl" and "plain"
+    run the library's deterministic algorithms (cuDNN's and torch's, with
+    CUBLAS_WORKSPACE_CONFIG set by the parent), so their parameters can be
+    compared bit for bit. Writes a JSON record to out_path."""
+    import torch.distributed as dist
+
+    from bert_vits2_tpu_torch.parallel import init_distributed, make_mesh, shard_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["BV2_FUSED_ATTENTION_TRAIN"] = "1"
+    counters = train_counters()
+    out = {}
+    if mode in ("nccl", "plain"):
+        from bert_vits2_tpu_torch.train.trainer import Trainer
+
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        if mode == "nccl":
+            dist.init_process_group("nccl", init_method=os.environ["DIST_INIT"],
+                                    world_size=1, rank=0)
+        trainer = Trainer(os.environ["DIST_CONFIG"],
+                          os.path.join(os.environ["DIST_ROOT"], mode),
+                          slm_path=None, device="cuda")
+        step_fn, losses = trainer.step_fn, []
+
+        def recorded(*a):
+            state, metrics = step_fn(*a)
+            losses.append({k: float(v) for k, v in metrics.items()})
+            return state, metrics
+
+        trainer.step_fn = recorded
+        trainer.run(max_steps=DIST_STEPS, keep_ckpts=1)
+        torch.cuda.synchronize()
+        out.update(backend=dist.get_backend() if mode == "nccl" else None,
+                   world=dist.get_world_size() if mode == "nccl" else None,
+                   n_data=trainer.n_data, step=trainer.global_step,
+                   device=str(trainer.device), digest=digest(trainer.models[:3]),
+                   losses=losses)
+    else:
+        from bert_vits2_tpu_torch.config import ModelConfig
+        from bert_vits2_tpu_torch.parallel.data import reduce_gradients
+        from bert_vits2_tpu_torch.train import DataConfig, TrainConfig, make_train_step
+
+        init_distributed(backend="gloo")
+        rank = dist.get_rank()
+        mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+        models, state = dist_step_models("cuda:0")
+        # torch's global generator per rank, as the Trainer seeds it: the
+        # hash dropout's seeds must come from the step's shared generator
+        torch.manual_seed(1000 + rank)
+        cfg, data_cfg = ModelConfig(), DataConfig()
+        step = make_train_step(models, TrainConfig(), data_cfg, cfg.segment_size, mesh=mesh)
+        full = make_train_batch(cfg, data_cfg.hop_length, TRAIN_BATCH, TRAIN_TX, TRAIN_TY,
+                                seed=0, dev="cpu")
+        batch = shard_batch(mesh, full)
+        gen = torch.Generator(device="cuda:0")
+        times, launches, metrics = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(DIST_STEPS):
+            gen.manual_seed(1234 + i)
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, gen, TrainConfig().learning_rate)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            launches.append({k: fn.launches for k, fn in counters.items()})
+            metrics.append({k: float(v) for k, v in m.items()})
+        # the collective alone: the step's three gradient all-reduces
+        sizes = [sum(p.numel() for p in mod.parameters()) for mod in models[:3]]
+        bufs = [[torch.zeros(n, device="cuda:0")] for n in sizes]
+        for b in bufs:
+            reduce_gradients(b, mesh.data_group, mesh.n_data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in bufs:
+            reduce_gradients(b, mesh.data_group, mesh.n_data)
+        torch.cuda.synchronize()
+        out.update(rank=rank, world=dist.get_world_size(), backend=dist.get_backend(),
+                   times=times, launches=launches, metrics=metrics,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   digest=digest(models[:3]), grad_floats=sizes,
+                   allreduce_s=time.perf_counter() - t0)
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def train_counters():
+    from bert_vits2_tpu_torch.ops import attention
+    from bert_vits2_tpu_torch.ops.align import maximum_path
+    return {"banded_attn_fwd_train": attention.banded_attention_fwd_train,
+            "banded_attn_bwd_q": attention.banded_attention_bwd_q,
+            "banded_attn_bwd_k": attention.banded_attention_bwd_k,
+            "mas_fwd": maximum_path}
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(groups, root, extra_env=None):
+    """Child processes of this script in dist-worker mode, every group's at
+    once: groups [(mode, n), ...], each of n ranks on a free port of its own
+    -> {mode: [JSON record per rank]}; a child that fails fails the phase."""
+    procs = []
+    for mode, n in groups:
+        port = free_port()
+        for rank in range(n):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(n),
+                       LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), DIST_INIT=f"tcp://127.0.0.1:{port}",
+                       **(extra_env or {}))
+            path = os.path.join(root, f"{mode}{rank}.json")
+            procs.append((mode, path, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-worker", mode, path],
+                env=env)))
+    try:
+        codes = [p.wait(timeout=DIST_TIMEOUT_S) for _, _, p in procs]
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(codes):
+        raise AssertionError(f"[dist] {[m for m, _ in groups]} ranks exited with {codes}")
+    out = {mode: [] for mode, _ in groups}
+    for mode, path, _ in procs:
+        with open(path) as f:
+            out[mode].append(json.load(f))
+    return out
+
+
+def check_salted_kernels(dev, smi, counters):
+    """[dist] (a): K1's train mode, B5 and B6 with the hash dropout on each
+    half of a batch, salted (row_offset * h, h), fp32 and bf16, at the flow's
+    training shape (the tensor-core kernels) and at a d = 160 shape (the
+    wide ones): out, dq, dk and dv bit-equal to the full batch's rows; the
+    tables' gradients of the halves summed within SALT_TABLE_REL of the
+    largest entry (fp32) or 8 bf16 ulps of it (bf16: each half's sum is
+    rounded once, then the two added; twice the kernels' 4-ulp bound)."""
+    from bert_vits2_tpu_torch.ops.attention import (
+        banded_attention_bwd_k, banded_attention_bwd_q, banded_attention_fwd_train)
+
+    w, p_drop, seed = 4, 0.1, 987653
+    for b, h, t, d in SALT_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=dev).manual_seed(t + d)
+            q, k, v, go = (torch.randn(b, h, t, d, device=dev, generator=g)
+                           for _ in range(4))
+            q = q / d ** 0.5
+            ek, ev = (torch.randn(2 * w + 1, d, device=dev, generator=g) / d ** 0.5
+                      for _ in range(2))
+            m = lens_mask([t - (t // (2 * b)) * i for i in range(b)], t, dev)
+            go = go * m[:, None, :, None]
+            q, k, v, ek, ev, go = (a.to(dtype) for a in (q, k, v, ek, ev, go))
+
+            def run(rows, salt):
+                qq, kk, vv, mm, gg = (a[rows].contiguous() for a in (q, k, v, m, go))
+                out, mr, lr = banded_attention_fwd_train(qq, kk, vv, mm, ek, ev, w,
+                                                         p_drop, seed, salt)
+                args = (qq, kk, vv, mm, ek, ev, gg, mr, lr,
+                        (gg.float() * out.float()).sum(-1), w, p_drop, seed, salt)
+                return (out, *banded_attention_bwd_q(*args),
+                        *banded_attention_bwd_k(*args))
+
+            before = {k: fn.launches for k, fn in counters.items()}
+            full = run(slice(0, b), None)
+            halves = [run(slice(o, o + b // 2), (o * h, h)) for o in (0, b // 2)]
+            torch.cuda.synchronize()
+            used = sorted(k for k, fn in counters.items() if fn.launches != before[k])
+            equal = {name: torch.equal(torch.cat([hv[i] for hv in halves]), full[i])
+                     for i, name in ((0, "out"), (1, "dq"), (4, "dk"), (5, "dv"))}
+            errs = {}
+            for i, name in ((2, "dek"), (3, "dev")):
+                ref = full[i].float()
+                errs[name] = (halves[0][i].float() + halves[1][i].float()
+                              - ref).abs().max().item()
+                bound = (SALT_TABLE_REL * ref.abs().max().item()
+                         if dtype == torch.float32
+                         else 2 * 4 * 2.0 ** (math.floor(math.log2(
+                             ref.abs().max().item())) - 7))
+                errs[name + "_bound"] = bound
+            log(f"[dist] (a) {smi}: salted halves of [{b},{h},{t},{d}] "
+                f"{str(dtype)[6:]}, kernels {used}: bit-equal to the full batch "
+                f"{equal}; tables' gradients summed, max-abs-err " + ", ".join(
+                    f"{k} {v:.3e}" for k, v in errs.items()))
+            if not all(equal.values()) or any(
+                    errs[n] > errs[n + "_bound"] for n in ("dek", "dev")):
+                raise AssertionError("salted halves disagree with the full batch")
+    torch.cuda.empty_cache()
+
+
+def run_dist(dev, smi, counters):
+    """[dist]: the data axis on one card. (a) the salted training kernels
+    (`check_salted_kernels`); (b) one rank of an NCCL group: the Trainer's
+    DIST_STEPS steps on a corpus against the Trainer outside any group, each
+    in a child process with deterministic algorithms, bit-equal parameters;
+    (c) two processes sharing cuda:0 over gloo: DIST_STEPS
+    data-parallel steps of the V2.3 models at TRAIN_BATCH / 2 rows per rank,
+    module dropouts off and the hash dropout on: launches per rank per step,
+    metrics and parameters equal across the ranks, the first step's losses
+    and grad norms within DIST_REL_BOUND of the one-process step on the
+    TRAIN_BATCH rows, ms per step, peak memory per rank, the gloo
+    all-reduce of the step's gradients; (d) the data-parallel engine on
+    [cuda:0, cuda:0] against the single engine at noise 0.667, launches per
+    replica, medians in turns; (e) NCCL across two cards, where there are
+    two."""
+    from bert_vits2_tpu_torch.infer import TTSEngine
+    from bert_vits2_tpu_torch.parallel import make_mesh
+    from bert_vits2_tpu_torch.train import DataConfig, TrainConfig, make_train_step
+
+    t_phase = time.perf_counter()
+    check_salted_kernels(dev, smi, counters)
+    os.environ["BV2_FUSED_ATTENTION_TRAIN"] = "1"
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            # (b) one rank over NCCL against no group, each in a process of
+            # its own with deterministic algorithms
+            t0 = time.perf_counter()
+            cfg_path = write_corpus(root, TRAIN_BATCH)
+            env = {"DIST_CONFIG": cfg_path, "DIST_ROOT": root,
+                   "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+            runs = spawn_ranks([("plain", 1), ("nccl", 1)], root, env)  # side by side
+            (plain,), (nccl,) = runs["plain"], runs["nccl"]
+            same = nccl["digest"] == plain["digest"]
+            log(f"[dist] (b) {smi}: the Trainer as the one rank of a {nccl['backend']} "
+                f"group (world {nccl['world']}, n_data {nccl['n_data']}, "
+                f"{nccl['device']}) and in no group, {DIST_STEPS} steps each from one "
+                f"corpus, deterministic algorithms: parameters bit-equal {same}; "
+                f"loss/g/total {[m['loss/g/total'] for m in nccl['losses']]} against "
+                f"{[m['loss/g/total'] for m in plain['losses']]}, grad_norm_g "
+                f"{[m['grad_norm_g'] for m in nccl['losses']]} against "
+                f"{[m['grad_norm_g'] for m in plain['losses']]}; "
+                f"{time.perf_counter() - t0:.1f} s")
+            if not same or nccl["step"] != DIST_STEPS:
+                raise AssertionError("the NCCL rank's Trainer differs from the plain one")
+
+            # (c) two ranks sharing cuda:0 over gloo
+            t0 = time.perf_counter()
+            from bert_vits2_tpu_torch.config import ModelConfig
+            cfg, data_cfg = ModelConfig(), DataConfig()
+            models, state = dist_step_models("cuda")
+            torch.manual_seed(1000)
+            step = make_train_step(models, TrainConfig(), data_cfg, cfg.segment_size)
+            full = make_train_batch(cfg, data_cfg.hop_length, TRAIN_BATCH, TRAIN_TX,
+                                    TRAIN_TY, seed=0, dev=dev)
+            gen = torch.Generator(device=dev).manual_seed(1234)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, one = step(state, full, gen, TrainConfig().learning_rate)
+            one = {k: float(v) for k, v in one.items()}
+            one_s = time.perf_counter() - t1
+            del models, state, step, full
+            torch.cuda.empty_cache()
+            ranks = spawn_ranks([("gloo", 2)], root)["gloo"]
+            n_attn = cfg.n_layers + cfg.n_flow_layer * cfg.n_layers_trans_flow
+            want_l = {"banded_attn_fwd_train": n_attn, "banded_attn_bwd_q": n_attn,
+                      "banded_attn_bwd_k": n_attn, "mas_fwd": 1}
+            same = (ranks[0]["metrics"] == ranks[1]["metrics"]
+                    and ranks[0]["digest"] == ranks[1]["digest"])
+            rel = {k: abs(ranks[0]["metrics"][0][k] - v) / max(abs(v), 1e-12)
+                   for k, v in one.items()}
+            worst = max(rel, key=rel.get)
+            for r in ranks:
+                log(f"[dist] (c) {smi}: rank {r['rank']} of {r['world']} "
+                    f"({r['backend']}, cuda:0), {TRAIN_BATCH // 2} rows: ms per step "
+                    f"{[round(s * 1e3, 1) for s in r['times']]}, peak memory "
+                    f"{r['peak_gib']:.2f} GiB, launches per step {r['launches']}; "
+                    f"the step's three gradient all-reduces ({sum(r['grad_floats'])} "
+                    f"floats, {4 * sum(r['grad_floats']) / 1e6:.1f} MB) alone "
+                    f"{r['allreduce_s'] * 1e3:.1f} ms")
+            log(f"[dist] (c) {smi}: ranks' metrics and parameters equal {same}; the "
+                f"first step against the one-process step on {TRAIN_BATCH} rows "
+                f"({one_s * 1e3:.1f} ms, the first step of fresh models): largest "
+                f"relative difference {rel[worst]:.3e} ({worst}; bound "
+                f"{DIST_REL_BOUND:g}); " + ", ".join(
+                    f"{k} {ranks[0]['metrics'][0][k]:.6g}/{one[k]:.6g}"
+                    for k in ("loss/g/total", "loss/g/kl", "loss/g/dur", "grad_norm_g",
+                              "grad_norm_d")) + f"; {time.perf_counter() - t0:.1f} s")
+            if not same or rel[worst] > DIST_REL_BOUND:
+                raise AssertionError("the two-rank step disagrees")
+            if any(lc != want_l for r in ranks for lc in r["launches"]):
+                raise AssertionError(f"rank launches {[r['launches'] for r in ranks]}")
+    finally:
+        os.environ.pop("BV2_FUSED_ATTENTION_TRAIN", None)
+
+    # (d) the data-parallel engine on one card named twice
+    t0 = time.perf_counter()
+    model = make_model("cuda")
+    single = TTSEngine(model, device="cuda")
+    dp = TTSEngine(model, mesh=make_mesh(n_data=2, devices=["cuda:0", "cuda:0"]))
+    reqs = make_requests(model.cfg, MAIN_BATCH, seed=7)
+    want = single.run_prepared(reqs)
+    for fn in counters.values():
+        fn.launches = 0
+    got = dp.run_prepared(reqs)
+    torch.cuda.synchronize()
+    engine_launches = {k: fn.launches for k, fn in counters.items()}
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    lens_equal = [len(g) for g in got] == [len(w) for w in want]
+    times = {"single": [], "dp": []}
+    for name in ["single", "dp", "dp", "single"] * 2:
+        t1 = time.perf_counter()
+        (single if name == "single" else dp).run_prepared(reqs)
+        times[name].append(time.perf_counter() - t1)
+    n_attn = 2 * model.cfg.n_layers + model.cfg.n_flow_layer * model.cfg.n_layers_trans_flow
+    n_mrf = sum(1 for w in single.mrf_packed if w is not None)
+    log(f"[dist] (d) {smi}: TTSEngine on make_mesh(2, [cuda:0, cuda:0]) against the "
+        f"single engine, the seed-7 batch of {MAIN_BATCH} at noise 0.667: lengths equal "
+        f"{lens_equal}, wave max-abs-err {err:.3e} (bound {DP_ENGINE_BOUND:g}); "
+        f"launches of one call K1 {engine_launches['banded_attn_fwd']} K2 "
+        f"{engine_launches['mrf_fwd']} (2 replicas x {n_attn} and {n_mrf}); median "
+        f"run_prepared single {np.median(times['single']) * 1e3:.1f} ms, mesh "
+        f"{np.median(times['dp']) * 1e3:.1f} ms (S D D S x2); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not lens_equal or err > DP_ENGINE_BOUND:
+        raise AssertionError("the data-parallel engine disagrees with the single one")
+    if (engine_launches["banded_attn_fwd"], engine_launches["mrf_fwd"]) != (
+            2 * n_attn, 2 * n_mrf):
+        raise AssertionError(f"data-parallel engine launches {engine_launches}")
+    del single, dp, model
+    torch.cuda.empty_cache()
+
+    # (e) NCCL across two cards
+    n_cards = torch.cuda.device_count()
+    log(f"[dist] (e) {smi}: NCCL across two cards not run: this machine shows "
+        f"{n_cards} card{'s' if n_cards != 1 else ''}" if n_cards < 2 else
+        f"[dist] (e) not run: {n_cards} cards, but scaling across cards belongs to the "
+        f"port's benchmark")
+    log(f"[dist] phase {time.perf_counter() - t_phase:.1f} s")
+    rank_launches = ranks[0]["launches"][0]
+    return {**{k: engine_launches[k] for k in ("banded_attn_fwd", "mrf_fwd")},
+            **rank_launches}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3388,11 +3988,22 @@ def main(argv=None) -> int:
                     help="the build, then the [prep] phase alone (a raw corpus "
                          "through the wizard, the Trainer on the native loader, "
                          "releases served); no ok line")
+    ap.add_argument("--pack", action="store_true",
+                    help="the build, then the [pack] phase alone (the engine's "
+                         "request pool); no ok line")
+    ap.add_argument("--dist", action="store_true",
+                    help="the build, then the [dist] phase alone (the data axis: "
+                         "salted kernels, an NCCL rank, two gloo ranks on one card, "
+                         "the data-parallel engine); no ok line")
+    ap.add_argument("--dist-worker", nargs=2, metavar=("MODE", "OUT"),
+                    help=argparse.SUPPRESS)  # a child process of [dist]
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
+    if args.dist_worker:
+        return dist_worker(*args.dist_worker)
     from bert_vits2_tpu_torch import _build
     from bert_vits2_tpu_torch.infer import TTSEngine
     from bert_vits2_tpu_torch.ops.align import maximum_path
@@ -3446,6 +4057,12 @@ def main(argv=None) -> int:
         return 0
     if args.prep:
         print(json.dumps({"launches_prep": run_prep(dev, smi, counters)}), flush=True)
+        return 0
+    if args.pack:
+        print(json.dumps({"launches_pack": run_pack(dev, smi, counters)}), flush=True)
+        return 0
+    if args.dist:
+        print(json.dumps({"launches_dist": run_dist(dev, smi, counters)}), flush=True)
         return 0
     if args.stages:
         stage_launches, program_launches, model, stages = run_stages_phase(
@@ -3533,6 +4150,8 @@ def main(argv=None) -> int:
     del engine, model, cpu_model
     torch.cuda.empty_cache()
 
+    pack_launches = run_pack(dev, smi, counters)
+
     text_launches = run_text(dev, smi, counters)
     bf16_rows, bf16_launches = run_bf16(dev, smi, counters)
     versions_launches = run_versions(dev, smi, counters)
@@ -3555,6 +4174,7 @@ def main(argv=None) -> int:
     run_trainer_slm(dev, smi, counters)
     run_trainer_bf16(dev, smi, counters)
     prep_launches = run_prep(dev, smi, counters)
+    dist_launches = run_dist(dev, smi, counters)
     launches.update({k: v for k, v in trained.items() if k not in ("banded_attn_fwd",
                                                                     "mrf_fwd")})
     # the wide kernels' path is the [attention-range] phase
@@ -3696,6 +4316,19 @@ def main(argv=None) -> int:
         if prep_launches[row["name"]]:
             row["launches_prep"] = prep_launches[row["name"]]
             row["basis"] += prep_basis
+    pack_basis = (f"; launches_pack: the [pack] phase's run_packed of {PACK_PILE} "
+                  "requests through one pool (its duration pass and chunk calls)")
+    dist_basis = ("; launches_dist: [dist]'s data-parallel engine call on [cuda:0, "
+                  "cuda:0] (both replicas) for K1 and K2, and the launches of one "
+                  "rank's step of two gloo ranks for the training kernels (counts "
+                  "zeroed before each)")
+    for row in record["kernels"]:
+        if pack_launches.get(row["name"]):
+            row["launches_pack"] = pack_launches[row["name"]]
+            row["basis"] += pack_basis
+        if dist_launches.get(row["name"]):
+            row["launches_dist"] = dist_launches[row["name"]]
+            row["basis"] += dist_basis
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

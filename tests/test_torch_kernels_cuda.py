@@ -308,6 +308,62 @@ def test_banded_attention_backward_kernels_bf16(card, b, h, t, d, lens, w, p_dro
             assert err <= _bf16_bound(ref), (name, err)
 
 
+SALT_CASES = [(4, 2, 200, 96), (4, 1, 200, 160)]  # tensor-core kernels; wide kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,d", SALT_CASES)
+def test_salted_kernels_give_a_half_the_full_batchs_masks(card, b, h, t, d, dtype):
+    """K1's train mode, B5 and B6 (tensor-core or wide, fp32 or bf16) with
+    the hash dropout on each half of the batch, salted (row_offset * h, h):
+    out, dq, dk and dv bit-equal to the full batch's rows, the tables'
+    gradients of the halves summed within 1e-5 (fp32) or 8 bf16 ulps of
+    the largest entry (each half rounded once, then the two added); each
+    half against its plain version within the
+    fp32 tests' bounds (fp32); the explicit default salt (0, h) bit-equal
+    to none."""
+    w, p_drop, seed = 4, 0.1, 123457
+    g = torch.Generator(device=card).manual_seed(t + d)
+    q, k, v, go = (torch.randn(b, h, t, d, device=card, generator=g) for _ in range(4))
+    q = q / d ** 0.5
+    ek, ev = (torch.randn(2 * w + 1, d, device=card, generator=g) / d ** 0.5
+              for _ in range(2))
+    m = _lens_mask([t, t - 31, t - 70, t - 5], t, card)
+    go = go * m[:, None, :, None]
+    q, k, v, ek, ev, go = (a.to(dtype) for a in (q, k, v, ek, ev, go))
+
+    def run(rows, salt):
+        qq, kk, vv, mm, gg = (a[rows].contiguous() for a in (q, k, v, m, go))
+        out, mr, lr = banded_attention_fwd_train(qq, kk, vv, mm, ek, ev, w, p_drop, seed,
+                                                 salt)
+        args = (qq, kk, vv, mm, ek, ev, gg, mr, lr,
+                (gg.float() * out.float()).sum(-1), w, p_drop, seed, salt)
+        return (out, *banded_attention_bwd_q(*args), *banded_attention_bwd_k(*args))
+
+    full = run(slice(0, b), None)
+    assert all(torch.equal(x, y) for x, y in zip(full, run(slice(0, b), (0, h))))
+    halves = [run(slice(o, o + b // 2), (o * h, h)) for o in (0, b // 2)]
+    for i, name in ((0, "out"), (1, "dq"), (4, "dk"), (5, "dv")):
+        assert torch.equal(torch.cat([hv[i] for hv in halves]), full[i]), name
+    for i, name in ((2, "dek"), (3, "dev")):
+        got = (halves[0][i].float() + halves[1][i].float())
+        ref = full[i].float()
+        bound = (1e-5 * ref.abs().max().item() if dtype == torch.float32
+                 else 2 * _bf16_bound(ref))
+        assert (got - ref).abs().max().item() <= bound, name
+    if dtype == torch.float32:
+        o = b // 2
+        rows = slice(o, b)
+        want = banded_attention_bwd_plain(q[rows], k[rows], v[rows], m[rows], ek, ev,
+                                          go[rows], w, p_drop, seed, (o * h, h))
+        valid = m[rows].bool()[:, None, :].expand(b - o, h, t)
+        for name, got, ref in zip(("dq", "dk", "dv"), (halves[1][1], halves[1][4],
+                                                       halves[1][5]), want):
+            rel = ((got - ref)[valid].abs().max() / ref[valid].abs().max()).item()
+            assert rel <= 1e-4, (name, rel)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [96, 128, 160])
 def test_banded_attention_backward_is_deterministic(card, d):

@@ -120,8 +120,9 @@ def test_autograd_function_matches_plain_autograd_on_cpu():
 def test_module_takes_the_hash_path_when_asked(monkeypatch):
     """MultiHeadAttention in train() mode with BV2_FUSED_ATTENTION_TRAIN=1:
     the dropout is the position hash from one int32 seed per call drawn
-    from torch's generator, so one seed gives one set of gradients and two
-    seeds give two; without the variable it is F.dropout."""
+    from torch's generator outside a data shard, so one seed gives one set
+    of gradients and two seeds give two, salted (0, heads) there (the
+    salt b * heads + head); without the variable it is F.dropout."""
     torch.manual_seed(0)
     mha = MultiHeadAttention(8, 8, 2, window_size=4, p_dropout=0.1).train()
     x = torch.randn(2, 8, 20)
@@ -147,7 +148,8 @@ def test_module_takes_the_hash_path_when_asked(monkeypatch):
     mha(x, x_mask)
     torch.manual_seed(1)
     assert calls == [{"dropout_p": 0.1,
-                      "dropout_seed": port_attention._dropout_seed()}]
+                      "dropout_seed": port_attention._dropout_seed(),
+                      "dropout_salt": (0, 2)}]
     monkeypatch.delenv("BV2_FUSED_ATTENTION_TRAIN")
     assert os.environ.get("BV2_FUSED_ATTENTION_TRAIN") is None
     mha(x, x_mask)

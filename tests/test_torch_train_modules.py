@@ -104,7 +104,7 @@ def patch_noise(monkeypatch, seed, keep_layout=()):
     monkeypatch.setattr(jax.random, "normal", fake("normal"))
     monkeypatch.setattr(jax.random, "uniform", fake("uniform"))
 
-    def randn(shape, generator, device, dtype=torch.float32):
+    def randn(shape, generator, device, dtype=torch.float32, batch_axis=0):
         if len(shape) == 3 and port_tape.k not in keep_layout:
             b, c, t = shape
             return _t(port_tape.draw((b, t, c)).transpose(0, 2, 1).copy()).to(dtype)
@@ -113,7 +113,8 @@ def patch_noise(monkeypatch, seed, keep_layout=()):
     monkeypatch.setattr(noise, "randn", randn)
     monkeypatch.setattr(
         noise, "rand",
-        lambda shape, generator, device: _t(port_tape.draw(tuple(shape), uniform=True)))
+        lambda shape, generator, device, batch_axis=0: _t(
+            port_tape.draw(tuple(shape), uniform=True)))
 
 
 def build_pair(seed):

@@ -121,7 +121,7 @@ def test_slicing_matches_jax(monkeypatch):
     lengths = np.asarray([20, 13, 6])
     u = np.asarray([0.999, 0.5, 0.3], np.float32)
     monkeypatch.setattr(jax.random, "uniform", lambda key, shape: jnp.asarray(u))
-    monkeypatch.setattr(noise, "rand", lambda shape, gen, dev: _t(u))
+    monkeypatch.setattr(noise, "rand", lambda shape, gen, dev, batch_axis=0: _t(u))
     want, want_starts = jax_masking.rand_slice_segments(
         jnp.asarray(x), jnp.asarray(lengths), 8, None)
     got, starts = masking.rand_slice_segments(

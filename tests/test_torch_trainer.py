@@ -394,7 +394,8 @@ def test_slm_and_parallel_rules(corpus, tmp_path):
     """A declared but missing WavLM dir raises FileNotFoundError, a present
     one loads and turns the SLM losses on (the WavLM discriminator at
     model.slm's widths beside the other models, the frozen WavLM on the
-    Trainer); model parallelism and multi-host training raise (multi-GPU:
+    Trainer); model parallelism raises, through the CLI with --multihost
+    too (that flag joins torchrun's process group, a no-op in one process;
     ROADMAP §A.9)."""
     _, cfg_path = corpus
     cfg_slm = _slm_config(corpus, tmp_path, write_wavlm=False)
@@ -414,7 +415,8 @@ def test_slm_and_parallel_rules(corpus, tmp_path):
         Trainer(cfg_path, str(tmp_path / "e"), n_model=2, slm_path=None,
                 device="cpu")
     with pytest.raises(NotImplementedError, match="A.9"):
-        main(["-c", cfg_path, "-m", str(tmp_path / "f"), "--multihost"])
+        main(["-c", cfg_path, "-m", str(tmp_path / "f"), "--multihost",
+              "--n-model", "2", "--device", "cpu"])
 
 
 def test_cli_trains_with_the_slm_and_resumes(corpus, tmp_path):
