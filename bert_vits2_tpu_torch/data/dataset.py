@@ -18,6 +18,7 @@ train step draws the inactive languages' placeholders (`train/step.py`
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Sequence
 
@@ -218,6 +219,12 @@ class FilelistDataset:
             langs = _intersperse(langs, 0)
         return phones, tones, langs
 
+    @functools.cached_property
+    def text_lengths(self) -> list[int]:
+        """Each item's text length after the blanks (its x_lengths in a
+        batch), computed once."""
+        return [len(self._sequences(u)[0]) for u in self.items]
+
     def _sid(self, u: Utterance) -> int:
         return self.spk2id[u.speaker] if isinstance(self.spk2id, dict) else int(u.speaker)
 
@@ -258,6 +265,7 @@ def load_collated_batch(
     max_frames: int,
     text_pad_multiple: int = 32,
     loader=None,
+    max_text: int | None = None,
 ) -> dict:
     """Collate a batch straight from the caches into fixed-shape buffers.
 
@@ -275,6 +283,10 @@ def load_collated_batch(
       and ships 3x the bytes to the device; the placeholders are pure
       noise, so the semantics are the same.
 
+    The text axis fits `max_text` tokens (default the batch's longest),
+    rounded up to `text_pad_multiple`: ranks of one global batch pass its
+    longest, so that their arrays have one shape.
+
     Returns the train-step batch dict with keys: x, x_lengths, tone,
     language, bert [b, t, bert_dim] (active), utt_lang [b], spec,
     spec_lengths, wave, sid.
@@ -282,7 +294,8 @@ def load_collated_batch(
     b = len(ids)
     utts = [ds.items[i] for i in ids]
     seqs = [ds._sequences(u) for u in utts]
-    max_text = max(len(s[0]) for s in seqs)
+    if max_text is None:
+        max_text = max(len(s[0]) for s in seqs)
     t_x = ((max_text + text_pad_multiple - 1) // text_pad_multiple) * text_pad_multiple
     t_y = max_frames
     hop = ds.hop_length

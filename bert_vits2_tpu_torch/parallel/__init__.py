@@ -12,6 +12,7 @@ from bert_vits2_tpu_torch.parallel.mesh import (
     make_mesh,
     rank_device,
     replicate,
+    replicate_optimizer,
     replicated,
     shard_batch,
 )
@@ -28,6 +29,7 @@ __all__ = [
     "make_mesh",
     "rank_device",
     "replicate",
+    "replicate_optimizer",
     "replicated",
     "shard_batch",
 ]

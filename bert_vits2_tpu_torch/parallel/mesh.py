@@ -191,6 +191,45 @@ def replicate(mesh: Mesh, tree):
     return [copies[dev] for dev in mesh.data_devices]
 
 
+def replicate_optimizer(mesh: Mesh, opt: torch.optim.Optimizer) -> None:
+    """Several processes: make the optimizer state of `replicated(mesh)`
+    every data rank's, in place: which parameters hold state, and each
+    state tensor (Adam's moments and step counts), one broadcast per dtype.
+    A rank that held other state, or none, takes the source's. `opt` must
+    be built alike on every rank, over parameters of the same shapes on
+    one device. A no-op in one process."""
+    if not mesh.distributed:
+        return
+    src, group = replicated(mesh), mesh.data_group
+    params = [p for g in opt.param_groups for p in g["params"]]
+    layout = [None if not opt.state.get(p) else
+              [(key, tuple(t.shape), t.dtype, t.device.type == "cpu")
+               for key, t in opt.state[p].items() if isinstance(t, torch.Tensor)]
+              for p in params]
+    box = [layout]
+    dist.broadcast_object_list(box, src, group=group)
+    tensors = []
+    for p, entries in zip(params, box[0]):
+        if entries is None:
+            opt.state.pop(p, None)
+            continue
+        state = opt.state[p]
+        for key, shape, dtype, on_cpu in entries:
+            dev = torch.device("cpu") if on_cpu else p.device
+            t = state.get(key)
+            if not (isinstance(t, torch.Tensor) and tuple(t.shape) == shape
+                    and t.dtype == dtype and t.device == dev):
+                t = state[key] = torch.empty(shape, dtype=dtype, device=dev)
+            tensors.append(t)
+    for dtype in sorted({t.dtype for t in tensors}, key=str):
+        group_ts = [t for t in tensors if t.dtype == dtype]
+        # flat, on the parameters' device: NCCL takes no host tensor
+        flat = torch.cat([t.reshape(-1).to(params[0].device) for t in group_ts])
+        dist.broadcast(flat, src, group=group)
+        for t, part in zip(group_ts, flat.split([t.numel() for t in group_ts])):
+            t.copy_(part.view(t.shape))
+
+
 def _tensors(tree):
     if tree is None:
         return
@@ -227,9 +266,11 @@ def init_distributed(coordinator_address: str | None = None,
     MASTER_ADDR:MASTER_PORT (read by env://); `coordinator_address`
     "host:port" replaces the last. A no-op with one process, as the JAX
     function is, and when the group is already initialized. backend:
-    "nccl" (the default with a card) or "gloo" (the default without one);
-    a backend that is asked for and unavailable raises. Under NCCL the
-    rank's card (`rank_device`) becomes the current device."""
+    "nccl" or "gloo"; by default NCCL where each of this host's ranks
+    (torchrun's LOCAL_WORLD_SIZE) has a card of its own, else gloo (no
+    card, or ranks sharing one: NCCL takes one rank per card). A backend
+    that is asked for and unavailable raises. Under NCCL the rank's card
+    (`rank_device`) becomes the current device."""
     if num_processes is None:
         num_processes = int(os.environ.get("WORLD_SIZE", "1"))
     if num_processes <= 1:
@@ -239,7 +280,9 @@ def init_distributed(coordinator_address: str | None = None,
     if process_id is None:
         process_id = int(os.environ["RANK"])
     if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+        backend = ("nccl" if torch.cuda.is_available()
+                   and local <= torch.cuda.device_count() else "gloo")
     available = {"nccl": dist.is_nccl_available() and torch.cuda.is_available(),
                  "gloo": dist.is_gloo_available()}
     if not available.get(backend, False):

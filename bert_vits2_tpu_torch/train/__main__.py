@@ -9,9 +9,10 @@ device: the card unless `--device cpu`. On N ranks, under torchrun:
         -m bert_vits2_tpu_torch.train --multihost -c config.json -m model_dir
 
 `--multihost` joins the process group from torchrun's variables (RANK,
-WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT; NCCL on the cards, gloo
-on the CPU) before the Trainer builds its data mesh; each rank trains on
-cuda:LOCAL_RANK. Set BV2_FUSED_ATTENTION_TRAIN=1 to train the attention on
+WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT) before
+the Trainer builds its data mesh: NCCL when every rank of the host has a
+card of its own, else gloo (on the CPU, or ranks sharing a card); each rank
+trains on cuda:LOCAL_RANK, modulo the visible cards. Set BV2_FUSED_ATTENTION_TRAIN=1 to train the attention on
 the hand-written forward and backward kernels; config.json's
 `"bf16_run": true` (its `train` section) trains in bf16.
 """

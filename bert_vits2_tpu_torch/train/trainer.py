@@ -28,9 +28,10 @@ the JAX one builds it from `jax.devices()`, and trains on N ranks: each rank
 on its own device (cuda:LOCAL_RANK for device "cuda"), its own sampler shard
 (`batch_size` rows per rank, every rank in the same bucket each step, the
 text padded to the global batch's cap) and its own native loader; the step
-is the one-process step on the global batch (`train/step.py`). The
-parameters are broadcast from rank 0 at start-up, after any resume; logging,
-the writers, `evaluate` and `save` run on rank 0 only. The reference-layout
+is the one-process step on the global batch (`train/step.py`). Rank 0's
+start is every rank's: its resumed step, parameters and optimizer state are
+broadcast at start-up, after any resume; logging, the writers, `evaluate`
+and `save` run on rank 0 only. The reference-layout
 checkpoints carry no topology, so a run resumes under any rank count. The
 model axis (n_model > 1) is not ported and raises.
 """
@@ -63,7 +64,13 @@ from bert_vits2_tpu_torch.models.discriminators import (
 )
 from bert_vits2_tpu_torch.models.slm import SLM, WavLMConfig, load_wavlm
 from bert_vits2_tpu_torch.models.synthesizer import Synthesizer
-from bert_vits2_tpu_torch.parallel import make_mesh, rank_device, replicate
+from bert_vits2_tpu_torch.parallel import (
+    make_mesh,
+    rank_device,
+    replicate,
+    replicate_optimizer,
+    replicated,
+)
 from bert_vits2_tpu_torch.train import checkpoint as ckpt
 from bert_vits2_tpu_torch.train.step import (
     Models,
@@ -75,23 +82,6 @@ from bert_vits2_tpu_torch.utils.logging import get_logger, make_writer, summariz
 from bert_vits2_tpu_torch.utils.plot import alignment_to_image, spectrogram_to_image
 from bert_vits2_tpu_torch.utils.profiling import StepTimer
 from bert_vits2_tpu_torch.utils.repro import check_git_hash
-
-
-TEXT_PAD = 32  # load_collated_batch's text_pad_multiple
-
-
-def pad_text(batch: dict, t_x: int) -> dict:
-    """A collated batch's text arrays (x, tone, language, bert and, when
-    present, ja_bert and en_bert) zero-padded along their text axis to
-    t_x."""
-    out = dict(batch)
-    for key in ("x", "tone", "language", "bert", "ja_bert", "en_bert"):
-        if key in out and out[key].shape[1] < t_x:
-            a = out[key]
-            pad = [(0, 0)] * a.ndim
-            pad[1] = (0, t_x - a.shape[1])
-            out[key] = np.pad(a, pad)
-    return out
 
 
 def train_config_from_hparams(hps: HParams) -> TrainConfig:
@@ -278,20 +268,19 @@ class Trainer:
                          len(self.sampler))
 
         self.state = init_train_state(self.models, self.tcfg)
-        self.global_step = 0
         self.ckpt_dir = os.path.join(model_dir, "ckpt")
         self.state, step = ckpt.restore_train_state(self.ckpt_dir, self.models,
                                                     self.state)
-        if step is not None:
-            self.global_step = step
-            self.logger.info("resumed from step %d", step)
-        else:
+        if step is None:
             it, _ = ckpt.bootstrap_from_reference(model_dir, self.models)
             if it:
                 self.logger.info("bootstrapped from reference checkpoints "
                                  "(iteration %d)", it)
         if self.mesh is not None:
-            replicate(self.mesh, [m for m in self.models if m is not None])
+            step = self._replicate_start(step)
+        self.global_step = self.state.step = step or 0
+        if step is not None:
+            self.logger.info("resumed from step %d", step)
         self.start_epoch = self.global_step // max(len(self.sampler), 1)
         self.learning_rate = self.tcfg.learning_rate
         self.step_fn = make_train_step(
@@ -299,6 +288,20 @@ class Trainer:
             mas_noise_initial=self.mcfg.mas_noise_scale_initial,
             mas_noise_delta=self.mcfg.noise_scale_delta, slm=self.slm, mesh=self.mesh)
         self.generator = torch.Generator(device=self.device)
+
+    def _replicate_start(self, step: int | None) -> int | None:
+        """Several ranks: the lead's start is every rank's, its resumed step
+        (or none), parameters, buffers and optimizer state broadcast over the
+        data group, so that a rank that does not see the lead's checkpoints
+        (no shared model_dir) trains the same replica. -> the lead's step."""
+        box = [step]
+        dist.broadcast_object_list(box, replicated(self.mesh), group=self.mesh.data_group)
+        replicate(self.mesh, [m for m in self.models if m is not None])
+        for opt in (self.state.opt_g, self.state.opt_d, self.state.opt_dd,
+                    self.state.opt_wd):
+            if opt is not None:
+                replicate_optimizer(self.mesh, opt)
+        return box[0]
 
     # ---- data ----
 
@@ -352,15 +355,14 @@ class Trainer:
             sampler.set_epoch(epoch)
         for steps in zip(*self.rank_samplers):
             bucket_idx, ids = steps[self.data_rank]
-            batch = load_collated_batch(
+            longest = None
+            if self.n_data > 1:
+                lengths = self.train_ds.text_lengths
+                longest = max(lengths[i] for _, rank_ids in steps for i in rank_ids)
+            yield load_collated_batch(
                 self.train_ds, ids,
                 max_frames=self.sampler.bucket_max_frames(bucket_idx),
-                loader=self.native_loader)
-            if self.n_data > 1:
-                longest = max(len(self.train_ds._sequences(self.train_ds.items[i])[0])
-                              for _, rank_ids in steps for i in rank_ids)
-                batch = pad_text(batch, -(-longest // TEXT_PAD) * TEXT_PAD)
-            yield batch
+                loader=self.native_loader, max_text=longest)
 
     def _prefetch(self, gen, depth: int = 2):
         """Load, collate and copy to the device ahead of the step in a host

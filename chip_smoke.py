@@ -1041,13 +1041,14 @@ V23_MODEL_JSON = dict(  # the model section of the reference's V2.3 config.json
 )
 
 
-def write_corpus(root, n_utts, seed=0, slm_dir=None, bf16_run=False):
+def write_corpus(root, n_utts, seed=0, slm_dir=None, bf16_run=False,
+                 batch_size=TRAIN_BATCH):
     """A synthetic corpus for the Trainer: 44.1 kHz int16 wavs of 401-500
     frames (one bucket of the sampler), 40-63 phones each (128 text slots
     after the blanks), cached BERT features, a cleaned filelist in three
     languages and four speakers, and a config.json with the V2.3 model
-    section (its model.slm.model set to `slm_dir` when given) and
-    train.bf16_run. Returns the config path."""
+    section (its model.slm.model set to `slm_dir` when given),
+    train.bf16_run and train.batch_size. Returns the config path."""
     from scipy.io import wavfile
 
     from bert_vits2_tpu_torch.text.symbols import SYMBOLS
@@ -1076,7 +1077,7 @@ def write_corpus(root, n_utts, seed=0, slm_dir=None, bf16_run=False):
         version="2.3",
         train=dict(log_interval=1, eval_interval=100000, seed=1234, epochs=1000,
                    learning_rate=2e-4, betas=[0.8, 0.99], eps=1e-9,
-                   batch_size=TRAIN_BATCH, bf16_run=bf16_run, lr_decay=0.99995,
+                   batch_size=batch_size, bf16_run=bf16_run, lr_decay=0.99995,
                    segment_size=16384, c_mel=45, c_kl=1.0),
         data=dict(training_files=filelist, validation_files=filelist,
                   sampling_rate=sr, filter_length=2048, hop_length=hop,
@@ -3544,17 +3545,15 @@ def run_pack(dev, smi, counters):
                              "other than one pair")
 
     pile = make_requests(cfg, PACK_PILE, seed=8)
-    calls, totals = [], collections.Counter()
+    calls = []
     run_prepared = engine.run_prepared
 
     def counted(*a, **k):
-        for fn in counters.values():
-            fn.launches = 0
+        # each chunk's launches as the difference of the counts around it
+        before = {name: fn.launches for name, fn in counters.items()}
         out = run_prepared(*a, **k)
-        torch.cuda.synchronize()
-        calls.append((len(a[0]), counters["banded_attn_fwd"].launches,
-                      counters["mrf_fwd"].launches))
-        totals.update({name: fn.launches for name, fn in counters.items()})
+        calls.append((len(a[0]), *(counters[name].launches - before[name]
+                                   for name in ("banded_attn_fwd", "mrf_fwd"))))
         return out
 
     engine.run_prepared = counted
@@ -3564,22 +3563,28 @@ def run_pack(dev, smi, counters):
     t0 = time.perf_counter()
     waves = engine.run_packed(pile, max_batch=MAIN_BATCH)
     packed_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    totals = collections.Counter({name: fn.launches for name, fn in counters.items()})
     shipped = engine.stats["bytes_h2d"] - before
-    # the whole pile's duration pass ran before the first chunk
-    totals["banded_attn_fwd"] += cfg.n_layers
     del engine.run_prepared
+    # the whole call: the chunks, and the pile's duration pass before them
+    # (the text encoder's n_layers K1 launches)
+    want_total = (len(calls) * n_attn + cfg.n_layers, len(calls) * n_mrf)
     t_x = engine._bucket(max(len(r.inputs[0]) for r in pile))
     ints, floats = engine._pack_host(pile, t_x)
     ok = all(len(w) >= engine.hop_length and np.isfinite(w).all()
              and np.abs(w).max() <= 1.0 for w in waves)
     log(f"[pack] {smi}: run_packed of {PACK_PILE} requests, max_batch {MAIN_BATCH}: "
-        f"{len(calls)} chunk calls (rows, K1, K2) {calls}; bytes_h2d {shipped} (one "
+        f"{len(calls)} chunk calls (rows, K1, K2) {calls}; the whole call K1 "
+        f"{totals['banded_attn_fwd']} K2 {totals['mrf_fwd']} (expected {want_total[0]} "
+        f"and {want_total[1]}); bytes_h2d {shipped} (one "
         f"pair: {ints.nbytes + floats.nbytes}); waves finite in [-1, 1]: {ok}; "
         f"{packed_s:.2f} s; phase {time.perf_counter() - t_phase:.1f} s")
     if shipped != ints.nbytes + floats.nbytes or not ok or len(waves) != PACK_PILE:
         raise AssertionError("run_packed shipped other than one pair, or a wave is bad")
-    if any((k1, k2) != (n_attn, n_mrf) for _, k1, k2 in calls):
-        raise AssertionError(f"chunk launches {calls}")
+    if any((k1, k2) != (n_attn, n_mrf) for _, k1, k2 in calls) or (
+            totals["banded_attn_fwd"], totals["mrf_fwd"]) != want_total:
+        raise AssertionError(f"run_packed launches: chunks {calls}, in all {totals}")
     del engine, model
     torch.cuda.empty_cache()
     return dict(totals)
@@ -3621,10 +3626,15 @@ def dist_step_models(device):
 def dist_worker(mode: str, out_path: str) -> int:
     """A child process of [dist]. mode "gloo": one of two ranks on cuda:0
     (torchrun's variables in the environment), DIST_STEPS data-parallel
-    steps of the V2.3 models at TRAIN_BATCH / 2 rows each; mode "nccl": the
-    only rank of an NCCL group, the Trainer for DIST_STEPS steps on a
-    corpus; mode "plain": the same Trainer in no group. "nccl" and "plain"
-    run the library's deterministic algorithms (cuDNN's and torch's, with
+    steps of the V2.3 models at TRAIN_BATCH / 2 rows each; mode
+    "multihost": one of two ranks of the training CLI,
+    `bert_vits2_tpu_torch.train --multihost`, which joins the group from
+    those variables and trains the V2.3 Trainer for DIST_STEPS steps on
+    DIST_MH_CONFIG's corpus (each rank's step, its launches and its saves
+    recorded); mode "nccl": the only rank of an
+    NCCL group, the Trainer for DIST_STEPS steps on a corpus; mode
+    "plain": the same Trainer in no group. "nccl" and "plain" run the
+    library's deterministic algorithms (cuDNN's and torch's, with
     CUBLAS_WORKSPACE_CONFIG set by the parent), so their parameters can be
     compared bit for bit. Writes a JSON record to out_path."""
     import torch.distributed as dist
@@ -3636,7 +3646,53 @@ def dist_worker(mode: str, out_path: str) -> int:
     os.environ["BV2_FUSED_ATTENTION_TRAIN"] = "1"
     counters = train_counters()
     out = {}
-    if mode in ("nccl", "plain"):
+    if mode == "multihost":
+        from bert_vits2_tpu_torch.train import trainer as trainer_mod
+        from bert_vits2_tpu_torch.train.__main__ import main as train_main
+
+        record = {"times": [], "launches": [], "metrics": [], "saves": 0}
+
+        class Recorded(trainer_mod.Trainer):
+            """The CLI's Trainer, its steps timed and counted, its saves
+            counted."""
+
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                step_fn = self.step_fn
+
+                def recorded(*args):
+                    for fn in counters.values():
+                        fn.launches = 0
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, metrics = step_fn(*args)
+                    torch.cuda.synchronize()
+                    record["times"].append(time.perf_counter() - t0)
+                    record["launches"].append({k: fn.launches
+                                               for k, fn in counters.items()})
+                    record["metrics"].append({k: float(v) for k, v in metrics.items()})
+                    return state, metrics
+
+                self.step_fn = recorded
+
+            def save(self, *a, **k):
+                record["saves"] += 1
+                return super().save(*a, **k)
+
+        trainer_mod.Trainer = Recorded
+        torch.cuda.reset_peak_memory_stats()
+        trainer = train_main(["-c", os.environ["DIST_MH_CONFIG"], "-m",
+                              os.path.join(os.path.dirname(os.environ["DIST_MH_CONFIG"]),
+                                           "run"),
+                              "--multihost", "--no-slm", "--max-steps",
+                              str(DIST_STEPS)])
+        out.update(rank=dist.get_rank(), world=dist.get_world_size(),
+                   backend=dist.get_backend(), n_data=trainer.n_data,
+                   data_rank=trainer.data_rank, lead=trainer.is_lead,
+                   device=str(trainer.device), step=trainer.global_step,
+                   digest=digest(trainer.models[:3]),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30, **record)
+    elif mode in ("nccl", "plain"):
         from bert_vits2_tpu_torch.train.trainer import Trainer
 
         torch.backends.cudnn.deterministic = True
@@ -3739,7 +3795,8 @@ def spawn_ranks(groups, root, extra_env=None):
         port = free_port()
         for rank in range(n):
             env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(n),
-                       LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(n),
+                       MASTER_ADDR="127.0.0.1",
                        MASTER_PORT=str(port), DIST_INIT=f"tcp://127.0.0.1:{port}",
                        **(extra_env or {}))
             path = os.path.join(root, f"{mode}{rank}.json")
@@ -3827,7 +3884,10 @@ def run_dist(dev, smi, counters):
     (`check_salted_kernels`); (b) one rank of an NCCL group: the Trainer's
     DIST_STEPS steps on a corpus against the Trainer outside any group, each
     in a child process with deterministic algorithms, bit-equal parameters;
-    (c) two processes sharing cuda:0 over gloo: DIST_STEPS
+    (c) two processes sharing cuda:0 over gloo, twice: the training CLI
+    with --multihost for DIST_STEPS steps of TRAIN_BATCH / 2 rows per rank
+    (beside (b)'s processes): launches per rank per step, metrics and
+    parameters equal across the ranks, the lead's save alone; then DIST_STEPS
     data-parallel steps of the V2.3 models at TRAIN_BATCH / 2 rows per rank,
     module dropouts off and the hash dropout on: launches per rank per step,
     metrics and parameters equal across the ranks, the first step's losses
@@ -3837,22 +3897,34 @@ def run_dist(dev, smi, counters):
     [cuda:0, cuda:0] against the single engine at noise 0.667, launches per
     replica, medians in turns; (e) NCCL across two cards, where there are
     two."""
+    from bert_vits2_tpu_torch.config import ModelConfig
     from bert_vits2_tpu_torch.infer import TTSEngine
     from bert_vits2_tpu_torch.parallel import make_mesh
     from bert_vits2_tpu_torch.train import DataConfig, TrainConfig, make_train_step
 
     t_phase = time.perf_counter()
     check_salted_kernels(dev, smi, counters)
+    cfg, data_cfg = ModelConfig(), DataConfig()
+    n_attn = cfg.n_layers + cfg.n_flow_layer * cfg.n_layers_trans_flow
+    want_l = {"banded_attn_fwd_train": n_attn, "banded_attn_bwd_q": n_attn,
+              "banded_attn_bwd_k": n_attn, "mas_fwd": 1}  # per rank per step
     os.environ["BV2_FUSED_ATTENTION_TRAIN"] = "1"
     try:
         with tempfile.TemporaryDirectory() as root:
             # (b) one rank over NCCL against no group, each in a process of
-            # its own with deterministic algorithms
+            # its own with deterministic algorithms; beside them, (c)'s
+            # training CLI on two ranks
             t0 = time.perf_counter()
             cfg_path = write_corpus(root, TRAIN_BATCH)
+            mh_root = os.path.join(root, "multihost")
+            os.makedirs(mh_root)
+            mh_batch = TRAIN_BATCH // 2
             env = {"DIST_CONFIG": cfg_path, "DIST_ROOT": root,
+                   "DIST_MH_CONFIG": write_corpus(mh_root, 2 * mh_batch,
+                                                  batch_size=mh_batch),
                    "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
-            runs = spawn_ranks([("plain", 1), ("nccl", 1)], root, env)  # side by side
+            runs = spawn_ranks([("plain", 1), ("nccl", 1), ("multihost", 2)], root,
+                               env)  # side by side
             (plain,), (nccl,) = runs["plain"], runs["nccl"]
             same = nccl["digest"] == plain["digest"]
             log(f"[dist] (b) {smi}: the Trainer as the one rank of a {nccl['backend']} "
@@ -3867,10 +3939,37 @@ def run_dist(dev, smi, counters):
             if not same or nccl["step"] != DIST_STEPS:
                 raise AssertionError("the NCCL rank's Trainer differs from the plain one")
 
-            # (c) two ranks sharing cuda:0 over gloo
+            # (c) the training CLI with --multihost on two ranks sharing cuda:0
+            mh = runs["multihost"]
+            saved = sorted(os.listdir(os.path.join(mh_root, "run", "ckpt")))
+            for r in mh:
+                log(f"[dist] (c) {smi}: the training CLI with --multihost, rank "
+                    f"{r['rank']} of {r['world']} ({r['backend']}: two ranks, one card; "
+                    f"{r['device']}, data rank {r['data_rank']} of {r['n_data']}, lead "
+                    f"{r['lead']}), {mh_batch} rows of a {2 * mh_batch}-utterance "
+                    f"corpus per step, beside (b)'s processes: steps to "
+                    f"{r['step']}, ms per step "
+                    f"{[round(t * 1e3, 1) for t in r['times']]}, peak memory "
+                    f"{r['peak_gib']:.2f} GiB, launches per step {r['launches']}, "
+                    f"saves {r['saves']}")
+            same_mh = (mh[0]["metrics"] == mh[1]["metrics"]
+                       and mh[0]["digest"] == mh[1]["digest"])
+            log(f"[dist] (c) {smi}: the CLI's ranks' metrics and parameters equal "
+                f"{same_mh}; loss/g/total {[m['loss/g/total'] for m in mh[0]['metrics']]}"
+                f"; the model directory's checkpoints {saved}")
+            if not same_mh or [(r["step"], r["backend"]) for r in mh] != [
+                    (DIST_STEPS, "gloo")] * 2:
+                raise AssertionError("the --multihost ranks disagree")
+            if any(lc != want_l for r in mh for lc in r["launches"]) or any(
+                    len(r["launches"]) != DIST_STEPS for r in mh):
+                raise AssertionError(f"--multihost launches {[r['launches'] for r in mh]}")
+            if [r["saves"] for r in mh] != [1, 0] or not {
+                    f"G_{DIST_STEPS}.pth", f"D_{DIST_STEPS}.pth"} <= set(saved):
+                raise AssertionError(f"--multihost saves {[r['saves'] for r in mh]}, "
+                                     f"files {saved}")
+
+            # (c) two ranks of the step sharing cuda:0 over gloo
             t0 = time.perf_counter()
-            from bert_vits2_tpu_torch.config import ModelConfig
-            cfg, data_cfg = ModelConfig(), DataConfig()
             models, state = dist_step_models("cuda")
             torch.manual_seed(1000)
             step = make_train_step(models, TrainConfig(), data_cfg, cfg.segment_size)
@@ -3885,9 +3984,6 @@ def run_dist(dev, smi, counters):
             del models, state, step, full
             torch.cuda.empty_cache()
             ranks = spawn_ranks([("gloo", 2)], root)["gloo"]
-            n_attn = cfg.n_layers + cfg.n_flow_layer * cfg.n_layers_trans_flow
-            want_l = {"banded_attn_fwd_train": n_attn, "banded_attn_bwd_q": n_attn,
-                      "banded_attn_bwd_k": n_attn, "mas_fwd": 1}
             same = (ranks[0]["metrics"] == ranks[1]["metrics"]
                     and ranks[0]["digest"] == ranks[1]["digest"])
             rel = {k: abs(ranks[0]["metrics"][0][k] - v) / max(abs(v), 1e-12)

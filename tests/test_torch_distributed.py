@@ -7,8 +7,9 @@ topologies.
 Two ranks of tests/torch_distributed_worker.py are spawned once per file,
 with RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT set as
 torchrun sets them. Before them, a one-process Trainer of the corpus's
-config saves its step-0 checkpoint; the ranks resume it with the CLI's
---multihost and train one step; this process then resumes theirs.
+config saves a step-1 checkpoint with a nonzero Adam state; the ranks resume it with the CLI's
+--multihost (rank 1 from a model directory without checkpoints, so that it
+must take the lead's) and train one step; this process then resumes theirs.
 
 The step parity: the tiny models of tests/test_torch_train_modules.py, a 4-row
 batch whose two ranks' rows differ in text and frame lengths (so the global
@@ -31,6 +32,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from bert_vits2_tpu_torch.train import trainer as trainer_mod
 from bert_vits2_tpu_torch.train.trainer import Trainer
@@ -92,8 +94,23 @@ def ranks(tmp_path_factory):
     model_dir = str(root / "run")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(trainer_mod, "make_writer", lambda log_dir: None)
-        Trainer(cfg, model_dir, slm_path=None, device="cpu").save()
-    spec = dict(config=cfg, model_dir=model_dir, tiny=TINY, mpd=MPD, dd=DD, data=DATA)
+        lead = Trainer(cfg, model_dir, slm_path=None, device="cpu")
+        # a resumable step-1 state whose Adam moments are nonzero, set by
+        # hand (a step would cost seconds): the ranks must carry it over.
+        # The tiny generator's and duration discriminator's only: the MPD
+        # has its full width (47 M parameters), and its state stays empty
+        gen = torch.Generator().manual_seed(3)
+        for opt in (lead.state.opt_g, lead.state.opt_dd):
+            for group in opt.param_groups:
+                for p in group["params"]:
+                    opt.state[p] = {
+                        "step": torch.tensor(1.0),
+                        "exp_avg": 1e-3 * torch.randn(p.shape, generator=gen),
+                        "exp_avg_sq": 1e-6 * torch.rand(p.shape, generator=gen)}
+        lead.global_step = lead.state.step = 1
+        lead.save()
+    spec = dict(config=cfg, model_dir=model_dir, follower_dir=str(root / "follower"),
+                tiny=TINY, mpd=MPD, dd=DD, data=DATA)
     spec_path = root / "spec.json"
     spec_path.write_text(json.dumps(spec), encoding="utf-8")
     port = str(_free_port())
@@ -118,13 +135,25 @@ def ranks(tmp_path_factory):
 
 def test_process_group_from_torchruns_variables(ranks):
     """--multihost joined a gloo group of two; each Trainer built a 2-way
-    data mesh at its own rank, rank 0 the lead, resumed step 0 and took
+    data mesh at its own rank, rank 0 the lead, resumed step 1 and took
     one step."""
     _, out = ranks
     for rank in (0, 1):
         res = out[rank][0]
         assert (res["world"], res["rank"], res["backend"]) == (2, rank, "gloo")
-        assert res["trainer"] == [2, rank, rank == 0, 1]
+        assert res["trainer"] == [2, rank, rank == 0, 2]
+
+
+def test_follower_takes_the_leads_resume(ranks):
+    """Rank 1 found no checkpoint in its own model directory: it resumed
+    the lead's step, parameters and Adam state all the same, so both ranks
+    hold one optimizer state after the step, and only the lead saved."""
+    spec, out = ranks
+    (a, _), (b, _) = out[0], out[1]
+    assert a["optimizer_digest"] == b["optimizer_digest"]
+    assert a["trainer"][3] == b["trainer"][3] == 2
+    follower_ckpt = os.path.join(spec["follower_dir"], "ckpt")
+    assert not os.path.isdir(follower_ckpt) or not os.listdir(follower_ckpt)
 
 
 def test_sampler_shards_disjoint_and_complete(ranks):
@@ -165,14 +194,14 @@ def test_two_rank_step_equals_one_process_step(ranks):
 
 
 def test_checkpoints_cross_topologies(ranks, tmp_path):
-    """Step 0 was written by one process and resumed by two ranks; their
-    step 1, written by the lead, resumes in one process with the lead's
+    """Step 1 was written by one process and resumed by two ranks; their
+    step 2, written by the lead, resumes in one process with the lead's
     parameters."""
     spec, out = ranks
     ckpt = os.path.join(spec["model_dir"], "ckpt")
-    assert {"G_0.pth", "G_1.pth", "D_1.pth", "DUR_1.pth"} <= set(os.listdir(ckpt))
+    assert {"G_1.pth", "G_2.pth", "D_2.pth", "DUR_2.pth"} <= set(os.listdir(ckpt))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(trainer_mod, "make_writer", lambda log_dir: None)
         again = Trainer(spec["config"], spec["model_dir"], slm_path=None, device="cpu")
-    assert again.global_step == 1 and again.n_data == 1
+    assert again.global_step == 2 and again.n_data == 1
     assert digest([again.models.synthesizer]) == out[0][0]["trainer_digest"]

@@ -82,6 +82,33 @@ def _halves(fn):
     return out
 
 
+@pytest.mark.parametrize("local_world,cards,want", [
+    (2, 2, "nccl"), (2, 1, "gloo"), (1, 0, "gloo")])
+def test_init_distributed_backend(monkeypatch, local_world, cards, want):
+    """The default backend: NCCL where each of the host's ranks
+    (LOCAL_WORLD_SIZE) has a card, gloo where ranks share one or there is
+    none; one process joins no group."""
+    import torch.distributed as dist
+
+    from bert_vits2_tpu_torch.parallel import init_distributed
+
+    joined = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: cards > 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda dev: None)
+    monkeypatch.setattr(dist, "is_nccl_available", lambda: True)
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: joined.append((backend, kw["rank"])))
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", str(local_world))
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    assert init_distributed() is False and joined == []
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    assert init_distributed() is True and joined == [(want, 1)]
+
+
 @pytest.mark.parametrize("draw", ["randn", "rand"])
 def test_noise_of_a_data_shard_is_the_global_batchs(draw):
     """A draw inside each half's shard, with the same generator seed, gives

@@ -6,8 +6,10 @@ environment, and write what they saw as rank<r>.json / rank<r>.npz for the
 test to check:
 
 1. the training CLI with --multihost (it joins the process group from those
-   variables) resumes the one-process step-0 checkpoint the test wrote and
-   trains one step on two ranks; rank 0 saves;
+   variables) resumes the one-process step-1 checkpoint the test wrote and
+   trains one step on two ranks; rank 1 runs in a model directory of its
+   own, which holds no checkpoint (a node without a shared one), and takes
+   the lead's resume; rank 0 saves;
 2. the two ranks' sampler shards of 50 items;
 3. one data-parallel step (`make_train_step(mesh=make_mesh())`) of the tiny
    models on this rank's rows of a 4-row batch whose two halves have
@@ -36,6 +38,17 @@ def digest(modules) -> str:
     for m in modules:
         for p in m.parameters():
             h.update(p.detach().numpy().tobytes())
+    return h.hexdigest()
+
+
+def optimizer_digest(state) -> str:
+    """Every optimizer's state tensors, in parameter order."""
+    h = hashlib.sha1()
+    for opt in (state.opt_g, state.opt_d, state.opt_dd):
+        for group in opt.param_groups:
+            for p in group["params"]:
+                for key, t in sorted(opt.state.get(p, {}).items()):
+                    h.update(key.encode() + t.detach().numpy().tobytes())
     return h.hexdigest()
 
 
@@ -113,13 +126,15 @@ def main() -> None:
     from bert_vits2_tpu_torch.train.__main__ import main as train_main
 
     trainer_mod.make_writer = lambda log_dir: None  # TensorBoard's import: ~10 s
-    trainer = train_main(["-c", spec["config"], "-m", spec["model_dir"], "--multihost",
-                          "--no-slm", "--max-steps", "1", "--device", "cpu"])
+    model_dir = spec["model_dir"] if rank == 0 else spec["follower_dir"]
+    trainer = train_main(["-c", spec["config"], "-m", model_dir, "--multihost",
+                          "--no-slm", "--max-steps", "2", "--device", "cpu"])
     out = {"world": dist.get_world_size(), "rank": dist.get_rank(),
            "backend": dist.get_backend(),
            "trainer": [trainer.n_data, trainer.data_rank, trainer.is_lead,
                        trainer.global_step],
-           "trainer_digest": digest([trainer.models.synthesizer])}
+           "trainer_digest": digest([trainer.models.synthesizer]),
+           "optimizer_digest": optimizer_digest(trainer.state)}
 
     lengths = [40 + (i * 37) % 500 for i in range(50)]
     sampler = BucketSampler(lengths, batch_size=2, num_replicas=2, rank=rank, seed=5)
