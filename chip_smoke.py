@@ -2494,9 +2494,10 @@ def slm_pieces(slm, wd, y, y_hat):
             y_hat.grad)
 
 
-def check_slm_on_cpu(slm, wd, cfg, data_cfg, dev):
+def check_slm_on_cpu(slm, wd, cfg, data_cfg, dev, strict=True):
     """The SLM pieces, card against CPU, from the same weights at a small
-    batch."""
+    batch: their errors, and lm_gen's value on the CPU. With `strict`, raises
+    with every error when one passes its bound."""
     from bert_vits2_tpu_torch.models.discriminators import WavLMDiscriminator
     from bert_vits2_tpu_torch.models.slm import SLM, WavLM
 
@@ -2531,10 +2532,52 @@ def check_slm_on_cpu(slm, wd, cfg, data_cfg, dev):
         f"max error / norm {grad_err:.3e}; d(lm + lm_gen)/d y_hat max_abs_err "
         f"{wave_abs:.3e}, / norm {wave_err:.3e} (relative bound {SLM_REL_BOUND:g}); "
         f"CPU run {cpu_s:.1f} s")
-    if not (hs_err <= WAVLM_BOUND and max(loss_err.values()) <= SLM_REL_BOUND
-            and grad_err <= SLM_REL_BOUND and wave_err <= SLM_REL_BOUND):
-        raise AssertionError("card and CPU disagree on the SLM losses")
-    return hs_err
+    errs = {"hidden_states": hs_err, **loss_err, "wd_grad": grad_err,
+            "wave_grad": wave_err, "lm_gen": float(want[3])}
+    if strict and not (hs_err <= WAVLM_BOUND and max(loss_err.values()) <= SLM_REL_BOUND
+                       and grad_err <= SLM_REL_BOUND and wave_err <= SLM_REL_BOUND):
+        raise AssertionError(f"card and CPU disagree on the SLM losses: {errs}")
+    return errs
+
+
+def run_slm_drift(dev, smi, n_steps):
+    """`--slm-drift N`: the [train-slm] card-vs-CPU check on the seeded
+    discriminator, then after each of N SLM steps on one batch, reported
+    and not held to the bounds: how lm_gen's value on the check's noise and
+    the relative errors move as the discriminator trains."""
+    from bert_vits2_tpu_torch.config import ModelConfig
+    from bert_vits2_tpu_torch.models.slm import SLM
+    from bert_vits2_tpu_torch.train import (
+        DataConfig, TrainConfig, init_train_state, make_train_step)
+    from bert_vits2_tpu_torch.train.trainer import build_models, init_params
+
+    cfg, data_cfg, train_cfg = ModelConfig(), DataConfig(), TrainConfig()
+    wavlm = make_wavlm(seed=5)
+    slm = SLM(wavlm, data_cfg.sampling_rate, cfg.slm_sr).to(dev)
+    models = init_params(build_models(cfg, use_wavlm_disc=True, device="cuda",
+                                      wavlm=wavlm.cfg), cfg, seed=1234)
+    step = make_train_step(models, train_cfg, data_cfg, cfg.segment_size, slm=slm)
+    state = init_train_state(models, train_cfg)
+    batch = make_train_batch(cfg, data_cfg.hop_length, TRAIN_BATCH, TRAIN_TX,
+                             TRAIN_TY, seed=0, dev=dev)
+    gen = torch.Generator(device=dev).manual_seed(train_cfg.seed)
+    rows = [check_slm_on_cpu(slm, models.wavlm_disc, cfg, data_cfg, dev, strict=False)]
+    os.environ["BV2_FUSED_ATTENTION_TRAIN"] = "1"
+    try:
+        for _ in range(n_steps):
+            state, _ = step(state, batch, gen, train_cfg.learning_rate)
+            rows.append(check_slm_on_cpu(slm, models.wavlm_disc, cfg, data_cfg,
+                                         dev, strict=False))
+    finally:
+        os.environ.pop("BV2_FUSED_ATTENTION_TRAIN", None)
+    rel = [max(r["loss/wd/total"], r["loss/g/lm"], r["loss/g/lm_gen"], r["wd_grad"],
+               r["wave_grad"]) for r in rows]
+    lm_gen = ", ".join(f"{r['lm_gen']:.4g}" for r in rows)
+    log(f"[slm-drift] {smi}: lm_gen on the check's noise before the steps and after "
+        f"each of {n_steps}: [{lm_gen}]; the largest relative error of each check: "
+        f"[{', '.join(f'{e:.3g}' for e in rel)}] (bound {SLM_REL_BOUND:g}); over the "
+        f"bound in {sum(e > SLM_REL_BOUND for e in rel)} of {len(rel)}")
+    return rows
 
 
 def run_training_slm(dev, smi, counters):
@@ -2574,6 +2617,11 @@ def run_training_slm(dev, smi, counters):
         f"WavLMDiscriminator({cfg.slm_hidden}, {cfg.slm_layers}, "
         f"{cfg.slm_initial_channel}) of {n_wd} parameters; batch {TRAIN_BATCH}; "
         f"built in {time.perf_counter() - t0:.1f} s")
+    # card against CPU on the seeded weights, before the steps: the steps
+    # train the discriminator towards D = 1 on the check's noise, so lm_gen
+    # falls towards 0 there and its relative error grows with each step
+    check_slm_on_cpu(slm, models.wavlm_disc, cfg, data_cfg, dev)
+    models.wavlm_disc.zero_grad(set_to_none=True)
     wd_before = [p.detach().clone() for p in models.wavlm_disc.parameters()]
     wavlm_before = [p.detach().clone() for p in wavlm.parameters()]
     gen = torch.Generator(device=dev).manual_seed(train_cfg.seed)
@@ -2654,7 +2702,6 @@ def run_training_slm(dev, smi, counters):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     profile_lines(prof, wall, "one SLM forward", top=8)
-    check_slm_on_cpu(slm, models.wavlm_disc, cfg, data_cfg, dev)
     del models, plain, states, steps, slm, wavlm
     torch.cuda.empty_cache()
     return per_step
@@ -4091,6 +4138,9 @@ def main(argv=None) -> int:
                     help="the build, then the [dist] phase alone (the data axis: "
                          "salted kernels, an NCCL rank, two gloo ranks on one card, "
                          "the data-parallel engine); no ok line")
+    ap.add_argument("--slm-drift", type=int, metavar="STEPS",
+                    help="the build, then the [train-slm] card-vs-CPU check before "
+                         "and after each of STEPS SLM steps, reported; no ok line")
     ap.add_argument("--dist-worker", nargs=2, metavar=("MODE", "OUT"),
                     help=argparse.SUPPRESS)  # a child process of [dist]
     args = ap.parse_args(argv)
@@ -4159,6 +4209,10 @@ def main(argv=None) -> int:
         return 0
     if args.dist:
         print(json.dumps({"launches_dist": run_dist(dev, smi, counters)}), flush=True)
+        return 0
+    if args.slm_drift:
+        print(json.dumps({"slm_drift": run_slm_drift(dev, smi, args.slm_drift)}),
+              flush=True)
         return 0
     if args.stages:
         stage_launches, program_launches, model, stages = run_stages_phase(
