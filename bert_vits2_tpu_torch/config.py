@@ -1,13 +1,28 @@
-"""Model hyperparameters (mirrors configs/config.json `model`+`data` sections).
+"""Model hyperparameters (mirrors configs/config.json `model`+`data` sections)
+and the tools' global configuration from config.yml (reference:
+config.py:13-261).
 
-A copy of the JAX package's `ModelConfig`, field for field, so that the
-PyTorch port never imports that package; a test pins the two together.
+Copies of the JAX package's `ModelConfig` (`bert_vits2_tpu/models/config.py`)
+and of `Config` with its seven section classes (`bert_vits2_tpu/config.py`),
+field for field, so that the PyTorch port never imports that package; tests
+pin each pair together.
+
+config.yml is the two-tier system's upper tier: it drives the offline tools
+and servers (dataset paths, preprocessing knobs, the server's port), while
+the per-model config.json (`compat/hparams.py`) holds the training and model
+hyperparameters. Every path inside a section resolves relative to
+`dataset_path`, and a missing config.yml is copied from the template
+`default_config.yml` on first use, as the reference does. The `train_ms`
+section's `mesh_model_axis` is the mesh's model axis (the CLI's
+`--n-model`), in place of the reference's torchrun variables.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+import os
+import shutil
+from typing import Any, Sequence
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
 
@@ -129,3 +144,154 @@ class ModelConfig:
             )
         args.update(kw)
         return cls(**args)
+
+
+def _join(dataset_path: str, p: str | None) -> str | None:
+    if not p:
+        return p
+    return os.path.join(dataset_path, p) if dataset_path else p
+
+
+@dataclasses.dataclass
+class ResampleConfig:
+    in_dir: str = "audios/raw"
+    out_dir: str = "audios/wavs"
+    sampling_rate: int = 44100
+
+    @classmethod
+    def from_dict(cls, dataset_path: str, d: dict) -> "ResampleConfig":
+        return cls(
+            in_dir=_join(dataset_path, d.get("in_dir", "audios/raw")),
+            out_dir=_join(dataset_path, d.get("out_dir", "audios/wavs")),
+            sampling_rate=d.get("sampling_rate", 44100),
+        )
+
+
+@dataclasses.dataclass
+class PreprocessTextConfig:
+    transcription_path: str = "filelists/transcription.list"
+    cleaned_path: str = ""
+    train_path: str = "filelists/train.list"
+    val_path: str = "filelists/val.list"
+    config_path: str = "config.json"
+    val_per_lang: int = 4
+    max_val_total: int = 12
+    clean: bool = True
+
+    @classmethod
+    def from_dict(cls, dataset_path: str, d: dict) -> "PreprocessTextConfig":
+        out = cls(**{k: v for k, v in d.items() if k in _field_names(cls)})
+        for f in ("transcription_path", "cleaned_path", "train_path",
+                  "val_path", "config_path"):
+            setattr(out, f, _join(dataset_path, getattr(out, f)))
+        return out
+
+
+@dataclasses.dataclass
+class BertGenConfig:
+    config_path: str = "config.json"
+    num_processes: int = 4
+    random_features: bool = False
+
+    @classmethod
+    def from_dict(cls, dataset_path: str, d: dict) -> "BertGenConfig":
+        out = cls(**{k: v for k, v in d.items() if k in _field_names(cls)})
+        out.config_path = _join(dataset_path, out.config_path)
+        return out
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    model_dir: str = "models"
+    config_path: str = "config.json"
+    num_workers: int = 8
+    keep_ckpts: int = 8
+    # device mesh axes: data x model (replaces train_ms.env rendezvous vars)
+    mesh_model_axis: int = 1
+
+    @classmethod
+    def from_dict(cls, dataset_path: str, d: dict) -> "TrainConfig":
+        d = {k: v for k, v in d.items() if k in _field_names(cls)}
+        out = cls(**d)
+        out.model_dir = _join(dataset_path, out.model_dir)
+        out.config_path = _join(dataset_path, out.config_path)
+        return out
+
+
+@dataclasses.dataclass
+class WebuiConfig:
+    model: str = "models/G_8000.pth"
+    config_path: str = "config.json"
+    port: int = 7860
+    share: bool = False
+    debug: bool = False
+    language_identification_library: str = "unicode"
+
+    @classmethod
+    def from_dict(cls, dataset_path: str, d: dict) -> "WebuiConfig":
+        out = cls(**{k: v for k, v in d.items() if k in _field_names(cls)})
+        out.model = _join(dataset_path, out.model)
+        out.config_path = _join(dataset_path, out.config_path)
+        return out
+
+
+@dataclasses.dataclass
+class ServerConfig:
+    port: int = 5000
+    host: str = "0.0.0.0"
+    models: list = dataclasses.field(default_factory=list)
+
+    @classmethod
+    def from_dict(cls, _dataset_path: str, d: dict) -> "ServerConfig":
+        return cls(**{k: v for k, v in d.items() if k in _field_names(cls)})
+
+
+@dataclasses.dataclass
+class TranslateConfig:
+    app_key: str = ""
+    secret_key: str = ""
+
+    @classmethod
+    def from_dict(cls, _dataset_path: str, d: dict) -> "TranslateConfig":
+        return cls(**{k: v for k, v in d.items() if k in _field_names(cls)})
+
+
+def _field_names(cls) -> set:
+    return {f.name for f in dataclasses.fields(cls)}
+
+
+DEFAULT_YML = "config.yml"
+TEMPLATE_YML = "default_config.yml"
+
+
+class Config:
+    """Load config.yml; auto-copy the template on first run like the
+    reference (config.py:228-239)."""
+
+    def __init__(self, config_path: str = DEFAULT_YML):
+        if not os.path.isfile(config_path) and os.path.isfile(TEMPLATE_YML):
+            shutil.copy(TEMPLATE_YML, config_path)
+        data: dict[str, Any] = {}
+        if os.path.isfile(config_path):
+            import yaml
+
+            with open(config_path, encoding="utf-8") as f:
+                data = yaml.safe_load(f) or {}
+        self.config_path = config_path
+        self.dataset_path: str = data.get("dataset_path", "Data/")
+        self.mirror: str = data.get("mirror", "")
+        self.openi_token: str = data.get("openi_token", "")
+        dp = self.dataset_path
+        self.resample_config = ResampleConfig.from_dict(dp, data.get("resample", {}))
+        self.preprocess_text_config = PreprocessTextConfig.from_dict(
+            dp, data.get("preprocess_text", {})
+        )
+        self.bert_gen_config = BertGenConfig.from_dict(dp, data.get("bert_gen", {}))
+        self.train_config = TrainConfig.from_dict(
+            dp, data.get("train_ms", data.get("train", {}))
+        )
+        self.webui_config = WebuiConfig.from_dict(dp, data.get("webui", {}))
+        self.server_config = ServerConfig.from_dict(dp, data.get("server", {}))
+        self.translate_config = TranslateConfig.from_dict(
+            dp, data.get("translate", {})
+        )

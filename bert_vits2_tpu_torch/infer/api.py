@@ -37,7 +37,10 @@ draws the whole padded batch's noise from the call's seed and keeps its
 rows (`parallel/data.py`), so the waves equal the single engine's, and
 every replica's launches go out before any host sync. The pool and the
 BERT extractor stay on the first device; a replica's rows are gathered
-there and copied to its device.
+there and copied to its device. A mesh with a model axis ([n_data,
+n_model]) also splits the default extractor's BERT encoders over the first
+data coordinate's model-axis devices (`text/bert_encoder.py:shard_bert`);
+the synthesizer stays replicated, as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -172,9 +175,13 @@ class TTSEngine:
     x frame cap), frames_delivered (frames inside real requests' y_len) and
     bytes_h2d (request tensors shipped to the device: the pools' buffers).
 
-    mesh: a one-process `parallel.Mesh` (`make_mesh(n_data, devices=...)`)
-    for data-parallel synthesis (module note); the engine's device is then
-    the mesh's first, and `device` is not read."""
+    mesh: a one-process `parallel.Mesh` (`make_mesh(n_data, n_model,
+    devices=...)`) for data-parallel synthesis (module note); the engine's
+    device is then the mesh's first, and `device` is not read. The
+    synthesizer is replicated over the data axis (the JAX engine's
+    `replicate`), and the default BERT extractor takes the mesh, whose model
+    axis splits each encoder over the first data coordinate's devices (JAX
+    `AutoBertExtractor(mesh=mesh)`)."""
 
     def __init__(self, model: Synthesizer, spk2id: dict | None = None,
                  sampling_rate: int = 44100, bert_extractor=None,
@@ -183,9 +190,9 @@ class TTSEngine:
                  version_spec=None, emotion_extractor=None,
                  device: str | torch.device = "cuda", mesh=None):
         if mesh is not None:
-            if mesh.distributed or mesh.n_model != 1:
-                raise ValueError("the engine takes a one-process data mesh "
-                                 "(make_mesh(n_data, devices=...), n_model 1)")
+            if mesh.distributed:
+                raise ValueError("the engine takes a one-process mesh "
+                                 "(make_mesh(n_data, n_model, devices=...))")
             device = mesh.data_devices[0]
         self.mesh = mesh
         self.device = resolve_device(device)
@@ -194,7 +201,8 @@ class TTSEngine:
         self.sampling_rate = sampling_rate
         # real per-language BERT on the engine's device when local weights
         # exist; loud-warned noise otherwise
-        self.bert_extractor = bert_extractor or AutoBertExtractor(device=self.device)
+        self.bert_extractor = bert_extractor or AutoBertExtractor(device=self.device,
+                                                                  mesh=mesh)
         self.version_spec = version_spec
         self.emotion_extractor = emotion_extractor
         # the server prepares on its handler threads: one lock builds the

@@ -125,7 +125,8 @@ def load_tts_engine(
 
     `mesh=` (a one-process `parallel.make_mesh`) among `engine_kw` makes the
     data-parallel engine; its first device is then the engine's and the
-    BERT extractor's, in place of `device`.
+    BERT extractor's, in place of `device`, and its model axis splits the
+    BERT encoders.
     """
     from bert_vits2_tpu_torch.infer.api import TTSEngine
     from bert_vits2_tpu_torch.text.bert import AutoBertExtractor
@@ -136,7 +137,7 @@ def load_tts_engine(
     spec = spec_for(str(hps.get("version", "2.3")))
     if bert_extractor is None:
         bert_extractor = AutoBertExtractor(paths=bert_paths, allow_noise=allow_noise_bert,
-                                           device=dev)
+                                           device=dev, mesh=mesh)
         logger.info("BERT extractors for %s: %s", config_path, bert_extractor.describe())
     mcfg = model_config_from_hparams(hps, **spec.model_overrides())
     if compute_dtype is not None:  # raises on a dtype it does not know

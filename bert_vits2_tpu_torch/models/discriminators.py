@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bert_vits2_tpu_torch.nn.conv import conv1d, conv2d
+from bert_vits2_tpu_torch.nn.dropout import Dropout
 from bert_vits2_tpu_torch.nn.norm import LayerNorm
 
 LRELU_SLOPE = 0.1
@@ -134,7 +135,7 @@ class DurationDiscriminator(nn.Module):
         super().__init__()
         fc = filter_channels
         pad = kernel_size // 2
-        self.drop = nn.Dropout(p_dropout)
+        self.drop = Dropout(p_dropout)
         self.conv_1 = conv1d(in_channels, fc, kernel_size, padding=pad)
         self.norm_1 = LayerNorm(fc)
         self.conv_2 = conv1d(fc, fc, kernel_size, padding=pad)

@@ -18,6 +18,7 @@ from torch import nn
 
 from bert_vits2_tpu_torch.nn.conv import conv1d
 from bert_vits2_tpu_torch.nn.ddsconv import DDSConv
+from bert_vits2_tpu_torch.nn.dropout import Dropout
 from bert_vits2_tpu_torch.nn.flows import ConvFlow, ElementwiseAffine, Flip, Log
 from bert_vits2_tpu_torch.nn.norm import LayerNorm
 from bert_vits2_tpu_torch.ops import noise
@@ -31,7 +32,7 @@ class DurationPredictor(nn.Module):
                  gin_channels: int = 0):
         super().__init__()
         pad = kernel_size // 2
-        self.drop = nn.Dropout(p_dropout)
+        self.drop = Dropout(p_dropout)
         self.conv_1 = conv1d(in_channels, filter_channels, kernel_size,
                              padding=pad)
         self.norm_1 = LayerNorm(filter_channels)

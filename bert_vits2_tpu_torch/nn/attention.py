@@ -6,7 +6,7 @@ attention keeps the JAX package's dispatch (`MultiHeadAttention.forward`):
 a +-w window that fits the sequence (2w+1 <= t+1) goes through the banded
 kernel K1 (`ops/attention.py`) in the no-grad direction. When gradients are
 wanted (grad mode on, or the module in train() mode) it takes the dense
-formula in plain PyTorch with `F.dropout` on the probabilities, or, with
+formula in plain PyTorch with dropout on the probabilities, or, with
 `BV2_FUSED_ATTENTION_TRAIN=1` in the environment (read at each call, as
 the JAX package reads it while tracing), the fused op: K1 in train mode
 and the backward kernels B5/B6 on the card, the plain version on the CPU,
@@ -31,6 +31,16 @@ float32 and return the input's dtype. A bf16 call goes to the bf16 modes
 of K1 (inference and train mode), B5 and B6 (or the wide kernels') on the
 card, the dense training direction rounds where they do, and the
 short-sequence path runs in bf16.
+
+Under the model axis (`parallel/sharding.py:shard_module` hands a module
+its `model_axis`) the attention runs its shard of whole heads: q, k and v
+column-parallel, `conv_o` row-parallel, the relative tables replicated
+and their gradients summed over the model group (each rank's covers only
+its heads), the hash dropout salted with the global head
+(`dropout_salt`), the other dropouts drawn over every head. The FFN runs
+its share of `filter_channels`: `conv_1` column-parallel, `conv_2`
+row-parallel, its dropout's mask the full activation's, cut to this
+rank's channels.
 """
 
 from __future__ import annotations
@@ -42,14 +52,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bert_vits2_tpu_torch.nn.conv import Linear, conv1d
+from bert_vits2_tpu_torch.nn.conv import Linear, column_parallel, conv1d, row_parallel
+from bert_vits2_tpu_torch.nn.dropout import Dropout
 from bert_vits2_tpu_torch.nn.norm import LayerNorm
+from bert_vits2_tpu_torch.ops import noise
 from bert_vits2_tpu_torch.ops.attention import (
     NEG_FILL,
     banded_attention_plain,
     banded_rel_self_attention,
 )
 from bert_vits2_tpu_torch.parallel.data import dropout_salt, dropout_seeds
+from bert_vits2_tpu_torch.parallel.tensor import copy_to_model
 
 
 def _dropout_seed() -> int:
@@ -90,6 +103,9 @@ class MultiHeadAttention(nn.Module):
     """Relative-position self-attention (attentions.py:205-341), heads
     sharing one +-window table."""
 
+    tp_key = "conv_q.weight"  # the leaf whose split says the heads are sharded
+    model_axis = None
+
     def __init__(self, channels: int, out_channels: int, n_heads: int,
                  window_size: int = 4, p_dropout: float = 0.0):
         super().__init__()
@@ -108,18 +124,25 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
         """x: [b, c, t]; x_mask: [b, 1, t] -> [b, out, t]."""
-        b, c, t = x.shape
-        h, d, w = self.n_heads, self.k_channels, self.window_size
+        b, _, t = x.shape
+        d, w, axis = self.k_channels, self.window_size, self.model_axis
+        # this rank's heads: all of them, or its shard under the model axis
+        h = self.n_heads if axis is None else self.n_heads // axis.size
+        head_offset = 0 if axis is None else axis.rank * h
+        emb_k, emb_v = (copy_to_model(e, axis)[0] for e in (self.emb_rel_k, self.emb_rel_v))
 
-        def heads(y):  # [b, c, t] -> [b, h, t, d]
+        def heads(y):  # [b, h * d, t] -> [b, h, t, d]
             return y.view(b, h, d, t).transpose(2, 3)
 
-        q = heads(self.conv_q(x)) * (1.0 / math.sqrt(d))
-        k, v = heads(self.conv_k(x)), heads(self.conv_v(x))
+        x = copy_to_model(x, axis)  # one all-reduce of its gradient for q, k and v
+        q, k, v = (heads(conv(x)) for conv in (self.conv_q, self.conv_k, self.conv_v))
+        q = q * (1.0 / math.sqrt(d))
         x_mask = x_mask.to(q.dtype)
         p_drop = self.p_dropout if self.training else 0.0
+        # the probabilities' dropout, drawn over every head, this rank's kept
+        shard = None if axis is None else (axis.rank, axis.size)
         if 2 * w + 1 > t + 1:
-            out = self._window_attention(q, k, v, x_mask, p_drop)
+            out = self._window_attention(q, k, v, x_mask, p_drop, emb_k, emb_v, shard)
         elif (os.environ.get("BV2_FUSED_ATTENTION_TRAIN") == "1"
               or not (torch.is_grad_enabled() or self.training)):
             # the kernels: the inference launch, or the fused training
@@ -131,43 +154,44 @@ class MultiHeadAttention(nn.Module):
             seed = _dropout_seed() if p_drop else None
             out = banded_rel_self_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(),
-                x_mask[:, 0].contiguous(), self.emb_rel_k[0].to(q.dtype),
-                self.emb_rel_v[0].to(q.dtype), w, dropout_p=p_drop,
-                dropout_seed=seed, dropout_salt=dropout_salt(h))
+                x_mask[:, 0].contiguous(), emb_k.to(q.dtype), emb_v.to(q.dtype), w,
+                dropout_p=p_drop, dropout_seed=seed,
+                dropout_salt=dropout_salt(h, head_offset, self.n_heads))
         else:
             # the training direction (the JAX package's deterministic=False)
             out = banded_attention_plain(
-                q, k, v, x_mask[:, 0], self.emb_rel_k[0].to(q.dtype),
-                self.emb_rel_v[0].to(q.dtype), w, dropout_p=p_drop)
-        out = out.transpose(2, 3).reshape(b, c, t)
-        return self.conv_o(out)
+                q, k, v, x_mask[:, 0], emb_k.to(q.dtype), emb_v.to(q.dtype), w,
+                dropout_p=p_drop, dropout_shard=shard)
+        out = out.transpose(2, 3).reshape(b, h * d, t)
+        return row_parallel(self.conv_o, out, axis)
 
-    def _window_attention(self, q, k, v, x_mask, p_drop: float = 0.0):
+    def _window_attention(self, q, k, v, x_mask, p_drop, emb_k, emb_v, shard):
         """Short sequences (t < 2w): the reference's skew formulation."""
         t, w = q.shape[2], self.window_size
         scores = torch.matmul(q, k.transpose(-1, -2))
-        key_rel = _window_embeddings(self.emb_rel_k.to(q.dtype), t, w)
+        key_rel = _window_embeddings(emb_k[None].to(q.dtype), t, w)
         rel = torch.einsum("bhtd,gmd->bhtm", q, key_rel)
         scores = scores + _rel_to_abs(rel)
         am = x_mask[:, :, :, None] * x_mask[:, :, None, :]
         scores = scores.masked_fill(am == 0, NEG_FILL)
-        p = torch.softmax(scores, dim=-1)
-        if p_drop:
-            p = F.dropout(p, p_drop)
+        p = noise.dropout(torch.softmax(scores, dim=-1), p_drop, shard)
         out = torch.matmul(p, v)
-        value_rel = _window_embeddings(self.emb_rel_v.to(q.dtype), t, w)
+        value_rel = _window_embeddings(emb_v[None].to(q.dtype), t, w)
         return out + torch.einsum("bhtm,gmd->bhtd", _abs_to_rel(p), value_rel)
 
 
 class FFN(nn.Module):
     """Conv feed-forward (attentions.py:398-464): relu, 'same' padding."""
 
+    tp_key = "conv_1.weight"
+    model_axis = None
+
     def __init__(self, in_channels: int, out_channels: int,
                  filter_channels: int, kernel_size: int,
                  p_dropout: float = 0.0):
         super().__init__()
         self.kernel_size = kernel_size
-        self.drop = nn.Dropout(p_dropout)
+        self.drop = Dropout(p_dropout)
         self.conv_1 = conv1d(in_channels, filter_channels, kernel_size)
         self.conv_2 = conv1d(filter_channels, out_channels, kernel_size)
 
@@ -176,8 +200,10 @@ class FFN(nn.Module):
         return x if k == 1 else F.pad(x, ((k - 1) // 2, k // 2))
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
-        x = self.drop(torch.relu(self.conv_1(self._pad(x * x_mask))))
-        return self.conv_2(self._pad(x * x_mask)) * x_mask
+        axis = self.model_axis
+        x = torch.relu(column_parallel(self.conv_1, self._pad(x * x_mask), axis))
+        x = self.drop(x, channels=None if axis is None else (axis.rank, axis.size))
+        return row_parallel(self.conv_2, self._pad(x * x_mask), axis) * x_mask
 
 
 class Encoder(nn.Module):
@@ -189,7 +215,7 @@ class Encoder(nn.Module):
                  gin_channels: int = 0, cond_layer_idx: int = 2):
         super().__init__()
         self.n_layers = n_layers
-        self.drop = nn.Dropout(p_dropout)
+        self.drop = Dropout(p_dropout)
         self.cond_layer_idx = cond_layer_idx
         self.gin_channels = gin_channels
         if gin_channels > 0:

@@ -25,6 +25,15 @@ is then the tensor itself); a bfloat16 one (the bf16 training policy,
 
 The JAX package's time folding and sub-pixel transposed conv fill the TPU's
 lanes; `F.conv1d` / `F.conv_transpose1d` compute the same function.
+
+Under the model axis (`parallel/sharding.py`) a `Conv1d` holds one rank's
+shard under the reference's parameter names, and its owner calls it
+through `column_parallel` (the output channels are this rank's share) or
+`row_parallel` (the input channels are; the partial sums are reduced over
+the model group, then the bias is added once). A row-parallel conv under
+weight norm takes its norm over every rank's input channels (ROADMAP §C
+D.4). The BERT encoder's one-process split holds `nn.Linear` shards of its
+own (`text/bert_encoder.py:shard_bert`).
 """
 
 from __future__ import annotations
@@ -34,6 +43,14 @@ import warnings
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from bert_vits2_tpu_torch.parallel.tensor import (
+    ModelAxis,
+    active,
+    copy_to_model,
+    reduce_from_model,
+    sum_over_model,
+)
 
 
 def _as(p: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor | None:
@@ -114,3 +131,32 @@ def resolved_weight(conv: nn.Module) -> torch.Tensor:
     v, g = conv.weight_v, conv.weight_g
     norm = v.flatten(1).norm(dim=1).view(-1, *([1] * (v.dim() - 1)))
     return v * (g / norm)
+
+
+def column_parallel(layer: Conv1d, x: torch.Tensor,
+                    axis: ModelAxis | None) -> torch.Tensor:
+    """A column-parallel `Conv1d` on the replicated input x: this rank's
+    output channels. Weight norm stays local (one gain and one norm per
+    output channel)."""
+    return layer(copy_to_model(x, axis))
+
+
+def row_parallel(conv: Conv1d, x: torch.Tensor, axis: ModelAxis | None) -> torch.Tensor:
+    """A row-parallel `Conv1d` on this rank's input channels x: the partial
+    product summed over the model group, then the bias. Under weight norm
+    the squared norm of each output channel's weight is summed over the
+    group, and the replicated gain's gradient too (D.4). A bf16 partial is
+    summed in float32 and rounded once. Without a model axis, `conv(x)`."""
+    if not active(axis):
+        return conv(x)
+    if hasattr(conv, "weight_g"):
+        v = conv.weight_v
+        sq = sum_over_model(v.pow(2).sum(dim=(1, 2), keepdim=True), axis)
+        w = v * (copy_to_model(conv.weight_g, axis) / sq.sqrt())
+    else:
+        w = conv.weight
+    y = conv._conv_forward(x, w, None)
+    y = reduce_from_model(y if y.dtype == torch.float32 else y.float(), axis)
+    if conv.bias is not None:
+        y = y + conv.bias.float()[:, None]
+    return y.to(x.dtype)

@@ -11,6 +11,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bert_vits2_tpu_torch.nn.conv import conv1d
+from bert_vits2_tpu_torch.nn.dropout import Dropout
 from bert_vits2_tpu_torch.nn.norm import LayerNorm
 
 
@@ -19,7 +20,7 @@ class DDSConv(nn.Module):
                  p_dropout: float = 0.0):
         super().__init__()
         self.n_layers = n_layers
-        self.drop = nn.Dropout(p_dropout)
+        self.drop = Dropout(p_dropout)
         self.convs_sep = nn.ModuleList()
         self.convs_1x1 = nn.ModuleList()
         self.norms_1 = nn.ModuleList()

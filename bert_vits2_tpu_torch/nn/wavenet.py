@@ -10,6 +10,15 @@ half).
 It computes in the dtype of x (the convs cast their float32 parameters,
 `nn/conv.py`): the mask is cast to it up front, and g is taken in the same
 dtype (the bf16 training policy casts both, JAX models/synthesizer.py:143-150).
+
+Under the model axis (`parallel/sharding.py:shard_module` hands the stack
+its `model_axis`) a rank holds a share of the gated channels: `in_layers`
+and `cond_layer` column-parallel, rank r's output channels being
+[r h/n, (r+1) h/n) of the tanh half and the same of the sigmoid half (of
+each layer's pair, for `cond_layer`: ROADMAP §C D.3), so that the gate
+pairs its own channels; `res_skip_layers` row-parallel over those
+channels, with weight norm over every rank's (D.4); the dropout on `acts`
+the full activation's mask, cut to this rank's channels.
 """
 
 from __future__ import annotations
@@ -17,10 +26,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from bert_vits2_tpu_torch.nn.conv import conv1d
+from bert_vits2_tpu_torch.nn.conv import column_parallel, conv1d, row_parallel
+from bert_vits2_tpu_torch.nn.dropout import Dropout
 
 
 class WN(nn.Module):
+    tp_key = "in_layers.0.weight_v"
+    model_axis = None
+
     def __init__(self, hidden_channels: int, kernel_size: int,
                  dilation_rate: int, n_layers: int, gin_channels: int = 0,
                  p_dropout: float = 0.0):
@@ -42,23 +55,28 @@ class WN(nn.Module):
                 h, 2 * h if i < n_layers - 1 else h, 1, weight_norm=True))
         self.cond_layer = (conv1d(gin_channels, 2 * h * n_layers, 1,
                                   weight_norm=True) if gin_channels else None)
-        self.drop = nn.Dropout(p_dropout)
+        self.drop = Dropout(p_dropout)
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
                 g: torch.Tensor | None = None) -> torch.Tensor:
         """x: [b, h, t]; x_mask: [b, 1, t]; g: [b, gin] or None."""
-        h = self.hidden_channels
+        h, axis = self.hidden_channels, self.model_axis
+        # the gated channels this rank computes: all, or its share
+        hl = h if axis is None else h // axis.size
+        shard = None if axis is None else (axis.rank, axis.size)
         x_mask = x_mask.to(x.dtype)
         output = torch.zeros_like(x)
         g_all = None
         if g is not None and self.cond_layer is not None:
-            g_all = self.cond_layer(g[:, :, None])  # [b, 2 * h * n_layers, 1]
+            # [b, 2 * hl * n_layers, 1]
+            g_all = column_parallel(self.cond_layer, g[:, :, None], axis)
         for i in range(self.n_layers):
-            a = self.in_layers[i](x)
+            a = column_parallel(self.in_layers[i], x, axis)
             if g_all is not None:
-                a = a + g_all[:, 2 * h * i:2 * h * (i + 1)]
-            acts = self.drop(torch.tanh(a[:, :h]) * torch.sigmoid(a[:, h:]))
-            res_skip = self.res_skip_layers[i](acts)
+                a = a + g_all[:, 2 * hl * i:2 * hl * (i + 1)]
+            acts = self.drop(torch.tanh(a[:, :hl]) * torch.sigmoid(a[:, hl:]),
+                             channels=shard)
+            res_skip = row_parallel(self.res_skip_layers[i], acts, axis)
             if i < self.n_layers - 1:
                 x = (x + res_skip[:, :h]) * x_mask
                 output = output + res_skip[:, h:]

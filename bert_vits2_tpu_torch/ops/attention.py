@@ -80,10 +80,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from bert_vits2_tpu_torch import _build
-from bert_vits2_tpu_torch.ops import library
+from bert_vits2_tpu_torch.ops import library, noise
 
 NEG_FILL = -1e4  # the reference's mask fill: a fully masked row is uniform
 MAX_HEAD_DIM = 128  # the tensor-core kernels' widest head and window
@@ -193,11 +192,14 @@ def banded_scores_plain(q, k, x_mask, emb_rel_k, window_size: int) -> torch.Tens
 
 def banded_attention_plain(q, k, v, x_mask, emb_rel_k, emb_rel_v,
                            window_size: int, dropout_p: float = 0.0,
-                           dropout_seed=None, dropout_salt=None) -> torch.Tensor:
+                           dropout_seed=None, dropout_salt=None,
+                           dropout_shard=None) -> torch.Tensor:
     """The plain PyTorch version of the kernels (same arguments as the
     wrapper): differentiable. With `dropout_p` > 0 it drops probabilities
     with the position hash when given a `dropout_seed` (the JAX `_dense`
-    branch), and with `F.dropout` from torch's generator without one."""
+    branch), and without one by `noise.dropout` (torch's generator outside
+    a train step; `dropout_shard` (rank, n): these are a model rank's heads
+    of n shares)."""
     w = int(window_size)
     dt = q.dtype
     if dt != torch.float32:  # the TPU kernel's rounding points (module note)
@@ -207,7 +209,7 @@ def banded_attention_plain(q, k, v, x_mask, emb_rel_k, emb_rel_v,
     if dropout_p and dropout_seed is not None:
         p = hash_dropout_probs(p, dropout_p, dropout_seed, dropout_salt)
     elif dropout_p:
-        p = F.dropout(p, dropout_p)
+        p = noise.dropout(p, dropout_p, dropout_shard)
     out = torch.matmul(p.to(dt).float() if dt != torch.float32 else p, v)
     out = out + torch.einsum("bhtc,cd->bhtd", abs_to_band(p, w), emb_rel_v)
     return out.to(dt)

@@ -10,9 +10,13 @@ which rows of which global batch these are; the model's code asks:
 
 - `ops/noise.py` draws the global batch's numbers and keeps the shard's
   rows (`shard_rows`);
-- `nn/attention.py` salts the hash dropout with the global row
-  (`dropout_salt`) and draws its seeds from the shard's shared generator,
-  so a row's masks do not depend on the split;
+- `nn/attention.py` salts the hash dropout with the global row and, under
+  the model axis, the global head (`dropout_salt`) and draws its seeds
+  from the shard's shared generator, so a row's masks do not depend on the
+  split;
+- the module dropouts (`ops/noise.py:dropout`) draw the global batch's
+  mask, with every model rank's channels, from the shard's mask generator
+  (`DropoutMasks`) and keep the shard's part;
 - the masked ratios divide by `global_count` and the MAS noise scales by
   `global_std`, all-reduced over the data group;
 - the train step averages the gradients (`reduce_gradients`) and the
@@ -20,7 +24,8 @@ which rows of which global batch these are; the model's code asks:
 
 Outside any shard, and on a shard with no group, each of these is the
 one-process code: the draws are the local batch's, the salt is b * heads +
-head, the counts and the std are the local ones. The shard is a context
+head, the module dropouts draw from torch's global generator, the counts
+and the std are the local ones. The shard is a context
 variable (per thread, set and reset by `data_shard`) rather than an
 argument, because the draws and ratios sit deep inside the modules, whose
 signatures stay the reference's.
@@ -36,6 +41,22 @@ import torch
 import torch.distributed as dist
 
 
+class DropoutMasks:
+    """The module dropouts' random numbers of one train step: a generator
+    per device, seeded alike on every rank, made on first use."""
+
+    def __init__(self, seed: int):
+        self.seed = int(seed)
+        self._generators: dict[torch.device, torch.Generator] = {}
+
+    def generator(self, device: torch.device) -> torch.Generator:
+        gen = self._generators.get(device)
+        if gen is None:
+            gen = self._generators[device] = torch.Generator(device=device)
+            gen.manual_seed(self.seed)
+        return gen
+
+
 class DataShard(NamedTuple):
     """offset: the shard's first row of the global batch; rows: the global
     batch's rows; group: the process group whose ranks hold the other rows
@@ -45,7 +66,8 @@ class DataShard(NamedTuple):
     alike (None: torch's global generator); draw_rows: the rows the noise
     is drawn for, when fewer than `rows` (the engine's padding to the data
     axis adds rows that the one-device batch does not have: they get zero
-    noise, and their outputs are discarded)."""
+    noise, and their outputs are discarded); masks: the module dropouts'
+    `DropoutMasks` (None: torch's global generator)."""
 
     offset: int
     rows: int
@@ -53,6 +75,7 @@ class DataShard(NamedTuple):
     size: int = 1
     seeds: torch.Generator | None = None
     draw_rows: int | None = None
+    masks: DropoutMasks | None = None
 
 
 _SHARD: contextvars.ContextVar[DataShard | None] = contextvars.ContextVar(
@@ -61,11 +84,12 @@ _SHARD: contextvars.ContextVar[DataShard | None] = contextvars.ContextVar(
 
 @contextlib.contextmanager
 def data_shard(offset: int, rows: int, group=None, size: int = 1,
-               seeds: torch.Generator | None = None, draw_rows: int | None = None):
+               seeds: torch.Generator | None = None, draw_rows: int | None = None,
+               masks: DropoutMasks | None = None):
     """Run the body as the shard of rows [offset, offset + local) of a
     `rows`-row global batch (see the module note). Per thread."""
     token = _SHARD.set(DataShard(int(offset), int(rows), group, int(size), seeds,
-                                 None if draw_rows is None else int(draw_rows)))
+                                 None if draw_rows is None else int(draw_rows), masks))
     try:
         yield
     finally:
@@ -86,18 +110,29 @@ def shard_rows(local: int) -> tuple[int, int] | None:
     return shard.offset, shard.rows if shard.draw_rows is None else shard.draw_rows
 
 
-def dropout_salt(heads: int) -> tuple[int, int]:
+def dropout_salt(heads: int, head_offset: int = 0,
+                 heads_global: int | None = None) -> tuple[int, int]:
     """(salt_base, salt_stride) of the hash dropout for a [b, heads, ...]
     attention: batch row b, head h is salted salt_base + b * salt_stride +
-    h, the salt of its global row (stride heads; the base the shard's first
-    row times heads)."""
+    h, the salt of its global row and global head. The stride is the
+    global head count (`heads_global`, default `heads`: a model rank holds
+    heads [head_offset, head_offset + heads) of them), the base the shard's
+    first row times it, plus the head offset."""
     shard = _SHARD.get()
-    return (0 if shard is None else shard.offset * heads), heads
+    stride = heads if heads_global is None else heads_global
+    return (0 if shard is None else shard.offset * stride) + head_offset, stride
 
 
 def dropout_seeds() -> torch.Generator | None:
     shard = _SHARD.get()
     return None if shard is None else shard.seeds
+
+
+def dropout_masks(device: torch.device) -> torch.Generator | None:
+    """The module dropouts' generator on `device` inside a train step's
+    shard, else None."""
+    shard = _SHARD.get()
+    return None if shard is None or shard.masks is None else shard.masks.generator(device)
 
 
 def _group() -> tuple[object, int] | None:

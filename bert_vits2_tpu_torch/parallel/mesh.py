@@ -2,9 +2,10 @@
 train_ms.py:71-81, 250-258, DDP over NCCL).
 
 Counterpart of `bert_vits2_tpu/parallel/mesh.py`, with its names. A mesh
-has the axes ("data", "model"); this slice ports the data axis, the
-reference's only strategy: each coordinate of the data axis holds a slice
-of the global batch's rows and a full replica of the parameters.
+has the axes ("data", "model"): each coordinate of the data axis holds a
+slice of the global batch's rows (the reference's only strategy), and the
+coordinates of the model axis hold the shards of the transformer and
+WaveNet stacks (`parallel/sharding.py`, `parallel/tensor.py`).
 
 The JAX package runs one program over the global batch and lets XLA split
 it. Here the same mesh comes in two forms:
@@ -14,8 +15,9 @@ it. Here the same mesh comes in two forms:
   the process group and makes this rank's data and model groups; the train
   step all-reduces over the data group (`parallel/data.py`).
 - one process: the mesh holds the devices it was given, and a caller (the
-  serving engine) runs one replica per device of the data axis. A device
-  may appear twice, as the JAX tests name virtual CPU devices.
+  serving engine) runs one replica per device of the data axis, and its
+  BERT's shards on the model-axis devices of the first data coordinate. A
+  device may appear twice, as the JAX tests name virtual CPU devices.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import os
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from bert_vits2_tpu_torch.parallel.tensor import ModelAxis
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -67,6 +71,13 @@ class Mesh:
     @property
     def distributed(self) -> bool:
         return self.ranks is not None
+
+    @property
+    def model_axis(self) -> ModelAxis:
+        """This rank's place on the model axis, with its model group. In one
+        process the axis has no group (a data coordinate's model-axis
+        devices are `devices[d]`)."""
+        return ModelAxis(self.model_rank, self.n_model, self.model_group)
 
 
 def _default_devices() -> list[torch.device]:
@@ -164,25 +175,17 @@ def shard_batch(mesh: Mesh, batch, index: int | None = None):
     return put(batch)
 
 
-def replicated(mesh: Mesh) -> int | None:
-    """The global rank whose parameters the data group replicates (its first
-    coordinate in this rank's model column); None in one process."""
-    if not mesh.distributed:
-        return None
-    return int(mesh.ranks[0, mesh.model_rank])
-
-
 def replicate(mesh: Mesh, tree):
     """Several processes: broadcast the parameters and buffers of `tree`
     (a module, a tensor, or a list or tuple of them; None entries skipped)
-    from `replicated(mesh)` over the data group, in place, and return tree.
+    from global rank 0 to every rank, in place, and return tree: a start
+    in the full layout, before the model axis shards it.
     One process: `tree` a module, a list with one copy of it per device of
     the data axis (the module itself where it already lies there; one copy
     per distinct device)."""
     if mesh.distributed:
-        src = replicated(mesh)
         for t in _tensors(tree):
-            dist.broadcast(t.data, src, group=mesh.data_group)
+            dist.broadcast(t.data, 0)
         return tree
     copies = {}
     for dev in mesh.data_devices:
@@ -192,22 +195,22 @@ def replicate(mesh: Mesh, tree):
 
 
 def replicate_optimizer(mesh: Mesh, opt: torch.optim.Optimizer) -> None:
-    """Several processes: make the optimizer state of `replicated(mesh)`
-    every data rank's, in place: which parameters hold state, and each
-    state tensor (Adam's moments and step counts), one broadcast per dtype.
+    """Several processes: make the optimizer state of global rank 0 every
+    rank's, in place (in the full layout, before the model axis shards it):
+    which parameters hold state, and each state tensor (Adam's moments and
+    step counts), one broadcast per dtype.
     A rank that held other state, or none, takes the source's. `opt` must
     be built alike on every rank, over parameters of the same shapes on
     one device. A no-op in one process."""
     if not mesh.distributed:
         return
-    src, group = replicated(mesh), mesh.data_group
     params = [p for g in opt.param_groups for p in g["params"]]
     layout = [None if not opt.state.get(p) else
               [(key, tuple(t.shape), t.dtype, t.device.type == "cpu")
                for key, t in opt.state[p].items() if isinstance(t, torch.Tensor)]
               for p in params]
     box = [layout]
-    dist.broadcast_object_list(box, src, group=group)
+    dist.broadcast_object_list(box, 0)
     tensors = []
     for p, entries in zip(params, box[0]):
         if entries is None:
@@ -225,7 +228,7 @@ def replicate_optimizer(mesh: Mesh, opt: torch.optim.Optimizer) -> None:
         group_ts = [t for t in tensors if t.dtype == dtype]
         # flat, on the parameters' device: NCCL takes no host tensor
         flat = torch.cat([t.reshape(-1).to(params[0].device) for t in group_ts])
-        dist.broadcast(flat, src, group=group)
+        dist.broadcast(flat, 0)
         for t, part in zip(group_ts, flat.split([t.numel() for t in group_ts])):
             t.copy_(part.view(t.shape))
 

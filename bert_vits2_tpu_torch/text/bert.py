@@ -108,7 +108,9 @@ class AutoBertExtractor:
 
     Resolution is lazy (first call per language) so engine construction
     stays cheap; `describe()` reports the backend per language ("torch" or
-    "noise") without touching the weights.
+    "noise") without touching the weights. `mesh`: a one-process mesh whose
+    model axis splits each encoder (`BertEncoderExtractor(mesh=)`, as the
+    JAX engine hands its mesh to its extractor).
     """
 
     def __init__(
@@ -117,12 +119,14 @@ class AutoBertExtractor:
         allow_noise: bool = True,
         seed: int = 0,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
         self.paths = dict(DEFAULT_BERT_PATHS)
         if paths:
             self.paths.update(paths)
         self.allow_noise = allow_noise
         self.device = device
+        self.mesh = mesh
         self._noise = RandomBertExtractor(seed)
         self._real: dict = {}  # language -> (backend_name, extractor|None)
         self._shared = None
@@ -184,7 +188,8 @@ class AutoBertExtractor:
         if self._shared is None:
             from bert_vits2_tpu_torch.text.bert_encoder import BertEncoderExtractor
 
-            self._shared = BertEncoderExtractor(paths=self.paths, device=self.device)
+            self._shared = BertEncoderExtractor(paths=self.paths, device=self.device,
+                                                mesh=self.mesh)
         self._shared._load(language)  # surface load errors here
         logger.info("BERT extractor for %s: torch on %s (%s)", language,
                     self._shared.device, path)

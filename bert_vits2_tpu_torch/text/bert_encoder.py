@@ -18,7 +18,13 @@ only: dropout is off, the encoders are frozen feature extractors.
 `load_hf_bert` maps an HF state dict onto this module (the counterpart of
 `import_torch_bert`); `BertEncoderExtractor` serves phone-level features
 from a local HF checkpoint directory (the counterpart of
-`JaxBertExtractor`). Two departures from the JAX module, both towards
+`JaxBertExtractor`). Given a mesh with a model axis, the extractor splits
+each layer Megatron-style over the axis's devices (`shard_bert`, the JAX
+`bert_partition_specs`): query, key, value, the position projections and
+`intermediate` column-parallel over whole heads, `attention_output` and
+`output` row-parallel, the embeddings, relative table and LayerNorms
+replicated on the first device, which adds the shards' partial sums in
+rank order. Two departures from the JAX module, both towards
 transformers: `from_hf` splits a `pos_att_type` string ("p2c|c2p", as
 config.json files hold it) the way `DebertaV2Config` does, and the conv
 branch's activation is transformers' `ACT2FN[conv_act]` (the JAX module
@@ -39,6 +45,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from bert_vits2_tpu_torch.device import resolve_device
+from bert_vits2_tpu_torch.parallel.sharding import Split, shard_tensor
+from bert_vits2_tpu_torch.parallel.tensor import sum_partials
 
 _CONV_ACT = {"tanh": torch.tanh, "gelu": F.gelu, "relu": F.relu}
 
@@ -138,16 +146,20 @@ class SelfAttention(nn.Module):
     """BERT scaled-dot attention, optionally with DeBERTa-v2 disentangled
     c2p/p2c relative bias (modeling_deberta_v2.py:195-351)."""
 
-    def __init__(self, cfg: EncoderConfig):
+    def __init__(self, cfg: EncoderConfig, in_features: int | None = None):
+        """in_features: the projections' input width where it is not
+        cfg.hidden_size (a model rank's shard: cfg then holds its heads and
+        their width)."""
         super().__init__()
         self.cfg = cfg
         h = cfg.hidden_size
-        self.query, self.key, self.value = nn.Linear(h, h), nn.Linear(h, h), nn.Linear(h, h)
+        i = h if in_features is None else in_features
+        self.query, self.key, self.value = nn.Linear(i, h), nn.Linear(i, h), nn.Linear(i, h)
         if cfg.relative_attention and not cfg.share_att_key:
             if "c2p" in cfg.pos_att_type:
-                self.pos_key_proj = nn.Linear(h, h)
+                self.pos_key_proj = nn.Linear(i, h)
             if "p2c" in cfg.pos_att_type:
-                self.pos_query_proj = nn.Linear(h, h)
+                self.pos_query_proj = nn.Linear(i, h)
 
     def _heads(self, t: torch.Tensor) -> torch.Tensor:  # [b, t, h] -> [b, nh, t, hd]
         cfg = self.cfg
@@ -199,12 +211,94 @@ class TransformerLayer(nn.Module):
         self.intermediate = nn.Linear(h, cfg.intermediate_size)
         self.output = nn.Linear(cfg.intermediate_size, h)
         self.output_norm = nn.LayerNorm(h, eps=eps)
+        self.shards = None  # the model axis's `_LayerShard`s (`shard_bert`)
 
     def forward(self, x, attn_bias, rel_embeddings, rel_pos):
+        if self.shards is not None:
+            return self._sharded(x, attn_bias, rel_embeddings, rel_pos)
         attn = self.attention_output(self.attention(x, attn_bias, rel_embeddings, rel_pos))
         x = self.attention_norm(attn + x)
         out = self.output(F.gelu(self.intermediate(x)))
         return self.output_norm(out + x)
+
+    def _sharded(self, x, attn_bias, rel_embeddings, rel_pos):
+        """Each shard's heads and intermediate columns on its device, the
+        row-parallel partial sums added here in rank order, then the bias."""
+        def to(a, dev):
+            return None if a is None else a.to(dev)
+
+        parts = [s.attention_output(s.attention(*(to(a, s.device) for a in (
+            x, attn_bias, rel_embeddings, rel_pos)))) for s in self.shards]
+        attn = sum_partials(parts, x.device) + self.attention_output.bias
+        x = self.attention_norm(attn + x)
+        parts = [s.output(F.gelu(s.intermediate(x.to(s.device)))) for s in self.shards]
+        out = sum_partials(parts, x.device) + self.output.bias
+        return self.output_norm(out + x)
+
+
+_COLUMN = ("attention.query", "attention.key", "attention.value",
+           "attention.pos_key_proj", "attention.pos_query_proj", "intermediate")
+_ROW = ("attention_output", "output")
+
+
+def bert_tp_spec(name: str, n_model: int) -> Split | None:
+    """The split of `BertEncoder` state_dict leaf `name` over n_model model
+    ranks (the JAX `bert_partition_specs`): the projections of q, k, v and
+    the positions and `intermediate` column-parallel (weight and bias, dim
+    0 of the [out, in] weight), `attention_output` and `output` row-parallel
+    (the weight's dim 1; the bias replicated), the rest replicated."""
+    if n_model <= 1 or not name.startswith("layers."):
+        return None
+    layer_leaf = name.split(".", 2)[2]
+    module, leaf = layer_leaf.rsplit(".", 1)
+    if module in _COLUMN:
+        return Split(0)
+    if module in _ROW and leaf == "weight":
+        return Split(1)
+    return None
+
+
+class _LayerShard(nn.Module):
+    """One model rank's share of a `TransformerLayer` on its device: its
+    heads (column-parallel projections, `SelfAttention` over them), its
+    rows of `attention_output`, its columns of `intermediate` and its rows
+    of `output` (the row-parallel layers without their bias)."""
+
+    def __init__(self, layer: TransformerLayer, rank: int, n: int, device):
+        super().__init__()
+        cfg = layer.attention.cfg
+        h = cfg.hidden_size
+        local = dataclasses.replace(cfg, hidden_size=h // n, num_heads=cfg.num_heads // n)
+        self.device = torch.device(device)
+        self.attention = SelfAttention(local, in_features=h)
+        self.attention_output = nn.Linear(h // n, h, bias=False)
+        self.intermediate = nn.Linear(h, cfg.intermediate_size // n)
+        self.output = nn.Linear(cfg.intermediate_size // n, h, bias=False)
+        full = layer.state_dict()
+        mine = {k: shard_tensor(full[k], split, rank, n)
+                for k in self.state_dict()
+                for split in [bert_tp_spec(f"layers.0.{k}", n)] if split is not None}
+        self.load_state_dict(mine, strict=True)
+        self.to(self.device)
+
+
+def shard_bert(model: "BertEncoder", devices) -> "BertEncoder":
+    """Split every layer of `model` (on devices[0]) over the model-axis
+    `devices` in place (module note); a device may appear twice. The full
+    projections leave the layers: their shards hold them. Refuses a width
+    the heads or the intermediate size do not split into."""
+    cfg, n = model.cfg, len(devices)
+    if cfg.num_heads % n or cfg.intermediate_size % n:
+        raise ValueError(f"a BERT of {cfg.num_heads} heads and intermediate size "
+                         f"{cfg.intermediate_size} does not split over {n} model ranks")
+    with torch.no_grad():
+        for layer in model.layers:
+            layer.shards = nn.ModuleList(_LayerShard(layer, r, n, devices[r])
+                                         for r in range(n))
+            del layer.attention, layer.intermediate
+            layer.attention_output.weight = None
+            layer.output.weight = None
+    return model
 
 
 class BertEncoder(nn.Module):
@@ -358,17 +452,29 @@ class BertEncoderExtractor:
 
     transformers (the tokenizer) and safetensors are imported only when a
     language's weights are loaded.
+
+    mesh: a one-process `parallel.Mesh` whose model axis splits each
+    encoder on load (`shard_bert`) over the first data coordinate's
+    model-axis devices (the JAX extractor's `bert_partition_specs` on its
+    mesh); the extractor's device is then the mesh's first, and `device`
+    is not read.
     """
 
     def __init__(self, paths: dict | None = None,
                  length_buckets=(32, 64, 128, 256, 512),
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None):
         from bert_vits2_tpu_torch.text.bert import DEFAULT_BERT_PATHS
 
         self.paths = dict(DEFAULT_BERT_PATHS)
         if paths:
             self.paths.update(paths)
         self.length_buckets = tuple(sorted(length_buckets))
+        if mesh is not None:
+            if mesh.distributed:
+                raise ValueError("the BERT extractor takes a one-process mesh "
+                                 "(make_mesh(n_data, n_model, devices=...))")
+            device = mesh.devices[0, 0]
+        self.mesh = mesh
         self.device = resolve_device(device)
         self._loaded: dict = {}
         # server handler threads load concurrently: each language once
@@ -406,7 +512,15 @@ class BertEncoderExtractor:
             raise FileNotFoundError(f"no weights file under {path}")
         model = BertEncoder(cfg)
         model.load_state_dict(load_hf_bert(sd, cfg), strict=True)
-        return (tok, model.to(self.device).eval())
+        return (tok, self.place(model))
+
+    def place(self, model: BertEncoder) -> BertEncoder:
+        """The encoder on the extractor's device in eval mode, split over the
+        mesh's model axis when it has one."""
+        model = model.to(self.device).eval()
+        if self.mesh is not None and self.mesh.n_model > 1:
+            shard_bert(model, [resolve_device(d) for d in self.mesh.devices[0]])
+        return model
 
     def _bucket(self, t: int) -> int:
         for b in self.length_buckets:

@@ -12,7 +12,10 @@ device: the card unless `--device cpu`. On N ranks, under torchrun:
 WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT) before
 the Trainer builds its data mesh: NCCL when every rank of the host has a
 card of its own, else gloo (on the CPU, or ranks sharing a card); each rank
-trains on cuda:LOCAL_RANK, modulo the visible cards. Set BV2_FUSED_ATTENTION_TRAIN=1 to train the attention on
+trains on cuda:LOCAL_RANK, modulo the visible cards. `--n-model M` makes
+the mesh [world / M, M]: the synthesizer's transformer and WaveNet stacks
+sharded over each group of M ranks (`Trainer` module note). Set
+BV2_FUSED_ATTENTION_TRAIN=1 to train the attention on
 the hand-written forward and backward kernels; config.json's
 `"bf16_run": true` (its `train` section) trains in bf16.
 """
@@ -31,7 +34,8 @@ def main(argv: list[str] | None = None):
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--keep-ckpts", type=int, default=8)
     p.add_argument("--n-model", type=int, default=1,
-                   help="model-parallel axis size of the mesh (only 1 is ported)")
+                   help="model-parallel axis size of the mesh (with --multihost: "
+                        "world / n-model data ranks)")
     p.add_argument("--no-dur-disc", action="store_true")
     p.add_argument("--slm-path", default="auto",
                    help="WavLM weights dir for the SLM adversarial losses "

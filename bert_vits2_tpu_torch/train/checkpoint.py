@@ -10,7 +10,10 @@ reference's train_ms.py writes instead: `G_{step}.pth`, `D_{step}.pth`,
 `{"model", "iteration", "optimizer", "learning_rate"}` with the module's
 state_dict under the reference's names and the torch AdamW state. A
 reference tool, or the JAX package's importer, reads them as it reads the
-reference's own files. The frozen WavLM is never stored: it is an input,
+reference's own files. Under the model axis they hold the gathered, full
+parameters: a run saved on a [n_data, n_model] mesh resumes in one
+process and the reverse (the Trainer restores the full layout, then
+shards). The frozen WavLM is never stored: it is an input,
 read again from its own directory. The port does not read the JAX
 package's orbax directories.
 """
@@ -22,6 +25,7 @@ import re
 
 import torch
 
+from bert_vits2_tpu_torch.parallel.sharding import gather_state
 from bert_vits2_tpu_torch.train.step import Models, TrainState
 
 _PREFIXES = ("G", "D", "DUR", "WD")
@@ -67,14 +71,28 @@ def latest_step(directory: str) -> int | None:
 
 def save_train_state(directory: str, step: int, models: Models,
                      state: TrainState, learning_rate: float,
-                     keep: int = 8) -> None:
-    """Write G_/D_/DUR_/WD_{step}.pth and keep the newest `keep` of each."""
-    os.makedirs(directory, exist_ok=True)
+                     keep: int = 8, mesh=None) -> None:
+    """Write G_/D_/DUR_/WD_{step}.pth and keep the newest `keep` of each.
+
+    Under a model axis (`mesh` with n_model > 1) every rank of the lead's
+    model group calls it together: a sharded module's parameters and Adam
+    moments are gathered to the reference layout
+    (`parallel.sharding.gather_state`), and only global rank 0 writes, so
+    the files resume under any mesh or in one process."""
+    axis = None if mesh is None or mesh.n_model == 1 else mesh.model_axis
+    write = axis is None or mesh.model_rank == 0
+    if write:
+        os.makedirs(directory, exist_ok=True)
     for prefix, module, opt in _pairs(models, state):
+        model_sd, opt_sd = module.state_dict(), opt.state_dict()
+        if axis is not None and getattr(module, "tp_specs", None) is not None:
+            model_sd, opt_sd = gather_state(module, opt, axis)
+        if not write:
+            continue
         path = _path(directory, prefix, step)
         tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save({"model": _to_cpu(module.state_dict()), "iteration": step,
-                    "optimizer": _to_cpu(opt.state_dict()),
+        torch.save({"model": _to_cpu(model_sd), "iteration": step,
+                    "optimizer": _to_cpu(opt_sd),
                     "learning_rate": float(learning_rate)}, tmp)
         os.replace(tmp, path)
         for old in _steps(directory, prefix)[:-keep]:

@@ -39,9 +39,21 @@ ranks. An explicit all-reduce, not `DistributedDataParallel`: the step
 runs the discriminators twice, the second time with their parameters'
 gradients off, which DDP's reducer does not expect of a wrapped module,
 and the all-reduce and the parameters' broadcast are the only collectives
-(both of which gloo takes on CUDA tensors). The hash dropout's seeds come
-from a generator seeded from the step's generator and counter, alike on
-every rank and in one process.
+(both of which gloo takes on CUDA tensors). The hash dropout's seeds and
+the module dropouts' masks come from generators seeded from the step's
+generator and counter, alike on every rank and in one process.
+
+The model axis (a mesh with n_model > 1, its synthesizer and the
+generator's optimizer state sharded by `shard_train_state`): the
+synthesizer's transformer and WaveNet stacks run on this rank's shards
+with the model group's collectives (`parallel/sharding.py`), everything
+else is computed alike on every rank of the model group, the sharded
+gradients are averaged over the data group and the replicated ones over
+every rank (one value on every rank of a model group, so that their
+copies do not drift apart), and the global norm counts each
+sharded gradient's square once per rank, summed over the model group, and
+each replicated one once, so the clip is the unsharded step's. The
+metrics are averaged over the data group only.
 """
 
 from __future__ import annotations
@@ -55,9 +67,16 @@ import torch
 from torch import nn
 
 from bert_vits2_tpu_torch.ops import noise
-from bert_vits2_tpu_torch.parallel.data import data_shard, reduce_gradients, reduce_mean
 from bert_vits2_tpu_torch.ops.masking import slice_segments
 from bert_vits2_tpu_torch.ops.stft import mel_spectrogram, spec_to_mel
+from bert_vits2_tpu_torch.parallel.data import (
+    DropoutMasks,
+    data_shard,
+    reduce_gradients,
+    reduce_mean,
+)
+from bert_vits2_tpu_torch.parallel.sharding import shard_module, shard_optimizer
+from bert_vits2_tpu_torch.parallel.tensor import average_replicas, reduce_from_model
 from bert_vits2_tpu_torch.train.losses import (
     discriminator_loss,
     feature_loss,
@@ -199,20 +218,47 @@ def _update(opt: torch.optim.Optimizer, loss: torch.Tensor,
             lr: float, mesh=None) -> torch.Tensor:
     """One optimizer update from `loss` -> the gradients' global norm,
     before any clipping. The norm covers the frozen group's gradients too,
-    as optax's clip runs before its `masked(set_to_zero)`. Under a data
-    mesh the gradients are first averaged over its data group."""
+    as optax's clip runs before its `masked(set_to_zero)`. Under a mesh the
+    gradients are first averaged over its data group (a replicated one's
+    over every rank under the model axis, `average_replicas`), and the
+    squares of model-parallel gradients summed over its model group."""
     opt.zero_grad(set_to_none=True)
     loss.backward()
-    grads = [p.grad for g in opt.param_groups for p in g["params"]
-             if p.grad is not None]
-    if mesh is not None:
+    params = [p for g in opt.param_groups for p in g["params"] if p.grad is not None]
+    grads = [p.grad for p in params]
+    sharded = [getattr(p, "model_parallel", False) for p in params]
+    if mesh is not None and mesh.n_model > 1:
+        average_replicas([g for g, s in zip(grads, sharded) if not s],
+                         mesh.n_data * mesh.n_model)
+        if mesh.n_data > 1:
+            reduce_gradients([g for g, s in zip(grads, sharded) if s],
+                             mesh.data_group, mesh.n_data)
+    elif mesh is not None and mesh.n_data > 1:
         reduce_gradients(grads, mesh.data_group, mesh.n_data)
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    norms = torch.stack(torch._foreach_norm(grads))
+    if mesh is None or mesh.n_model == 1 or not any(sharded):
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        mp = torch.tensor(sharded, device=norms.device)
+        sq = norms.square()
+        norm = torch.sqrt(reduce_from_model(sq[mp].sum().reshape(1), mesh.model_axis)[0]
+                          + sq[~mp].sum())
     if opt.clip is not None:
         clip_by_global_norm(grads, norm, opt.clip)
     _set_lr(opt, lr)
     opt.step()
     return norm
+
+
+def shard_train_state(models: Models, state: TrainState, mesh) -> dict:
+    """The model axis: shard the synthesizer to this rank's shards in place
+    (`parallel.sharding.shard_module`) and the generator's optimizer state
+    with it; the discriminators hold no sharded stack. Call it after any
+    resume, on the full (reference-layout) parameters. -> the specs."""
+    axis = mesh.model_axis
+    specs = shard_module(models.synthesizer, axis)
+    shard_optimizer(state.opt_g, models.synthesizer, axis)
+    return specs
 
 
 @contextlib.contextmanager
@@ -250,16 +296,16 @@ def expand_bert(batch: dict, generator: torch.Generator | None) -> dict:
     return batch
 
 
-def _dropout_seeds(generator: torch.Generator | None,
-                   step: int) -> torch.Generator | None:
-    """The hash dropout's seed generator of one step: seeded from the step
-    generator's seed and the step counter (no draw from it, no host sync),
-    so every rank holds the same one; None without a generator (torch's
-    global generator then)."""
+def _step_streams(generator: torch.Generator | None,
+                  step: int) -> tuple[torch.Generator | None, DropoutMasks | None]:
+    """The hash dropout's seed generator and the module dropouts' masks of
+    one step: seeded from the step generator's seed and the step counter
+    (no draw from it, no host sync), so every rank holds the same ones;
+    None without a generator (torch's global generator then)."""
     if generator is None:
-        return None
-    seed = np.random.SeedSequence([generator.initial_seed(), step]).generate_state(1)
-    return torch.Generator().manual_seed(int(seed[0]))
+        return None, None
+    seeds = np.random.SeedSequence([generator.initial_seed(), step]).generate_state(2)
+    return torch.Generator().manual_seed(int(seeds[0])), DropoutMasks(int(seeds[1]))
 
 
 def make_train_step(models: Models, train_cfg: TrainConfig,
@@ -285,14 +331,18 @@ def make_train_step(models: Models, train_cfg: TrainConfig,
     own `train_compute_dtype` decides its dtype.
 
     mesh: a `parallel.Mesh` of several processes (`make_mesh` after
-    `init_distributed`): `batch` is then this rank's rows, every rank has
-    the same number, the same padded shapes and the same generator seed,
-    and the step is the one-process step on the concatenated global batch
-    (module note). Its model axis must be 1."""
-    if mesh is not None and (not mesh.distributed or mesh.n_model != 1):
-        raise ValueError("the train step takes a data mesh of several processes "
-                         "(make_mesh after init_distributed) with n_model 1")
+    `init_distributed`): `batch` is then this rank's data coordinate's
+    rows, every rank has the same number, the same padded shapes and the
+    same generator seed, and the step is the one-process step on the
+    concatenated global batch (module note). With n_model > 1 the models
+    must have been sharded by `shard_train_state`."""
+    if mesh is not None and not mesh.distributed:
+        raise ValueError("the train step takes a mesh of several processes "
+                         "(make_mesh after init_distributed)")
     synth, mpd, dur_disc, wavlm_disc = models
+    if mesh is not None and mesh.n_model > 1 and getattr(synth, "tp_specs", None) is None:
+        raise ValueError(f"a mesh with n_model {mesh.n_model} needs the synthesizer "
+                         "sharded first (shard_train_state)")
     if (slm is None) != (wavlm_disc is None):
         raise ValueError("the SLM losses need both the frozen SLM and the WavLM "
                          "discriminator (Models.wavlm_disc), or neither")
@@ -312,12 +362,12 @@ def make_train_step(models: Models, train_cfg: TrainConfig,
              lr: float):
         b = batch["x"].shape[0]
         n = 1 if mesh is None else mesh.n_data
+        seeds, masks = _step_streams(generator, state.step)
         shard = data_shard(b * (0 if mesh is None else mesh.data_rank), b * n,
-                           None if mesh is None else mesh.data_group, n,
-                           _dropout_seeds(generator, state.step))
+                           None if n == 1 else mesh.data_group, n, seeds, masks=masks)
         with shard:
             state, metrics = one_step(state, batch, generator, lr)
-        if mesh is not None:
+        if n > 1:
             losses = {k: v for k, v in metrics.items() if k.startswith("loss/")}
             metrics.update(reduce_mean(losses, mesh.data_group, n))
         return state, metrics

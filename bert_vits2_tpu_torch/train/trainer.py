@@ -32,8 +32,21 @@ is the one-process step on the global batch (`train/step.py`). Rank 0's
 start is every rank's: its resumed step, parameters and optimizer state are
 broadcast at start-up, after any resume; logging, the writers, `evaluate`
 and `save` run on rank 0 only. The reference-layout
-checkpoints carry no topology, so a run resumes under any rank count. The
-model axis (n_model > 1) is not ported and raises.
+checkpoints carry no topology, so a run resumes under any rank count.
+
+The model axis (`n_model` > 1, the CLI's `--n-model`, in a process group of
+n_data x n_model ranks): after the resume and the start-up broadcast, each
+rank shards the synthesizer and the generator's Adam moments to its model
+coordinate (`train/step.py:shard_train_state`, the JAX `tp_shard_tree`
+rules with the departures D.2-D.4 of `parallel/sharding.py`), and the step
+runs the sharded stacks (ROADMAP §C R.8: the JAX Trainer builds the same
+mesh but replicates its state). The ranks of the lead's model group
+evaluate and save together: `save` gathers the shards and rank 0 writes
+the full, reference-layout files.
+
+`run(profile_at_step=, profile_steps=)` writes a device trace of
+`profile_steps` steps to `<model_dir>/logs/profile` (`utils/profiling.py`),
+as the JAX Trainer does.
 """
 
 from __future__ import annotations
@@ -69,7 +82,6 @@ from bert_vits2_tpu_torch.parallel import (
     rank_device,
     replicate,
     replicate_optimizer,
-    replicated,
 )
 from bert_vits2_tpu_torch.train import checkpoint as ckpt
 from bert_vits2_tpu_torch.train.step import (
@@ -77,10 +89,11 @@ from bert_vits2_tpu_torch.train.step import (
     TrainConfig,
     init_train_state,
     make_train_step,
+    shard_train_state,
 )
 from bert_vits2_tpu_torch.utils.logging import get_logger, make_writer, summarize
 from bert_vits2_tpu_torch.utils.plot import alignment_to_image, spectrogram_to_image
-from bert_vits2_tpu_torch.utils.profiling import StepTimer
+from bert_vits2_tpu_torch.utils.profiling import StepTimer, trace
 from bert_vits2_tpu_torch.utils.repro import check_git_hash
 
 
@@ -157,7 +170,8 @@ class Trainer:
 
     `models` replaces the full-size models of config.json (the caller has
     drawn their parameters); `device` defaults to the card (in a process
-    group, this rank's). `slm_path`:
+    group, this rank's). `n_model`: the model axis of the mesh (several
+    processes only; module note). `slm_path`:
     "auto" resolves config.json's model.slm.model, a directory loads that
     WavLM, None trains without the SLM losses. `use_wavlm_disc` asks for
     them too, and then needs a WavLM.
@@ -174,18 +188,21 @@ class Trainer:
         slm_path: str | None = "auto",
         device: str | torch.device = "cuda",
     ):
-        if n_model != 1:
-            raise NotImplementedError(
-                "the port trains on the data axis only: model parallelism "
-                "(n_model > 1) is ROADMAP §A.9 (n_model must be 1)")
         self.mesh = None
         if dist.is_available() and dist.is_initialized():
             self.mesh = make_mesh(n_model=n_model)
             if torch.device(device) == torch.device("cuda"):
                 device = rank_device()
+        elif n_model != 1:
+            raise ValueError(f"n_model {n_model}: the model axis runs on a process "
+                             "group of n_data x n_model ranks (init_distributed; "
+                             "the CLI's --multihost)")
         self.data_rank = 0 if self.mesh is None else self.mesh.data_rank
         self.n_data = 1 if self.mesh is None else self.mesh.n_data
         self.is_lead = not dist.is_initialized() or dist.get_rank() == 0
+        # the ranks that evaluate and save: the lead, and under the model
+        # axis the rest of its model group (they hold the other shards)
+        self.in_lead_group = self.mesh is None or self.mesh.data_rank == 0
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is not None:
             torch.cuda.set_device(self.device)
@@ -278,6 +295,8 @@ class Trainer:
                                  "(iteration %d)", it)
         if self.mesh is not None:
             step = self._replicate_start(step)
+            if n_model > 1:
+                shard_train_state(self.models, self.state, self.mesh)
         self.global_step = self.state.step = step or 0
         if step is not None:
             self.logger.info("resumed from step %d", step)
@@ -291,11 +310,13 @@ class Trainer:
 
     def _replicate_start(self, step: int | None) -> int | None:
         """Several ranks: the lead's start is every rank's, its resumed step
-        (or none), parameters, buffers and optimizer state broadcast over the
-        data group, so that a rank that does not see the lead's checkpoints
-        (no shared model_dir) trains the same replica. -> the lead's step."""
+        (or none), parameters, buffers and optimizer state broadcast from
+        global rank 0 to every rank, in the full layout (before the model
+        axis shards it, so each rank then keeps its shard), so that a rank
+        that does not see the lead's checkpoints (no shared model_dir)
+        trains the same replica. -> the lead's step."""
         box = [step]
-        dist.broadcast_object_list(box, replicated(self.mesh), group=self.mesh.data_group)
+        dist.broadcast_object_list(box, 0)
         replicate(self.mesh, [m for m in self.models if m is not None])
         for opt in (self.state.opt_g, self.state.opt_d, self.state.opt_dd,
                     self.state.opt_wd):
@@ -406,13 +427,13 @@ class Trainer:
     def _seed_step(self) -> None:
         """The step's random numbers are a function of (seed, step), as the
         JAX step folds the step into its key: the noise generator and
-        torch's global generator (dropout) are reseeded per step, so a
-        resumed run draws what an uninterrupted one would. The noise
-        generator (and with it the hash dropout's seeds) is seeded alike on
-        every data rank, since the step draws the global batch's numbers;
-        torch's global generator, which the other dropouts draw from, per
-        data rank (rank 0's seed is the one-process run's), so no two ranks
-        repeat a mask."""
+        torch's global generator are reseeded per step, so a resumed run
+        draws what an uninterrupted one would. The noise generator (and
+        with it the hash dropout's seeds and the module dropouts' masks,
+        `train/step.py:_step_streams`) is seeded alike on every rank, since
+        the step draws the global batch's numbers; torch's global
+        generator, which nothing in the step draws from, per data rank
+        (rank 0's seed is the one-process run's)."""
         seed = self.tcfg.seed * 1_000_003 + self.global_step
         self.generator.manual_seed(seed)
         if self.data_rank:
@@ -421,7 +442,13 @@ class Trainer:
 
     def run(self, epochs: int | None = None, log_interval: int | None = None,
             eval_interval: int | None = None, keep_ckpts: int | None = None,
-            max_steps: int | None = None):
+            max_steps: int | None = None, profile_at_step: int | None = None,
+            profile_steps: int = 5):
+        """Train to `epochs` (config.json's by default) or `max_steps`. At
+        global step `profile_at_step` the next `profile_steps` steps run on
+        one batch inside a device trace written to
+        `<model_dir>/logs/profile` (the JAX Trainer's loop: one batch,
+        each step's random numbers from its own step counter)."""
         t = self.hps.train
         epochs = epochs if epochs is not None else t.get("epochs", 1000)
         log_interval = log_interval or t.get("log_interval", 200)
@@ -448,6 +475,14 @@ class Trainer:
                 batches = self._prefetch(self.epoch_batches(epoch))
                 try:
                     for batch in batches:
+                        if (profile_at_step is not None
+                                and self.global_step == profile_at_step):
+                            self._profile(batch, profile_steps)
+                            if max_steps is not None and self.global_step >= max_steps:
+                                if self.in_lead_group:
+                                    self.save(keep_ckpts)
+                                return
+                            continue
                         self._seed_step()
                         self.state, metrics = self.step_fn(
                             self.state, batch, self.generator, self.learning_rate)
@@ -469,7 +504,7 @@ class Trainer:
                             # a non-finite step must never overwrite the
                             # last good checkpoint
                             self._assert_finite(metrics)
-                            if self.is_lead:
+                            if self.in_lead_group:
                                 self.evaluate()
                                 self.save(keep_ckpts)
                         if stop["flag"]:
@@ -477,7 +512,7 @@ class Trainer:
                         if stop["flag"] or (max_steps is not None
                                             and self.global_step >= max_steps):
                             self._assert_finite(metrics)
-                            if self.is_lead:
+                            if self.in_lead_group:
                                 self.save(keep_ckpts)
                             return
                 finally:
@@ -486,6 +521,19 @@ class Trainer:
             self.close()
             if prev_term is not None:
                 signal.signal(signal.SIGTERM, prev_term)
+
+    def _profile(self, batch: dict, steps: int) -> None:
+        """`steps` steps on `batch` inside a device trace (torch.profiler)
+        written to <model_dir>/logs/profile, each a step of its own."""
+        with trace(os.path.join(self.model_dir, "logs", "profile")):
+            for _ in range(steps):
+                self._seed_step()
+                self.state, _ = self.step_fn(self.state, batch, self.generator,
+                                             self.learning_rate)
+                self.global_step += 1
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        self.logger.info("wrote device trace at step %d", self.global_step)
 
     def _assert_finite(self, metrics: dict) -> dict:
         """Failure detection: a NaN/inf metric means the run is already
@@ -504,8 +552,10 @@ class Trainer:
         return m
 
     def save(self, keep: int = 8) -> None:
+        """Write the checkpoints (the lead; under the model axis every rank
+        of its model group calls it, and the shards are gathered)."""
         ckpt.save_train_state(self.ckpt_dir, self.global_step, self.models,
-                              self.state, self.learning_rate, keep=keep)
+                              self.state, self.learning_rate, keep=keep, mesh=self.mesh)
         self.logger.info("saved checkpoint at step %d", self.global_step)
 
     # ---- eval (reference: evaluate(), train_ms.py:742-835) ----

@@ -1,13 +1,42 @@
-"""Per-step wall-clock statistics of the training loop: steps/s and the
-realtime factor. A copy of `StepTimer` from
-`bert_vits2_tpu/utils/profiling.py`.
+"""Device traces and per-step wall-clock statistics of the training loop
+(counterpart of `bert_vits2_tpu/utils/profiling.py`): `trace` and
+`annotate` on `torch.profiler` where the JAX file has `jax.profiler`, and a
+copy of `StepTimer` (steps/s and the realtime factor).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 
 import numpy as np
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Capture a trace of the enclosed block, the host's ops and, on the
+    card, its kernels:
+
+        with profiling.trace("model_dir/logs/profile"):
+            step_fn(...)
+
+    It lands in `log_dir` as a Chrome trace (`*.pt.trace.json`), which
+    TensorBoard's profiler plugin and ui.perfetto.dev read."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
+
+
+def annotate(name: str):
+    """A named region inside a trace (`torch.profiler.record_function`)."""
+    return torch.profiler.record_function(name)
 
 
 class StepTimer:

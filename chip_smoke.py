@@ -10,6 +10,8 @@ and check them.
     python3 chip_smoke.py --stages    # the build and phases 6c' and 6c'' alone
     python3 chip_smoke.py --pack      # the build and phase 6a alone
     python3 chip_smoke.py --dist      # the build and phase 9e alone
+    python3 chip_smoke.py --model-axis  # the build and phase 9f alone
+    python3 chip_smoke.py --step-ab   # the build and the one-process step's times
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -165,7 +167,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    discriminator moved and the WavLM did not; the SLM forward's time at
    [16, 16384] samples; the SLM terms (hidden states, the three losses,
    the discriminator's and the fake wave's gradients) card against CPU
-   from the same weights at batch 2.
+   from the same weights at batch 2, the gradients against a CPU run that
+   takes the card's side of each of the discriminator's leaky-ReLU kinks
+   (each straddle within KINK_REL of its layer's scale; also reported
+   against the plain CPU run).
 8. the training forward at a cut depth, dropout off, the same noise, on the
    card and on the CPU: equal alignments, losses and waves within bounds.
 9. the training entry point: the Trainer (the CLI's) on a synthetic 44.1
@@ -220,6 +225,38 @@ Phases, each of which fails the run (non-zero exit) on any error:
    0.667 within DP_ENGINE_BOUND, K1 28 and K2 3 per replica, medians in
    turns; (e) NCCL across two cards only where the machine shows two
    (the phase says why it did not run).
+9f. the model axis ([model-axis]): (a) the V2.3 training step at full
+   width, every dropout on, fused attention, on a 1 x 2 and a 2 x 2 mesh of
+   processes of this script sharing cuda:0 over gloo, side by side (the synthesizer's
+   transformer and WaveNet stacks sharded, parallel/sharding.py), MA_STEPS
+   steps against the one-process step on the TRAIN_BATCH rows, both under
+   deterministic algorithms: losses, grad norms and the first step's
+   gathered gradients within MA_REL_BOUND (of the module's norm; of their
+   own for the leaves read through `copy_to_model`); each step after the
+   first from the one-process run's parameters and Adam state (AdamW's
+   normalized first update would carry rounding into the next step's
+   gradients), Adam's gathered first moments after the steps within
+   MA_REL_BOUND of each sharded or copied leaf's own norm, of its module's
+   norm for a replicated tensor (the attention's key biases, zero in exact
+   arithmetic, of their share of it), the
+   parameters' gap reported beside `adam_move_bound` (two runs' largest
+   gap in an entry after AdamW's normalized steps, ~2 lr a step),
+   K1-train/B5/B6 22 and K3 1 per rank step at one head a launch, the
+   model group's all-reduces and bytes per step, metrics equal across the
+   ranks and equal shards across each data group; MA_FREE_STEPS steps more
+   with deterministic algorithms off (the Trainer's setting): every rank's
+   replicated parameters bit-equal and metrics within MA_REL_BOUND of rank
+   0's (bit-equality reported); one bf16 step on 1 x 2
+   against the one-process bf16 step within BF16_CPU_REL; (b) the engine
+   from text on make_mesh(1, 2, [cuda:0, cuda:0]) with a random BERT at
+   the chinese-roberta-wwm-ext-large widths split over its model axis
+   against the one-device engine with the same BERT unsplit: features
+   within MA_BERT_REL, waves within DP_ENGINE_BOUND, K1 28 and K2 3 a
+   call, both encoders' ms per forward.
+
+--step-ab times the one-process V2.3 step (fp32 dense and fused attention,
+bf16 fused; `run_step_ab`) and prints one JSON line; a copy of this script
+at the root of an earlier tree of the port times that tree the same way.
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -296,6 +333,11 @@ SLM_CHECK_BATCH = 2  # the card-vs-CPU check of the SLM pieces
 # and to each gradient's norm
 WAVLM_BOUND = 1e-3
 SLM_REL_BOUND = 1e-3
+# the WavLM discriminator's leaky ReLUs: a pre-activation within rounding of
+# zero can take the slope 1 on one side and 0.1 on the other (ROADMAP §C
+# C.6); such a straddle must lie within this share of its layer's largest
+# |pre-activation|
+KINK_REL = 1e-5
 TRAINER_SLM_WARMUP, TRAINER_SLM_TIMED = 1, 2
 # [train-bf16]: K1's train mode, B5 and B6 on bf16 operands against their
 # plain bf16 versions (which round where the TPU kernels round), in bf16
@@ -2494,10 +2536,48 @@ def slm_pieces(slm, wd, y, y_hat):
             y_hat.grad)
 
 
+class KinkAligner:
+    """Forward hooks on the convs of a WavLM discriminator whose outputs feed
+    its leaky ReLUs. `record` (the card's run): keep the sign of each output,
+    call by call. `align` (a CPU run on the same inputs): where the CPU's
+    output lies on the other side of zero than the card's, shift it across
+    by twice its size (detached: the value moves by its rounding, the
+    gradient passes unchanged), so that the CPU takes the card's slope there;
+    count those straddles and their largest |output| over the layer's."""
+
+    def __init__(self, wd, signs=None):
+        self.signs = [] if signs is None else signs
+        self.align, self.k, self.flips, self.flip_rel = signs is not None, 0, 0, 0.0
+        self.handles = [c.register_forward_hook(self.hook) for c in wd.convs]
+
+    def hook(self, module, inputs, out):
+        if not self.align:
+            self.signs.append((out.detach() > 0).cpu())
+            return None
+        want = self.signs[self.k]
+        self.k += 1
+        flip = (out.detach() > 0) != want
+        n = int(flip.sum())
+        if not n:
+            return None
+        mag = out.detach().abs()
+        self.flips += n
+        self.flip_rel = max(self.flip_rel, float(mag[flip].max() / mag.max()))
+        sign = torch.where(want, 1.0, -1.0)
+        return out + torch.where(flip, 2 * mag * sign, torch.zeros_like(out))
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
 def check_slm_on_cpu(slm, wd, cfg, data_cfg, dev, strict=True):
     """The SLM pieces, card against CPU, from the same weights at a small
-    batch: their errors, and lm_gen's value on the CPU. With `strict`, raises
-    with every error when one passes its bound."""
+    batch: their errors, and lm_gen's value on the CPU. The gradients are
+    held against a CPU run that takes the card's side of every leaky-ReLU
+    kink (`KinkAligner`; each straddle within KINK_REL of its layer's
+    scale), and reported against the plain CPU run too. With `strict`,
+    raises with every error when one passes its bound."""
     from bert_vits2_tpu_torch.models.discriminators import WavLMDiscriminator
     from bert_vits2_tpu_torch.models.slm import SLM, WavLM
 
@@ -2514,28 +2594,54 @@ def check_slm_on_cpu(slm, wd, cfg, data_cfg, dev, strict=True):
     t0 = time.perf_counter()
     want = slm_pieces(cpu_slm, cpu_wd, y, y_hat)
     cpu_s = time.perf_counter() - t0
-    got = slm_pieces(slm, wd, y.to(dev), y_hat.to(dev))
+    card_kinks = KinkAligner(wd)
+    try:
+        got = slm_pieces(slm, wd, y.to(dev), y_hat.to(dev))
+    finally:
+        card_kinks.remove()
+    aligner = KinkAligner(cpu_wd, card_kinks.signs)
+    try:
+        aligned = slm_pieces(cpu_slm, cpu_wd, y, y_hat)
+    finally:
+        aligner.remove()
     hs_err = max((g.cpu() - w).abs().max().item() for g, w in zip(got[0], want[0]))
     names = ("loss/wd/total", "loss/g/lm", "loss/g/lm_gen")
     loss_abs = {k: abs(float(g) - float(w)) for k, g, w in zip(names, got[1:4], want[1:4])}
     loss_err = {k: loss_abs[k] / abs(float(w)) for k, w in zip(names, want[1:4])}
-    grad_abs = {n: (got[4][n].cpu() - w).abs().max().item() for n, w in want[4].items()}
-    grad_err = max(grad_abs[n] / w.norm().item() for n, w in want[4].items())
-    wave_abs = (got[5].cpu() - want[5]).abs().max().item()
-    wave_err = wave_abs / want[5].norm().item()
+
+    def grad_errors(ref):
+        grad_abs = {n: (got[4][n].cpu() - w).abs().max().item() for n, w in ref[4].items()}
+        grad_rel = {n: grad_abs[n] / w.norm().item() for n, w in ref[4].items()}
+        wave_abs = (got[5].cpu() - ref[5]).abs().max().item()
+        return grad_abs, grad_rel, wave_abs, wave_abs / ref[5].norm().item()
+
+    plain_abs, plain_rel, _, plain_wave = grad_errors(want)
+    grad_abs, grad_rel, wave_abs, wave_err = grad_errors(aligned)
+    grad_err = max(grad_rel.values())
+    worst = max(plain_rel, key=plain_rel.get)
+    grad_norm = math.sqrt(sum(w.norm().item() ** 2 for w in want[4].values()))
     log(f"[train-slm] card vs CPU, batch {SLM_CHECK_BATCH} of {seg} samples at "
         f"44.1 kHz, the same weights: WavLM hidden states ({len(want[0])} of "
         f"{list(want[0][0].shape)}) max_abs_err {hs_err:.3e} (bound {WAVLM_BOUND:g}); "
         "losses max_abs_err / relative " + ", ".join(
             f"{k} {loss_abs[k]:.3e} / {loss_err[k]:.3e}" for k in names)
-        + f"; WavLM discriminator gradient max_abs_err {max(grad_abs.values()):.3e}, "
-        f"max error / norm {grad_err:.3e}; d(lm + lm_gen)/d y_hat max_abs_err "
-        f"{wave_abs:.3e}, / norm {wave_err:.3e} (relative bound {SLM_REL_BOUND:g}); "
-        f"CPU run {cpu_s:.1f} s")
+        + f"; against the CPU run on the card's side of the discriminator's "
+        f"{aligner.flips} leaky-ReLU straddle(s) (largest |pre-activation| "
+        f"{aligner.flip_rel:.3e} of its layer's, bound {KINK_REL:g}): WavLM "
+        f"discriminator gradient max_abs_err {max(grad_abs.values()):.3e}, max error / "
+        f"norm {grad_err:.3e}, d(lm + lm_gen)/d y_hat max_abs_err {wave_abs:.3e}, / "
+        f"norm {wave_err:.3e} (relative bound {SLM_REL_BOUND:g}); against the plain "
+        f"CPU run {max(plain_rel.values()):.3e} ({worst}: {plain_abs[worst]:.3e} "
+        f"against its norm {want[4][worst].norm().item():.3e}; the whole gradient's "
+        f"norm {grad_norm:.3e}) and {plain_wave:.3e}; CPU run {cpu_s:.1f} s")
     errs = {"hidden_states": hs_err, **loss_err, "wd_grad": grad_err,
-            "wave_grad": wave_err, "lm_gen": float(want[3])}
+            "wave_grad": wave_err, "lm_gen": float(want[3]), "kinks": aligner.flips,
+            "kink_rel": aligner.flip_rel, "wd_grad_plain": max(plain_rel.values()),
+            "wave_grad_plain": plain_wave, "wd_grad_worst": worst,
+            "wd_grad_of_whole": max(plain_abs.values()) / grad_norm}
     if strict and not (hs_err <= WAVLM_BOUND and max(loss_err.values()) <= SLM_REL_BOUND
-                       and grad_err <= SLM_REL_BOUND and wave_err <= SLM_REL_BOUND):
+                       and grad_err <= SLM_REL_BOUND and wave_err <= SLM_REL_BOUND
+                       and aligner.flip_rel <= KINK_REL):
         raise AssertionError(f"card and CPU disagree on the SLM losses: {errs}")
     return errs
 
@@ -2572,11 +2678,18 @@ def run_slm_drift(dev, smi, n_steps):
         os.environ.pop("BV2_FUSED_ATTENTION_TRAIN", None)
     rel = [max(r["loss/wd/total"], r["loss/g/lm"], r["loss/g/lm_gen"], r["wd_grad"],
                r["wave_grad"]) for r in rows]
+    plain = [max(r["wd_grad_plain"], r["wave_grad_plain"]) for r in rows]
+    kinks = {i: (r["kinks"], f"{r['kink_rel']:.2g}", f"{plain[i]:.3g}", f"{rel[i]:.3g}")
+             for i, r in enumerate(rows) if r["kinks"]}
     lm_gen = ", ".join(f"{r['lm_gen']:.4g}" for r in rows)
     log(f"[slm-drift] {smi}: lm_gen on the check's noise before the steps and after "
         f"each of {n_steps}: [{lm_gen}]; the largest relative error of each check: "
         f"[{', '.join(f'{e:.3g}' for e in rel)}] (bound {SLM_REL_BOUND:g}); over the "
-        f"bound in {sum(e > SLM_REL_BOUND for e in rel)} of {len(rel)}")
+        f"bound in {sum(e > SLM_REL_BOUND for e in rel)} of {len(rel)}; against the plain "
+        f"CPU run over it in {sum(e > SLM_REL_BOUND for e in plain)}; the checks with "
+        f"leaky-ReLU straddles (check: straddles, largest |pre-activation| of its "
+        f"layer's, gradient error against the plain CPU run, against the aligned one) "
+        f"{kinks}")
     return rows
 
 
@@ -3638,8 +3751,9 @@ def run_pack(dev, smi, counters):
 
 
 def no_module_dropout(models):
-    """Module dropouts off (torch's generator, per rank), the attention's
-    hash dropout kept: the two-rank step can then equal the one-process one."""
+    """Module dropouts off, the attention's hash dropout kept: [dist]'s
+    setting for its two-rank step against the one-process one
+    ([model-axis] runs with every dropout on)."""
     for m in models:
         if m is not None:
             for sub in m.modules():
@@ -3684,6 +3798,8 @@ def dist_worker(mode: str, out_path: str) -> int:
     library's deterministic algorithms (cuDNN's and torch's, with
     CUBLAS_WORKSPACE_CONFIG set by the parent), so their parameters can be
     compared bit for bit. Writes a JSON record to out_path."""
+    if mode.startswith("model"):
+        return model_axis_worker(mode, out_path)
     import torch.distributed as dist
 
     from bert_vits2_tpu_torch.parallel import init_distributed, make_mesh, shard_batch
@@ -4108,6 +4224,632 @@ def run_dist(dev, smi, counters):
             **rank_launches}
 
 
+MA_STEPS = 2  # [model-axis] (a): steps of each topology and of the one-process step
+MA_FREE_STEPS = 3  # (a): the ranks' steps after them, deterministic algorithms off
+MA_REL_BOUND = 1e-4  # (a): losses, grad norms and parameters against one process
+MA_BERT_REL = 1e-5  # (b): the split BERT's features against the unsplit one's
+MA_TOPOLOGIES = ((1, 2), (2, 2))  # [n_data, n_model] meshes of ranks sharing cuda:0
+
+
+def model_axis_models(device, bf16=False):
+    """The default V2.3 models from seed 1234, every dropout on (inside the
+    step the module dropouts draw from the step's mask generator, alike on
+    every rank), with their optimizers: (models, state, train config)."""
+    import dataclasses
+
+    from bert_vits2_tpu_torch.config import ModelConfig
+    from bert_vits2_tpu_torch.train import TrainConfig, init_train_state
+    from bert_vits2_tpu_torch.train.trainer import build_models, init_params
+
+    cfg = ModelConfig(train_compute_dtype="bfloat16" if bf16 else "float32")
+    tcfg = dataclasses.replace(TrainConfig(), bf16_run=bf16)
+    models = init_params(build_models(cfg, device=device), cfg, seed=1234)
+    return models, init_train_state(models, tcfg), tcfg
+
+
+def model_axis_steps(models, state, tcfg, mesh, n_steps, counters, after_first=None):
+    """n_steps steps of the [model-axis] batch (this data coordinate's rows
+    under a mesh), each timed, with the kernels' launches and the model
+    group's all-reduces (calls, bytes) of each; `after_first()` runs after
+    the first step -> (times, launches, collectives, metrics)."""
+    from bert_vits2_tpu_torch.config import ModelConfig
+    from bert_vits2_tpu_torch.parallel import shard_batch
+    from bert_vits2_tpu_torch.parallel import tensor as tp
+    from bert_vits2_tpu_torch.train import DataConfig, make_train_step
+
+    cfg, data_cfg = ModelConfig(), DataConfig()
+    step = make_train_step(models, tcfg, data_cfg, cfg.segment_size, mesh=mesh)
+    full = make_train_batch(cfg, data_cfg.hop_length, TRAIN_BATCH, TRAIN_TX, TRAIN_TY,
+                            seed=0, dev="cpu")
+    batch = (shard_batch(mesh, full) if mesh is not None
+             else {k: v.to("cuda:0") for k, v in full.items()})
+    gen = torch.Generator(device="cuda:0")
+    times, launches, collectives, metrics = [], [], [], []
+    for i in range(n_steps):
+        gen.manual_seed(1234 + i)
+        for fn in counters.values():
+            fn.launches = 0
+        tp.counts.update(all_reduces=0, bytes=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen, tcfg.learning_rate)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches.append({k: fn.launches for k, fn in counters.items()})
+        collectives.append(dict(tp.counts))
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0 and after_first is not None:
+            after_first()
+    return times, launches, collectives, metrics
+
+
+def model_axis_full(models, axis, grads: bool) -> dict:
+    """{"g", "d", "dd"} -> each module's full parameters (grads=False) or
+    gradients, the synthesizer's gathered over the model group (every rank
+    of the group calls it)."""
+    from bert_vits2_tpu_torch.parallel.sharding import gather_from_model
+
+    out = {}
+    for tag, m in zip(("g", "d", "dd"), models[:3]):
+        specs = getattr(m, "tp_specs", None) or {}
+        sd = {}
+        for k, p in m.named_parameters():
+            t = (p.grad if p.grad is not None else torch.zeros_like(p)) if grads else p
+            t = t.detach()
+            sd[k] = (t if specs.get(k) is None or axis is None
+                     else gather_from_model(t, specs[k], axis)).cpu()
+        out[tag] = sd
+    return out
+
+
+def model_axis_moments(models, state, axis) -> dict:
+    """{"g", "d", "dd"} -> each parameter's Adam first moment (`exp_avg`,
+    a sum of every step's gradient), the synthesizer's gathered over the
+    model group (every rank of the group calls it)."""
+    from bert_vits2_tpu_torch.parallel.sharding import gather_from_model
+
+    out = {}
+    for tag, m, opt in zip(("g", "d", "dd"), models[:3],
+                           (state.opt_g, state.opt_d, state.opt_dd)):
+        specs = getattr(m, "tp_specs", None) or {}
+        sd = {}
+        for k, p in m.named_parameters():
+            t = opt.state[p]["exp_avg"].detach() if p in opt.state else torch.zeros_like(p)
+            sd[k] = (t if specs.get(k) is None or axis is None
+                     else gather_from_model(t, specs[k], axis)).cpu()
+        out[tag] = sd
+    return out
+
+
+def model_axis_state(models, state) -> dict:
+    """One process: {"g", "d", "dd"} -> name -> {"p": the parameter,
+    "exp_avg", "exp_avg_sq", "step": its Adam state, absent before its
+    first update}, on the CPU."""
+    out = {}
+    for tag, m, opt in zip(("g", "d", "dd"), models[:3],
+                           (state.opt_g, state.opt_d, state.opt_dd)):
+        out[tag] = {k: {"p": p.detach().cpu(),
+                        **{key: t.detach().cpu() for key, t in opt.state.get(p, {}).items()}}
+                    for k, p in m.named_parameters()}
+    return out
+
+
+def model_axis_load(models, state, saved: dict, axis) -> None:
+    """Set this rank's parameters and Adam state to the one-process run's
+    (`model_axis_state`), the synthesizer's cut to this rank's shards, so
+    that the next step starts where the one-process step starts."""
+    from bert_vits2_tpu_torch.parallel.sharding import shard_tensor
+
+    with torch.no_grad():
+        for tag, m, opt in zip(("g", "d", "dd"), models[:3],
+                               (state.opt_g, state.opt_d, state.opt_dd)):
+            specs = getattr(m, "tp_specs", None) or {}
+            for k, p in m.named_parameters():
+                split, src = specs.get(k), saved[tag][k]
+
+                def cut(t):
+                    t = t if split is None else shard_tensor(t, split, axis.rank, axis.size)
+                    return t.to(p.device)
+
+                p.copy_(cut(src["p"]))
+                for key, t in opt.state.get(p, {}).items():
+                    t.copy_(src[key] if key == "step" else cut(src[key]))
+
+
+def copied_leaf(name: str) -> bool:
+    """A replicated synthesizer leaf that a sharded computation reads
+    through `copy_to_model` (its gradient is summed over the model group):
+    the attention's relative tables, a row-parallel WN layer's gain."""
+    return "emb_rel_" in name or ("res_skip_layers" in name and name.endswith("weight_g"))
+
+
+def key_bias(name: str) -> bool:
+    """An attention's key bias: its gradient is zero in exact arithmetic
+    (it shifts every score of a query's row alike, which the softmax
+    ignores), so rounding alone sets it."""
+    return ".attn_layers." in name and name.endswith("conv_k.bias")
+
+
+def model_axis_tensor_errors(got: dict, ref: dict, own=lambda where: True
+                             ) -> list[tuple[float, str]]:
+    """The error of each tensor of `got` against `ref` ({"g", "d", "dd"} ->
+    name -> tensor): max |a - b| over the reference tensor's norm where
+    `own("tag:name")`, else over its module's norm; a `key_bias` over its
+    share of its module's norm (the module's norm times sqrt(its entries /
+    the module's)) -> [(error, where)], the largest first."""
+    errs = []
+    for tag, sd in got.items():
+        sq = {k: float((v.double() ** 2).sum()) for k, v in ref[tag].items()}
+        n_all = sum(v.numel() for v in ref[tag].values())
+        total = math.sqrt(sum(sq.values()))
+        for k, v in sd.items():
+            want = ref[tag][k].float()
+            scale = (total * math.sqrt(want.numel() / n_all) if key_bias(k)
+                     else math.sqrt(sq[k]) if own(f"{tag}:{k}") else total)
+            errs.append((float((v.float() - want).abs().max()) / max(scale, 1e-30),
+                         f"{tag}:{k}"))
+    return sorted(errs, reverse=True)
+
+
+def replica_digests(models) -> tuple[str, str]:
+    """(a digest of the replicated parameters of G, D and DD, a digest of
+    the synthesizer's sharded ones)."""
+    import hashlib
+
+    hs = hashlib.sha1(), hashlib.sha1()
+    for m in models[:3]:
+        for p in m.parameters():
+            hs[bool(getattr(p, "model_parallel", False))].update(
+                p.detach().cpu().numpy().tobytes())
+    return hs[0].hexdigest(), hs[1].hexdigest()
+
+
+def model_axis_errors(got: dict, ref: dict, norm_of_module: bool) -> tuple[float, str]:
+    """The largest error of `got` against `ref` ({"g", "d", "dd"} -> name ->
+    tensor): |a - b| over the module's gradient norm (norm_of_module), or
+    over each tensor's largest entry -> (error, where)."""
+    worst, where = 0.0, ""
+    for tag, sd in got.items():
+        scale = (float(torch.sqrt(sum((v.double() ** 2).sum() for v in ref[tag].values())))
+                 if norm_of_module else None)
+        for k, v in sd.items():
+            want = ref[tag][k].float()
+            diff = float((v.float() - want).abs().max())
+            err = diff / max(scale if norm_of_module else float(want.abs().max()), 1e-12)
+            if err > worst:
+                worst, where = err, f"{tag}:{k}"
+    return worst, where
+
+
+def adam_move_bound(lr: float, betas, steps: int) -> float:
+    """The most two AdamW runs from the same parameters can differ in an
+    entry after `steps` steps, whatever their gradients: twice the sum of
+    each step's largest |lr * m_hat / sqrt(v_hat)| (Cauchy-Schwarz over the
+    moments' weights; lr at the first step), weight decay aside."""
+    b1, b2 = betas
+    total = 0.0
+    for t in range(1, steps + 1):
+        s = sum(((1 - b1) * b1 ** (t - k)) ** 2 / ((1 - b2) * b2 ** (t - k))
+                for k in range(1, t + 1))
+        total += math.sqrt(s) * math.sqrt(1 - b2 ** t) / (1 - b1 ** t)
+    return 2 * lr * total
+
+
+def model_axis_worker(mode: str, out_path: str) -> int:
+    """A child process of [model-axis]: one rank of the [n_data, n_model]
+    mesh that `mode` names ("model<n_data>x<n_model>"; torchrun's variables
+    in the environment) over gloo on cuda:0: MA_STEPS steps of the V2.3
+    models sharded by shard_train_state, on this data coordinate's rows of
+    the TRAIN_BATCH batch, then the full parameters gathered and (rank 0)
+    held against the one-process step's (MA_REF); with one data coordinate,
+    one bf16 step after them. Between the two, MA_FREE_STEPS steps with
+    deterministic algorithms off, after which the replicated parameters of
+    every rank are digested."""
+    import torch.distributed as dist
+
+    from bert_vits2_tpu_torch.nn.attention import MultiHeadAttention
+    from bert_vits2_tpu_torch.parallel import init_distributed, make_mesh
+    from bert_vits2_tpu_torch.train.step import shard_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    os.environ["BV2_FUSED_ATTENTION_TRAIN"] = "1"
+    counters = train_counters()
+    init_distributed(backend="gloo")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    n_data, n_model = map(int, mode[len("model"):].split("x"))
+    mesh = make_mesh(n_data, n_model, devices=["cuda:0"] * world)
+    axis = mesh.model_axis
+    models, state, tcfg = model_axis_models("cuda:0")
+    shard_train_state(models, state, mesh)
+    heads = sorted({m.n_heads // (m.model_axis.size if m.model_axis else 1)
+                    for m in models.synthesizer.modules()
+                    if isinstance(m, MultiHeadAttention)})
+    out = {}
+
+    def first_grads():
+        full = model_axis_full(models, axis, grads=True)
+        if rank == 0:
+            ref = torch.load(os.environ["MA_REF"] + ".grads", weights_only=True)
+            out["grad_err"], out["grad_where"] = model_axis_errors(full, ref, True)
+            copied = {"g": {k: v for k, v in full["g"].items() if copied_leaf(k)}}
+            out["copied_err"], out["copied_where"] = model_axis_tensor_errors(copied, ref)[0]
+        # the next step from the one-process run's state after this one:
+        # AdamW's normalized first update moves an entry whose gradient is
+        # at rounding level by about lr either way, which the next step's
+        # gradients would carry
+        model_axis_load(models, state, torch.load(os.environ["MA_REF"] + ".s1",
+                                                  weights_only=True, mmap=True), axis)
+
+    torch.cuda.reset_peak_memory_stats()
+    times, launches, collectives, metrics = model_axis_steps(
+        models, state, tcfg, mesh, MA_STEPS, counters, first_grads)
+    out.update(rank=rank, world=world, coord=[mesh.data_rank, mesh.model_rank],
+               shape=[mesh.n_data, mesh.n_model], times=times, launches=launches,
+               collectives=collectives, metrics=metrics, heads=heads,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               shard_digest=digest([models.synthesizer]))
+    full = model_axis_full(models, axis, grads=False)
+    moments = model_axis_moments(models, state, axis)
+    if rank == 0:
+        ref = torch.load(os.environ["MA_REF"], weights_only=True)
+        out["param_rel"], out["param_where"] = model_axis_errors(full, ref, False)
+        out["param_abs"] = max(float((v - ref[t][k]).abs().max())
+                               for t, sd in full.items() for k, v in sd.items())
+        ref = torch.load(os.environ["MA_REF"] + ".m", weights_only=True)
+        # the tensors the model axis computes: the sharded leaves and those
+        # read through copy_to_model, each against its own norm
+        strict = {f"g:{k}" for k, v in models.synthesizer.tp_specs.items()
+                  if v is not None or copied_leaf(k)}
+        out["m_worst"] = model_axis_tensor_errors(moments, ref, strict.__contains__)[:5]
+        out["m_err"], out["m_where"] = out["m_worst"][0]
+    del full, moments
+    # the Trainer's own setting: nondeterministic algorithms allowed; the
+    # replicated parameters must stay one value on every rank
+    torch.backends.cudnn.deterministic = False
+    torch.use_deterministic_algorithms(False)
+    free_t, _, _, free_m = model_axis_steps(models, state, tcfg, mesh, MA_FREE_STEPS,
+                                            counters)
+    out.update(free_times=free_t, free_metrics=free_m)
+    out["replicated_digest"], out["sharded_digest"] = replica_digests(models)
+    del models, state
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    if n_data == 1:
+        models, state, tcfg = model_axis_models("cuda:0", bf16=True)
+        shard_train_state(models, state, mesh)
+        bt, bl, _, bm = model_axis_steps(models, state, tcfg, mesh, 1, counters)
+        out.update(bf16_times=bt, bf16_launches=bl, bf16_metrics=bm)
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+class SeededIdsBert:
+    """A `BertEncoderExtractor` whose tokenizer is a stand-in: the
+    reference tokenizers are not on this machine, so a text's ids are a
+    seeded function of the text, one per word2ph entry (the shape the real
+    tokenizer gives), through the extractor's own bucketing and encoder
+    (`_run`); the features are recorded per call."""
+
+    def __init__(self, ext, vocab):
+        self.ext, self.vocab, self.features = ext, vocab, []
+
+    def __call__(self, norm_text, word2ph, language, style_text=None, style_weight=0.7):
+        import zlib
+
+        from bert_vits2_tpu_torch.text.bert import expand_word2ph
+
+        rng = np.random.default_rng(zlib.crc32(norm_text.encode("utf-8")))
+        ids = rng.integers(1, self.vocab, (1, len(word2ph)))
+        feats = self.ext._run(language, ids, np.ones_like(ids))
+        self.features.append(feats)
+        return expand_word2ph(feats, word2ph).astype(np.float32)
+
+
+def run_model_axis(dev, smi, counters):
+    """[model-axis]: the model axis on one card. (a) the V2.3 training step
+    at full width, every dropout on, on a 1 x 2 and a 2 x 2 mesh of
+    processes of this script sharing cuda:0 over gloo (spawned as [dist]'s,
+    the two meshes side by side),
+    against the one-process step on the card: MA_STEPS steps, losses and
+    grad norms of each and the parameters after them within MA_REL_BOUND;
+    K1-train / B5 / B6 / K3 launches per rank step with their heads; the
+    model group's all-reduces per step and their bytes; the ranks of a data
+    group hold equal shards; the first step's gradients, gathered, within
+    MA_REL_BOUND of each module's gradient norm, and those of the leaves
+    read through `copy_to_model` within MA_REL_BOUND of each one's own
+    norm; the second step from the one-process run's parameters and Adam
+    state after the first (`model_axis_load`: AdamW's normalized first
+    update moves an entry whose gradient is at rounding level by about lr
+    either way, which the second step's gradients would carry), and Adam's
+    first moments after it (a sum of both steps' gradients), gathered,
+    within MA_REL_BOUND of each sharded or copied leaf's own norm and of
+    its module's norm for a replicated tensor, whose code the model axis
+    leaves as it is (`model_axis_tensor_errors`); the parameters after the
+    steps reported
+    beside `adam_move_bound` (AdamW moves an entry by about lr a step
+    whatever its gradient, so an entry whose gradient is at rounding level
+    may move either way); deterministic algorithms on both sides; then
+    MA_FREE_STEPS steps more with them off, as the Trainer runs: every
+    rank's replicated parameters bit-equal, the ranks of each data group's
+    shards equal, every rank's metrics within MA_REL_BOUND of rank 0's
+    (cuDNN's default algorithms need not repeat a sum bit for bit); then
+    one bf16 step on 1 x 2
+    against the one-process bf16 step within BF16_CPU_REL. (b) the engine from text on a
+    one-process [1, 2] mesh (cuda:0 twice) with a random BERT at the
+    chinese-roberta-wwm-ext-large widths split over its model axis, against
+    the one-device engine with the same BERT unsplit: the features within
+    MA_BERT_REL, the waves within DP_ENGINE_BOUND, K1 28 and K2 3 a call;
+    the split and the unsplit encoder's ms per forward."""
+    from bert_vits2_tpu_torch.infer import TTSEngine
+    from bert_vits2_tpu_torch.parallel import make_mesh
+    from bert_vits2_tpu_torch.text.bert_encoder import (
+        BertEncoder,
+        BertEncoderExtractor,
+        EncoderConfig,
+    )
+
+    t_phase = time.perf_counter()
+    n_attn = N_ENC_ATTN + N_FLOW_ATTN
+    want_l = {"banded_attn_fwd_train": n_attn, "banded_attn_bwd_q": n_attn,
+              "banded_attn_bwd_k": n_attn, "mas_fwd": 1}
+    os.environ["BV2_FUSED_ATTENTION_TRAIN"] = "1"
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            # the one-process steps on the TRAIN_BATCH rows: fp32, then bf16
+            t0 = time.perf_counter()
+            ref = os.path.join(root, "ref.pt")
+            models, state, tcfg = model_axis_models("cuda")
+            with deterministic_algorithms(True):
+                one_t, _, _, one = model_axis_steps(
+                    models, state, tcfg, None, MA_STEPS, train_counters(),
+                    lambda: (torch.save(model_axis_full(models, None, grads=True),
+                                        ref + ".grads"),
+                             torch.save(model_axis_state(models, state), ref + ".s1")))
+            torch.save(model_axis_full(models, None, grads=False), ref)
+            torch.save(model_axis_moments(models, state, None), ref + ".m")
+            del models, state
+            torch.cuda.empty_cache()
+            models, state, btcfg = model_axis_models("cuda", bf16=True)
+            with deterministic_algorithms(True):
+                _, _, _, one_bf16 = model_axis_steps(models, state, btcfg, None, 1,
+                                                     train_counters())
+            del models, state
+            torch.cuda.empty_cache()
+            log(f"[model-axis] (a) {smi}: the one-process steps on {TRAIN_BATCH} rows, "
+                f"every dropout on: ms {[round(x * 1e3, 1) for x in one_t]}; "
+                f"{time.perf_counter() - t0:.1f} s")
+            # the meshes side by side (on one card: their ranks share it)
+            t0 = time.perf_counter()
+            runs = spawn_ranks([(f"model{d}x{m}", d * m) for d, m in MA_TOPOLOGIES], root,
+                               {"MA_REF": ref, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+            log(f"[model-axis] (a) {smi}: the {' and '.join(runs)} meshes side by side, "
+                f"{time.perf_counter() - t0:.1f} s")
+            rank_launches = None
+            for n_data, n_model in MA_TOPOLOGIES:
+                name = f"model{n_data}x{n_model}"
+                ranks = runs[name]
+                r0 = ranks[0]
+                rel = {}
+                for i in range(MA_STEPS):
+                    for k, v in one[i].items():
+                        rel[(i, k)] = abs(r0["metrics"][i][k] - v) / max(abs(v), 1e-12)
+                worst = [max((k for k in rel if k[0] == i), key=rel.get)
+                         for i in range(MA_STEPS)]
+                same_metrics = all(r["metrics"] == r0["metrics"] for r in ranks)
+                same_shards = all(
+                    r["shard_digest"] == ranks[r["coord"][1]]["shard_digest"] for r in ranks)
+                for r in ranks:
+                    log(f"[model-axis] (a) {smi}: {name} rank {r['rank']} (data "
+                        f"{r['coord'][0]}, model {r['coord'][1]}; gloo, cuda:0), "
+                        f"{TRAIN_BATCH // n_data} rows: ms per step "
+                        f"{[round(x * 1e3, 1) for x in r['times']]}, peak memory "
+                        f"{r['peak_gib']:.2f} GiB, launches per step {r['launches']} "
+                        f"at {r['heads']} head(s) a launch, the model group's "
+                        f"all-reduces per step {r['collectives']}")
+                max_l = max(r0["launches"], key=lambda lc: lc["mas_fwd"])
+                adam_bound = adam_move_bound(tcfg.learning_rate, tcfg.betas, MA_STEPS)
+                log(f"[model-axis] (a) {smi}: {name} against the one-process step "
+                    f"(deterministic algorithms on both sides), {MA_STEPS} steps, each "
+                    f"after the first from the one-process run's state: "
+                    f"losses and grad norms, largest relative difference per step "
+                    + ", ".join(f"{rel[w]:.3e} ({w[1]})" for w in worst)
+                    + f" (bound {MA_REL_BOUND:g}); the first step's gradients, gathered, "
+                    f"{r0['grad_err']:.3e} of each module's gradient norm "
+                    f"({r0['grad_where']}; bound {MA_REL_BOUND:g}), the relative tables' "
+                    f"and row-parallel gains' {r0['copied_err']:.3e} of each one's own "
+                    f"norm ({r0['copied_where']}; bound {MA_REL_BOUND:g}); Adam's first "
+                    f"moments after the steps (both steps' gradients), gathered, "
+                    f"{r0['m_err']:.3e} of each sharded or copied leaf's own norm, of "
+                    f"the module's norm for a replicated tensor, of their share of it "
+                    f"for the attention's key biases (zero in exact arithmetic) "
+                    f"({r0['m_where']}; bound {MA_REL_BOUND:g}; the largest five "
+                    + ", ".join(f"{k} {e:.2e}" for e, k in r0["m_worst"])
+                    + "); reported, not "
+                    f"held: parameters after the steps {r0['param_abs']:.3e} absolute "
+                    f"(AdamW's largest possible difference {adam_bound:.4g}: it moves an "
+                    f"entry by about lr a step whatever its gradient, so entries with a "
+                    f"gradient at rounding level may move opposite ways), "
+                    f"{r0['param_rel']:.3e} of the tensor's largest entry at "
+                    f"{r0['param_where']}; ranks' metrics equal {same_metrics}, the "
+                    f"ranks of each data group hold equal shards {same_shards}; "
+                    + ", ".join(f"{k} {r0['metrics'][-1][k]:.6g}/{one[-1][k]:.6g}"
+                                for k in ("loss/g/total", "loss/g/mel", "loss/g/kl",
+                                          "grad_norm_g", "grad_norm_d")))
+                free_metrics = all(r["free_metrics"] == r0["free_metrics"] for r in ranks)
+                free_rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                               for r in ranks for a, b in zip(r["free_metrics"],
+                                                              r0["free_metrics"]) for k in b)
+                free_rep = all(r["replicated_digest"] == r0["replicated_digest"]
+                               for r in ranks)
+                free_shards = all(r["sharded_digest"] == ranks[r["coord"][1]]["sharded_digest"]
+                                  for r in ranks)
+                log(f"[model-axis] (a) {smi}: {name}, {MA_FREE_STEPS} steps more with "
+                    f"deterministic algorithms off (the Trainer's setting): every rank's "
+                    f"metrics bit-equal {free_metrics}, largest relative difference from "
+                    f"rank 0's {free_rel:.3e} (bound {MA_REL_BOUND:g}), the replicated parameters "
+                    f"bit-equal on every rank {free_rep}, the ranks of each data group "
+                    f"hold equal shards {free_shards}; ms per step "
+                    f"{[round(x * 1e3, 1) for x in r0['free_times']]}; loss/g/total "
+                    f"{[round(m['loss/g/total'], 4) for m in r0['free_metrics']]}")
+                if (max(rel.values()) > MA_REL_BOUND or r0["grad_err"] > MA_REL_BOUND
+                        or r0["copied_err"] > MA_REL_BOUND or r0["m_err"] > MA_REL_BOUND
+                        or not same_metrics or not same_shards):
+                    raise AssertionError(f"[model-axis] {name} disagrees with one process")
+                if not (free_rep and free_shards) or free_rel > MA_REL_BOUND:
+                    raise AssertionError(f"[model-axis] {name}: the replicas drift apart")
+                if any(lc != want_l for r in ranks for lc in r["launches"]):
+                    raise AssertionError(f"[model-axis] {name} launches "
+                                         f"{[r['launches'] for r in ranks]}")
+                if r0["heads"] != [2 // n_model]:
+                    raise AssertionError(f"[model-axis] {name} heads {r0['heads']}")
+                if n_data == 1:
+                    bf = r0["bf16_metrics"][0]
+                    brel = {k: abs(bf[k] - v) / (abs(v) + 1e-3) for k, v in one_bf16[0].items()}
+                    bk = max(brel, key=brel.get)
+                    log(f"[model-axis] (a) {smi}: {name} bf16 step against the "
+                        f"one-process bf16 step: largest |a - b| / (|b| + 1e-3) "
+                        f"{brel[bk]:.3e} ({bk}; bound {BF16_CPU_REL:g}); ms "
+                        f"{[round(x * 1e3, 1) for x in r0['bf16_times']]}; launches "
+                        f"{r0['bf16_launches']}")
+                    if brel[bk] > BF16_CPU_REL:
+                        raise AssertionError("[model-axis] the bf16 step disagrees")
+                if n_data == 2:
+                    rank_launches = max_l
+    finally:
+        os.environ.pop("BV2_FUSED_ATTENTION_TRAIN", None)
+
+    # (b) the engine from text, its BERT split over the mesh's model axis
+    t0 = time.perf_counter()
+    bert_cfg = EncoderConfig(**BERT_CONFIGS["chinese-roberta-wwm-ext-large"])
+    torch.manual_seed(0)
+    bert = BertEncoder(bert_cfg).eval()
+    mesh = make_mesh(n_data=1, n_model=2, devices=["cuda:0", "cuda:0"])
+    single_ext = BertEncoderExtractor(device="cuda")
+    split_ext = BertEncoderExtractor(mesh=mesh)
+    for ext in (single_ext, split_ext):
+        model = ext.place(copy.deepcopy(bert))
+        ext._loaded = {lang: (None, model) for lang in ("ZH", "JP", "EN")}
+    del bert
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, bert_cfg.vocab_size, (1, BERT_T))).cuda()
+    mask = torch.ones_like(ids)
+    with torch.inference_mode():
+        bert_ms = {name: cuda_ms(lambda e=ext: e._loaded["JP"][1](ids, mask),
+                                 iters=10, warmup=3)
+                   for name, ext in (("unsplit", single_ext), ("split", split_ext))}
+    model = make_model("cuda")
+    single_bert = SeededIdsBert(single_ext, bert_cfg.vocab_size)
+    split_bert = SeededIdsBert(split_ext, bert_cfg.vocab_size)
+    single = TTSEngine(model, device="cuda", bert_extractor=single_bert)
+    split = TTSEngine(model, mesh=mesh, bert_extractor=split_bert)
+    errs, launches, feat_rel = [], [], 0.0
+    for lang in ("JP", "EN"):
+        for text in TEXT_SENTENCES[lang][:2]:
+            want = single.infer(text, 0, language=lang)
+            for fn in counters.values():
+                fn.launches = 0
+            got = split.infer(text, 0, language=lang)
+            torch.cuda.synchronize()
+            launches.append({k: fn.launches for k, fn in counters.items() if fn.launches})
+            errs.append(float(np.abs(got - want).max()) if len(got) == len(want)
+                        else math.inf)
+    for a, b in zip(single_bert.features, split_bert.features):
+        feat_rel = max(feat_rel, float(np.abs(b - a).max() / np.abs(a).max()))
+    engine_launches = launches[-1]
+    log(f"[model-axis] (b) {smi}: TTSEngine on make_mesh(1, 2, [cuda:0, cuda:0]), its "
+        f"BERT ({sum(p.numel() for p in split_ext._loaded['JP'][1].parameters())} "
+        f"parameters, {bert_cfg.num_layers} layers of {bert_cfg.num_heads} heads, "
+        f"random weights, ids a seeded function of the text) split over the model "
+        f"axis, against the one-device engine with the same BERT unsplit, "
+        f"{len(errs)} JP/EN sentences from text: BERT features largest relative "
+        f"difference {feat_rel:.3e} (bound {MA_BERT_REL:g}), waves max-abs-err "
+        f"{max(errs):.3e} (bound {DP_ENGINE_BOUND:g}); launches a call {launches}; the "
+        f"encoder at t = {BERT_T}: unsplit {bert_ms['unsplit']:.3f} ms, split in two "
+        f"on one card {bert_ms['split']:.3f} ms per forward (CUDA events, 10 after 3 "
+        f"warm-up); {time.perf_counter() - t0:.1f} s")
+    if feat_rel > MA_BERT_REL or max(errs) > DP_ENGINE_BOUND:
+        raise AssertionError("[model-axis] the split BERT's engine disagrees")
+    if any((lc.get("banded_attn_fwd"), lc.get("mrf_fwd")) != (
+            N_ENC_ATTN * 2 + N_FLOW_ATTN, 3) for lc in launches):
+        raise AssertionError(f"[model-axis] engine launches {launches}")
+    del single, split, model, single_ext, split_ext
+    torch.cuda.empty_cache()
+    log(f"[model-axis] phase {time.perf_counter() - t_phase:.1f} s")
+    return {**{k: engine_launches.get(k, 0) for k in ("banded_attn_fwd", "mrf_fwd")},
+            **rank_launches}
+
+
+AB_WARMUP, AB_STEPS = 2, 5  # --step-ab: steps of each variant
+
+
+def run_step_ab(smi) -> dict:
+    """--step-ab: the one-process V2.3 training step at full width on the
+    TRAIN_BATCH rows, the default dropouts on, TF32 off: fp32 with dense
+    attention, fp32 with fused attention, bf16 (`bf16_run` and bf16
+    compute) with fused attention. For each: the median and every ms per
+    step of AB_STEPS after AB_WARMUP, the peak memory over them, and the
+    CUDA kernels and copies of one more step under torch.profiler. Only
+    what the port's step has had since its bf16 slice is used, so a copy
+    of this script at the root of an earlier tree times that tree."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bert_vits2_tpu_torch.config import ModelConfig
+    from bert_vits2_tpu_torch.train import (
+        DataConfig, TrainConfig, init_train_state, make_train_step)
+    from bert_vits2_tpu_torch.train.trainer import build_models, init_params
+
+    out = {}
+    for name, fused, bf16 in (("fp32_dense", False, False), ("fp32_fused", True, False),
+                              ("bf16_fused", True, True)):
+        os.environ["BV2_FUSED_ATTENTION_TRAIN"] = "1" if fused else "0"
+        cfg = ModelConfig(train_compute_dtype="bfloat16" if bf16 else "float32")
+        tcfg, data_cfg = TrainConfig(bf16_run=bf16), DataConfig()
+        models = init_params(build_models(cfg, device="cuda"), cfg, seed=1234)
+        state = init_train_state(models, tcfg)
+        step = make_train_step(models, tcfg, data_cfg, cfg.segment_size)
+        batch = make_train_batch(cfg, data_cfg.hop_length, TRAIN_BATCH, TRAIN_TX,
+                                 TRAIN_TY, seed=0, dev="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(tcfg.seed)
+        times = []
+        for i in range(AB_WARMUP + AB_STEPS):
+            if i == AB_WARMUP:
+                torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, gen, tcfg.learning_rate)
+            torch.cuda.synchronize()
+            if i >= AB_WARMUP:
+                times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(state, batch, gen, tcfg.learning_rate)
+            torch.cuda.synchronize()
+        n_kernels = sum(e.count for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA
+                        and not e.key.startswith("Optimizer."))
+        bad = [k for k, v in metrics.items() if not math.isfinite(float(v))]
+        if bad:
+            raise AssertionError(f"--step-ab {name}: non-finite {bad}")
+        out[name] = {"median_ms": float(np.median(times)) * 1e3,
+                     "ms": [t * 1e3 for t in times], "peak_gib": peak,
+                     "device_ops": n_kernels}
+        log(f"[step-ab] {smi}: {name}, {TRAIN_BATCH} rows: median "
+            f"{out[name]['median_ms']:.1f} ms per step over {AB_STEPS} after "
+            f"{AB_WARMUP} warm-up ({[round(t * 1e3, 1) for t in times]}), peak memory "
+            f"{peak:.3f} GiB, {n_kernels} device kernels and copies in one step")
+        del models, state, step
+        torch.cuda.empty_cache()
+    os.environ.pop("BV2_FUSED_ATTENTION_TRAIN", None)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4138,6 +4880,13 @@ def main(argv=None) -> int:
                     help="the build, then the [dist] phase alone (the data axis: "
                          "salted kernels, an NCCL rank, two gloo ranks on one card, "
                          "the data-parallel engine); no ok line")
+    ap.add_argument("--model-axis", action="store_true",
+                    help="the build, then the [model-axis] phase alone (the sharded "
+                         "step on 1 x 2 and 2 x 2 gloo meshes on one card against "
+                         "one process, the engine with a split BERT); no ok line")
+    ap.add_argument("--step-ab", action="store_true",
+                    help="the build, then the one-process V2.3 step timed (fp32 "
+                         "dense and fused attention, bf16 fused); no ok line")
     ap.add_argument("--slm-drift", type=int, metavar="STEPS",
                     help="the build, then the [train-slm] card-vs-CPU check before "
                          "and after each of STEPS SLM steps, reported; no ok line")
@@ -4209,6 +4958,13 @@ def main(argv=None) -> int:
         return 0
     if args.dist:
         print(json.dumps({"launches_dist": run_dist(dev, smi, counters)}), flush=True)
+        return 0
+    if args.model_axis:
+        print(json.dumps({"launches_model_axis": run_model_axis(dev, smi, counters)}),
+              flush=True)
+        return 0
+    if args.step_ab:
+        print(json.dumps({"step_ab": run_step_ab(smi)}), flush=True)
         return 0
     if args.slm_drift:
         print(json.dumps({"slm_drift": run_slm_drift(dev, smi, args.slm_drift)}),
@@ -4325,6 +5081,7 @@ def main(argv=None) -> int:
     run_trainer_bf16(dev, smi, counters)
     prep_launches = run_prep(dev, smi, counters)
     dist_launches = run_dist(dev, smi, counters)
+    model_axis_launches = run_model_axis(dev, smi, counters)
     launches.update({k: v for k, v in trained.items() if k not in ("banded_attn_fwd",
                                                                     "mrf_fwd")})
     # the wide kernels' path is the [attention-range] phase
@@ -4472,6 +5229,10 @@ def main(argv=None) -> int:
                   "cuda:0] (both replicas) for K1 and K2, and the launches of one "
                   "rank's step of two gloo ranks for the training kernels (counts "
                   "zeroed before each)")
+    model_axis_basis = ("; launches_model_axis: [model-axis]'s engine call on a [1, 2] "
+                        "mesh (its BERT split over the model axis) for K1 and K2, and "
+                        "one rank's step of the 2 x 2 mesh (one head of two a "
+                        "launch) for the training kernels (counts zeroed before each)")
     for row in record["kernels"]:
         if pack_launches.get(row["name"]):
             row["launches_pack"] = pack_launches[row["name"]]
@@ -4479,6 +5240,9 @@ def main(argv=None) -> int:
         if dist_launches.get(row["name"]):
             row["launches_dist"] = dist_launches[row["name"]]
             row["basis"] += dist_basis
+        if model_axis_launches.get(row["name"]):
+            row["launches_model_axis"] = model_axis_launches[row["name"]]
+            row["basis"] += model_axis_basis
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -364,6 +364,54 @@ def test_salted_kernels_give_a_half_the_full_batchs_masks(card, b, h, t, d, dtyp
             assert rel <= 1e-4, (name, rel)
 
 
+HEAD_CASES = [(4, 2, 200, 96), (2, 4, 200, 96), (4, 2, 200, 160)]  # tensor-core; wide
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,d", HEAD_CASES)
+def test_salted_kernels_give_a_head_half_the_full_calls_masks(card, b, h, t, d, dtype):
+    """The model axis: K1's train mode, B5 and B6 (tensor-core or wide,
+    fp32 or bf16) with the hash dropout on one half of the heads, salted
+    (row_offset * h + head_offset, h), alone and on a half of the rows too:
+    out, dq, dk and dv bit-equal to the full call's heads (so every
+    dropout mask is the full call's), and the tables' gradients of the two
+    head halves summed (the model group's all-reduce) within 1e-5 (fp32)
+    or 8 bf16 ulps of the largest entry."""
+    w, p_drop, seed = 4, 0.1, 98765
+    g = torch.Generator(device=card).manual_seed(t + d + h)
+    q, k, v, go = (torch.randn(b, h, t, d, device=card, generator=g) for _ in range(4))
+    q = q / d ** 0.5
+    ek, ev = (torch.randn(2 * w + 1, d, device=card, generator=g) / d ** 0.5
+              for _ in range(2))
+    m = _lens_mask([t, t - 31, t - 70, t - 5][:b], t, card)
+    go = go * m[:, None, :, None]
+    q, k, v, ek, ev, go = (a.to(dtype) for a in (q, k, v, ek, ev, go))
+
+    def run(rows, heads, salt):
+        qq, kk, vv, gg = (a[rows, heads].contiguous() for a in (q, k, v, go))
+        mm = m[rows].contiguous()
+        out, mr, lr = banded_attention_fwd_train(qq, kk, vv, mm, ek, ev, w, p_drop, seed,
+                                                 salt)
+        args = (qq, kk, vv, mm, ek, ev, gg, mr, lr,
+                (gg.float() * out.float()).sum(-1), w, p_drop, seed, salt)
+        return (out, *banded_attention_bwd_q(*args), *banded_attention_bwd_k(*args))
+
+    hl = h // 2
+    for r0 in (0, b // 2):  # the whole batch, and the second half of its rows
+        rows = slice(r0, b)
+        full = run(rows, slice(0, h), (r0 * h, h))
+        parts = [run(rows, slice(o, o + hl), (r0 * h + o, h)) for o in (0, hl)]
+        for i, name in ((0, "out"), (1, "dq"), (4, "dk"), (5, "dv")):
+            assert torch.equal(torch.cat([p[i] for p in parts], dim=1), full[i]), name
+        for i, name in ((2, "dek"), (3, "dev")):
+            got = parts[0][i].float() + parts[1][i].float()
+            ref = full[i].float()
+            bound = (1e-5 * ref.abs().max().item() if dtype == torch.float32
+                     else 2 * _bf16_bound(ref))
+            assert (got - ref).abs().max().item() <= bound, name
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [96, 128, 160])
 def test_banded_attention_backward_is_deterministic(card, d):

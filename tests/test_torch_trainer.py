@@ -394,9 +394,10 @@ def test_slm_and_parallel_rules(corpus, tmp_path):
     """A declared but missing WavLM dir raises FileNotFoundError, a present
     one loads and turns the SLM losses on (the WavLM discriminator at
     model.slm's widths beside the other models, the frozen WavLM on the
-    Trainer); model parallelism raises, through the CLI with --multihost
-    too (that flag joins torchrun's process group, a no-op in one process;
-    ROADMAP §A.9)."""
+    Trainer); the model axis outside a process group raises, through the
+    CLI with --multihost too (that flag joins torchrun's process group, a
+    no-op in one process; the model axis runs on n_data x n_model ranks,
+    tests/test_torch_model_parallel.py)."""
     _, cfg_path = corpus
     cfg_slm = _slm_config(corpus, tmp_path, write_wavlm=False)
     with pytest.raises(FileNotFoundError, match="slm"):
@@ -411,10 +412,10 @@ def test_slm_and_parallel_rules(corpus, tmp_path):
     with pytest.raises(ValueError, match="WavLM"):
         Trainer(cfg_path, str(tmp_path / "d"), use_wavlm_disc=True,
                 slm_path=None, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.9"):
+    with pytest.raises(ValueError, match="process group"):
         Trainer(cfg_path, str(tmp_path / "e"), n_model=2, slm_path=None,
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="A.9"):
+    with pytest.raises(ValueError, match="process group"):
         main(["-c", cfg_path, "-m", str(tmp_path / "f"), "--multihost",
               "--n-model", "2", "--device", "cpu"])
 
